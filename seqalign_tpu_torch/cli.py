@@ -1,0 +1,359 @@
+"""``smith_waterman``-compatible command-line tool on PyTorch + CUDA.
+
+``python -m seqalign_tpu_torch.cli`` takes the flags of ``seqalign_tpu.cli``
+for the single-query search and prints the same lines: the "Query File=...
+and Database File=..." line, ``Entry #N:`` / ``score: S`` per entry, and the
+trailing ``Total Time:`` / ``Total Entries:`` lines, with the same messages
+and exit codes. Flags of modes the port does not have yet exit 1 with
+``Error: <flag> is not yet ported to seqalign_tpu_torch``.
+
+``SEQALIGN_PLATFORM`` picks the device: ``cuda`` (the default) or ``cpu``.
+"""
+
+from __future__ import annotations
+
+import sys
+
+from .host import ScoringModel, load_substitution_matrix, sw_default_scoring
+
+USAGE = """usage: {prog} [OPTIONS] [seq1 seq2]
+  Smith-Waterman optimal local alignment (maximises score).
+  Takes a query FASTA and a database FASTA and scores the query against
+  every database record. Can read gzip files, FASTA and FASTQ.
+
+  OPTIONS:
+    --file <file>        Sequence file reading with gzip support - read two
+                         sequences at a time and align them
+    --files <f1> <f2>    Read one sequence from each file to align at one time
+    --stdin              Read from STDIN (same as '--file -')
+
+    --match <score>      [default: {match}]
+    --mismatch <score>   [default: {mismatch}]
+    --gapopen <score>    [default: {gapopen}]
+    --gapextend <score>  [default: {gapextend}]
+
+    --substitution_matrix <file>  see details for formatting
+
+    --minscore <score>   Only print entries scoring at least this
+                         (documented but unimplemented in the reference)
+
+    --printseq           Print sequences before local alignments
+    --printmatrices      Print dynamic programming matrices
+    --printfasta         Print fasta header lines
+    --pretty             Print with a descriptor line
+    --colour             Print with colour
+
+  EXTENSIONS (seqalign_tpu_torch):
+    --engine <name>      stream | wavefront | scan  [default: stream]
+    --lanes <n>          lane-batch width override
+    --no-sort            do not length-sort the database (assume pre-sorted)
+    --topk <n>           print only the n best-scoring entries
+    --first-query        score only the first record of the query file
+    --db-cache <path>    persistent encoded-database cache (.sqc): parse
+                         the FASTA once, mmap thereafter ('auto' = sidecar
+                         <db>.sqc; rebuilt when the FASTA changes)
+    --json               print results as one JSON object
+
+  Not yet ported: --all-queries, --align, --stream-chunk, --checkpoint,
+  --trace, --hosts, --host-id, --coordinator.
+  SEQALIGN_PLATFORM=cuda|cpu picks the device [default: cuda].
+
+ DETAILS:
+  * Gap (of length N) penalty is: (open+N*extend)
+  * To do alignment without affine gap penalty, set '--gapopen 0'.
+  * Scoring files should be matrices, with entries separated by a single
+    character or whitespace, or a builtin name (BLOSUM45, BLOSUM62, PAM250).
+"""
+
+# Flags of the JAX package's later slices: recognised, refused.
+NOT_PORTED = (
+    "--all-queries", "--align", "--stream-chunk", "--checkpoint", "--trace",
+    "--hosts", "--host-id", "--coordinator",
+)
+
+
+def _usage_exit(prog: str, scoring: ScoringModel, err: str | None) -> int:
+    if err is not None:
+        sys.stderr.write("Error: " + err + ("\n" if not err.endswith("\n") else ""))
+    sys.stderr.write(
+        USAGE.format(
+            prog=prog,
+            match=scoring.match,
+            mismatch=scoring.mismatch,
+            gapopen=scoring.gap_open,
+            gapextend=scoring.gap_extend,
+        )
+    )
+    return 1
+
+
+def _not_ported(what: str) -> int:
+    sys.stderr.write(f"Error: {what} is not yet ported to seqalign_tpu_torch\n")
+    return 1
+
+
+def _parse_int(s: str):
+    try:
+        return int(s)
+    except ValueError:
+        return None
+
+
+def _has_second_record(path: str) -> bool:
+    from .host import read_fasta
+
+    try:
+        it = read_fasta(path)
+        try:
+            next(it)
+            return next(it, None) is not None
+        finally:
+            it.close()  # release the file handle from the probe
+    except (OSError, ValueError, StopIteration):
+        return False
+
+
+def main(argv: list[str] | None = None) -> int:
+    argv = list(sys.argv if argv is None else argv)
+    prog = argv[0] if argv else "smith_waterman"
+    args = argv[1:]
+    scoring = sw_default_scoring()
+
+    if not args:
+        return _usage_exit(prog, scoring, None)
+    for a in args:
+        if a.lower() in ("--help", "-help", "-h"):
+            return _usage_exit(prog, scoring, None)
+
+    file1 = file2 = None
+    substitutions_set = match_set = False
+    print_seq = print_fasta = False
+    engine = None
+    lanes = None
+    sort = True
+    topk = None
+    minscore = None
+    as_json = False
+    first_query = False
+    matrix_spec = None
+    db_cache = None
+
+    i = 0
+    n = len(args)
+    while i < n:
+        a = args[i]
+        al = a.lower()
+        if a.startswith("-"):
+            if al in NOT_PORTED:
+                return _not_ported(al)
+            if al == "--printseq":
+                print_seq = True
+            elif al == "--printmatrices":
+                pass  # parsed but inert, like the reference (sw_cmdline.c:40-42)
+            elif al == "--printfasta":
+                print_fasta = True
+            elif al == "--pretty" or al == "--colour":
+                pass  # parsed but inert, like the reference
+            elif al == "--stdin":
+                file1, file2 = "", None
+            elif al == "--no-sort":
+                sort = False
+            elif al == "--first-query":
+                first_query = True
+            elif al == "--json":
+                as_json = True
+            elif i == n - 1:
+                return _usage_exit(
+                    prog, scoring, f"Unknown argument without parameter: {a}"
+                )
+            elif al == "--scoring":
+                # Vestigial flag: the reference swallows --scoring plus its
+                # argument with no effect (alignment_cmdline.c:226-228).
+                i += 1
+            elif al == "--substitution_matrix":
+                matrix_spec = args[i + 1]
+                substitutions_set = True
+                i += 1
+            elif al in ("--match", "--mismatch", "--gapopen", "--gapextend"):
+                v = _parse_int(args[i + 1])
+                if v is None:
+                    return _usage_exit(
+                        prog,
+                        scoring,
+                        f"Invalid {al} argument ('{args[i+1]}') must be an int",
+                    )
+                if al == "--match":
+                    scoring.match = v
+                    match_set = True
+                elif al == "--mismatch":
+                    scoring.mismatch = v
+                elif al == "--gapopen":
+                    scoring.gap_open = v
+                else:
+                    scoring.gap_extend = v
+                i += 1
+            elif al == "--file":
+                file1, file2 = args[i + 1], None
+                i += 1
+            elif al == "--engine":
+                engine = args[i + 1]
+                i += 1
+            elif al in ("--lanes", "--topk"):
+                v = _parse_int(args[i + 1])
+                if v is None or v <= 0:
+                    return _usage_exit(
+                        prog, scoring,
+                        f"Invalid {al} argument ('{args[i+1]}') "
+                        "must be a positive int",
+                    )
+                if al == "--lanes":
+                    lanes = v
+                else:
+                    topk = v
+                i += 1
+            elif al == "--minscore":
+                minscore = _parse_int(args[i + 1])
+                if minscore is None:
+                    return _usage_exit(
+                        prog, scoring,
+                        f"Invalid --minscore argument ('{args[i+1]}') must be an int",
+                    )
+                i += 1
+            elif al == "--db-cache":
+                db_cache = args[i + 1]
+                i += 1
+            elif al == "--files":
+                if i >= n - 2:
+                    return _usage_exit(prog, scoring, "--files option takes 2 arguments")
+                print(f"Query File={args[i+1]} and Database File={args[i+2]}")
+                if args[i + 1] == "-" and args[i + 2] == "-":
+                    file1, file2 = args[i + 1], None
+                else:
+                    file1, file2 = args[i + 1], args[i + 2]
+                i += 2
+            else:
+                return _usage_exit(prog, scoring, f"Unknown argument '{a}'")
+        else:
+            if n - i != 2:
+                return _usage_exit(prog, scoring, f"Unknown options: '{a}'")
+            break
+        i += 1
+
+    if matrix_spec is not None:
+        try:
+            load_substitution_matrix(matrix_spec, scoring)
+        except OSError:
+            return _usage_exit(prog, scoring, f"Couldn't read: {matrix_spec}")
+
+    if substitutions_set and not match_set:
+        scoring.use_match_mismatch = False
+    scoring.finalize()
+
+    if scoring.use_match_mismatch and scoring.match < scoring.mismatch:
+        return _usage_exit(
+            prog, scoring, "Match value should not be less than mismatch penalty"
+        )
+    if file1 is None or file2 is None:
+        if file1 is not None and file2 is None and file1 == "":
+            sys.stderr.write(
+                "Error: Both query and database files must be provided\n"
+            )
+            return 0  # reference main returns EXIT_SUCCESS here
+        return _usage_exit(prog, scoring, "No input specified")
+
+    # A multi-record query file is batched through the multi-query kernel
+    # (K3) by the JAX package; --first-query and --printseq keep the
+    # reference's first-record behaviour.
+    if (
+        not first_query and not print_seq and file1 != "-"
+        and _has_second_record(file1)
+    ):
+        return _not_ported(
+            "a multi-record query file (--all-queries; pass --first-query "
+            "to score only the first record)"
+        )
+
+    from .pipeline import resolve_device, search_files
+
+    try:
+        resolve_device()
+    except (RuntimeError, ValueError) as e:
+        sys.stderr.write(f"Error: {e}\n")
+        return 1
+
+    if db_cache is not None and print_seq:
+        # --printseq needs the original sequence strings, which the
+        # encoded cache does not keep.
+        sys.stderr.write(
+            "Note: --db-cache is ignored with --printseq (it needs the "
+            "FASTA's original sequence text).\n"
+        )
+        db_cache = None
+
+    try:
+        result = search_files(
+            file1, file2, scoring, engine=engine, lanes=lanes,
+            keep_seqs=print_seq, db_cache=db_cache, sort=sort,
+        )
+    except NotImplementedError as e:
+        sys.stderr.write(f"Error: {e}\n")
+        return 1
+    except ValueError as e:
+        sys.stderr.write(str(e) + "\n")
+        return 0  # reference prints the error and exits successfully
+
+    out = sys.stdout
+    order = range(result.total_entries)
+    if topk is not None:
+        import numpy as np
+
+        order = list(np.argsort(-result.scores, kind="stable")[:topk])
+    if minscore is not None:
+        order = [k for k in order if result.scores[k] >= minscore]
+
+    if as_json:
+        import json
+
+        json.dump(
+            {
+                "query": result.query_name,
+                "entries": [
+                    {
+                        "entry": int(k),
+                        "name": result.names[k],
+                        "score": int(result.scores[k]),
+                    }
+                    for k in order
+                ],
+                "total_time": result.kernel_time,
+                "total_entries": result.total_entries,
+                "entries_per_s": (
+                    result.total_entries / result.kernel_time
+                    if result.kernel_time
+                    else None
+                ),
+            },
+            out,
+        )
+        out.write("\n")
+        return 0
+
+    if print_fasta:
+        out.write(result.query_name + "\n")
+    if print_seq:
+        out.write(result.query_seq + "\n")
+    for k in order:
+        out.write(f"Entry #{k}:\n")
+        if print_fasta:
+            out.write(result.names[k] + "\n")
+        if print_seq:
+            out.write(result.seqs[k] + "\n")
+        out.write(f"score: {int(result.scores[k])}\n\n")
+
+    out.write(f"Total Time: {result.kernel_time:f}\n")
+    out.write(f"Total Entries: {result.total_entries}\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

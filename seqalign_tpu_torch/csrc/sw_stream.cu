@@ -1,0 +1,152 @@
+// Segmented-stream Smith-Waterman scoring (one query, many database
+// sequences) for Hopper, sm_90a.
+//
+// Replaces the TPU kernel seqalign_tpu/ops/swa_pallas.py:_kernel_stream
+// + _run_block (K1): the same G-form affine-gap recurrence over the same
+// inputs (biased profile P' = P - go, NW window streams, segment table fs),
+// with the same per-segment outputs, bit for bit.
+//
+// Layout of the work. One thread owns one lane (one database sequence at a
+// time) of one window and walks that window's stream in blocks of JB
+// positions. The TPU's sequential grid over blocks becomes this in-thread
+// loop, so nothing crosses CTAs. The CTAs of a window read the same fs
+// column, so the flush/reset branch is uniform across a CTA.
+//
+// State. The rolling (Gg, E) rows, lqp per lane, live in a device-memory
+// scratch laid out [w][i][lane], so a warp's accesses are coalesced. The
+// left/diagonal chain of the JB positions stays in registers, as in
+// _run_block. P' sits in shared memory as (lqp, 32) int32: one row is 32
+// words, one per bank, so a warp gathering P'[i][c_lane] has no bank
+// conflicts (equal words broadcast).
+//
+// What bounds it on this card. Each row of each block loads and stores the
+// lane's Gg and E: 16 bytes per JB cells, about 16/JB bytes per cell (1 at
+// JB = 16, the one block size built). That traffic holds the kernel below
+// the int32 ALU limit (a shared load and about seven add/max/DPX
+// instructions per cell, near 2 T cells/s on 132 SMs): on an H100, a JB = 8
+// build ran 1.35-1.9x slower than JB = 16. A later kernel keeps stripes of query rows in
+// registers and passes only a stripe's boundary row through device memory
+// (the structure of the striped TPU kernel, K2), which removes the row
+// traffic and lets one thread work on several cells at once.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kAlpha = 32;
+constexpr int kThreads = 256;
+constexpr int kRowUnroll = 4;  // the wrapper pads rows to this multiple
+constexpr int JB = 16;  // positions per block (swa_cuda.STREAM_JB)
+
+__global__ void __launch_bounds__(kThreads) sw_stream_kernel(
+    const int32_t* __restrict__ prof,    // (lqp, 32) biased profile
+    const int8_t* __restrict__ streams,  // (nw, L, win) chars 0..31
+    const int32_t* __restrict__ fs,      // (L/JB, nw, 2) segment table
+    int32_t* __restrict__ out,           // (nslots, win) per-segment bests
+    int32_t* __restrict__ row_gg,        // (nw, lqp, win) scratch
+    int32_t* __restrict__ row_e,         // (nw, lqp, win) scratch
+    int lqp, int len, int win, int nw, int go, int ge) {
+  extern __shared__ int32_t sprof[];
+  for (int k = threadIdx.x; k < lqp * kAlpha; k += blockDim.x) {
+    sprof[k] = prof[k];
+  }
+  __syncthreads();
+
+  const int w = blockIdx.y;
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= win) return;
+
+  const size_t rows_off = (size_t)w * lqp * win + lane;
+  int32_t* gg_row = row_gg + rows_off;
+  int32_t* e_row = row_e + rows_off;
+  const int8_t* col = streams + (size_t)w * len * win + lane;
+  const int nblocks = len / JB;
+
+  int best = 0;
+  bool fresh = true;  // the rows hold the boundary (Gg = go, E = 0)
+  for (int blk = 0; blk < nblocks; ++blk) {
+    const int slot = fs[((size_t)blk * nw + w) * 2];
+    if (slot > 0) {
+      // A new segment starts here: flush the finished one, reset.
+      out[(size_t)(slot - 1) * win + lane] = best;
+      best = 0;
+      fresh = true;
+    }
+    int c[JB];
+#pragma unroll
+    for (int t = 0; t < JB; ++t) {
+      // Read the char unsigned and mask it: never a negative index.
+      c[t] = (int)(uint8_t)col[(size_t)(blk * JB + t) * win] & (kAlpha - 1);
+    }
+    // Query row -1 is the boundary: Gg = go, F = 0 at every position.
+    int lgg[JB], lf[JB];
+#pragma unroll
+    for (int t = 0; t < JB; ++t) {
+      lgg[t] = go;
+      lf[t] = 0;
+    }
+    int dt = go;  // Gg(i-1, block start - 1), the t = 0 diagonal
+#pragma unroll 4  // kRowUnroll
+    for (int i = 0; i < lqp; ++i) {
+      const int32_t* prow = sprof + i * kAlpha;
+      int gg_prev = fresh ? go : gg_row[(size_t)i * win];
+      int e_prev = fresh ? 0 : e_row[(size_t)i * win];
+      const int t0n = gg_prev;  // row i+1's t = 0 diagonal
+#pragma unroll
+      for (int t = 0; t < JB; ++t) {
+        const int hp = dt + prow[c[t]];
+        const int e = __viaddmax_s32(e_prev, ge, gg_prev);
+        const int f = __viaddmax_s32(lf[t], ge, lgg[t]);
+        const int g = __vimax3_s32_relu(hp, e, f);
+        best = max(best, g);
+        dt = lgg[t];  // Gg(i-1, t), the diagonal of t + 1
+        lgg[t] = g + go;
+        lf[t] = f;
+        gg_prev = g + go;
+        e_prev = e;
+      }
+      dt = t0n;
+      gg_row[(size_t)i * win] = gg_prev;
+      e_row[(size_t)i * win] = e_prev;
+    }
+    fresh = false;
+  }
+  if (nblocks > 0) {
+    const int slot = fs[((size_t)(nblocks - 1) * nw + w) * 2 + 1];
+    if (slot > 0) out[(size_t)(slot - 1) * win + lane] = best;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launch the kernel on `stream`; returns the CUDA error code (0 = launched).
+// `jb` must be the JB the kernel is built for.
+int sw_stream_launch(const void* prof, const void* streams, const void* fs,
+                     void* out, void* row_gg, void* row_e, int lqp, int len,
+                     int win, int nw, int jb, int go, int ge, void* stream) {
+  if (lqp % kRowUnroll || win <= 0 || nw <= 0 || nw > 65535 || len <= 0 ||
+      jb != JB || len % JB) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const size_t smem = (size_t)lqp * kAlpha * sizeof(int32_t);
+  // Above 48 KB a block's dynamic shared memory must be opted into.
+  cudaError_t err = cudaFuncSetAttribute(
+      sw_stream_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((win + kThreads - 1) / kThreads, nw);
+  sw_stream_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (const int32_t*)prof, (const int8_t*)streams, (const int32_t*)fs,
+      (int32_t*)out, (int32_t*)row_gg, (int32_t*)row_e, lqp, len, win, nw,
+      go, ge);
+  return (int)cudaGetLastError();
+}
+
+const char* sw_stream_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+}  // extern "C"

@@ -1,0 +1,88 @@
+"""Build and load the port's CUDA kernels at first use.
+
+``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain C
+interface, loaded with ``ctypes``; no PyTorch headers are involved, so a
+build takes seconds. The library's file name carries a hash of the sources
+and flags, so an edited source is rebuilt and an unchanged one is loaded
+from ``build/seqalign_tpu_torch/`` at the root of the checkout. A missing
+``nvcc`` or a failed build raises ``RuntimeError``; nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "seqalign_tpu_torch"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+]
+
+_lib = None
+
+
+def _sources() -> list[Path]:
+    return sorted(_CSRC.glob("*.cu"))
+
+
+def _find_nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
+        if cand and os.access(cand, os.X_OK):
+            return cand
+    raise RuntimeError(
+        "nvcc not found on PATH or under $CUDA_HOME/bin; the CUDA kernels "
+        "of seqalign_tpu_torch are built with the CUDA toolkit"
+    )
+
+
+def build(build_dir: Path = BUILD_DIR) -> Path:
+    """Compile the kernels unless a build of these exact sources exists.
+
+    Returns the shared library's path.
+    """
+    srcs = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in srcs:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    lib_path = Path(build_dir) / f"libseqalign_kernels_{h.hexdigest()[:16]}.so"
+    if lib_path.exists():
+        return lib_path
+    nvcc = _find_nvcc()
+    lib_path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, lib_path)
+    return lib_path
+
+
+def load() -> ctypes.CDLL:
+    """The loaded kernel library (built first if needed)."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        lib.sw_stream_launch.restype = ctypes.c_int
+        lib.sw_stream_launch.argtypes = (
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        )
+        lib.sw_stream_error_string.restype = ctypes.c_char_p
+        lib.sw_stream_error_string.argtypes = [ctypes.c_int]
+        _lib = lib
+    return _lib
+
+
+def error_string(err: int) -> str:
+    return load().sw_stream_error_string(err).decode()

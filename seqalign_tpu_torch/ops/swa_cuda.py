@@ -1,0 +1,271 @@
+"""The segmented-stream Smith-Waterman kernel (K1) for Hopper, and its plain
+PyTorch version.
+
+:func:`sw_stream` keeps the contract of ``seqalign_tpu.ops.swa_pallas.
+sw_pallas_stream``: NW window streams, each a back-to-back concatenation of
+'*'-padded lane-group segments (``seqalign_tpu.utils.packing.
+pack_streams``), are scored against one query in a single launch, and every
+segment's per-lane best lands in its output slot. A nonzero ``fs[j, w, 0]``
+means a new segment starts at block ``j`` of window ``w``: the finished
+segment's best goes to slot ``fs[j, w, 0] - 1`` and the window's DP state
+resets. ``fs[L//jb - 1, w, 1]`` is 1 + the slot of the window's final
+segment. Slots that no ``fs`` entry names stay zero.
+
+The DP is the G-form recurrence of ``swa_pallas.py`` (valid for ge >= go),
+in int32 throughout, on the biased profile ``P' = P - go``::
+
+    H' = Gg_diag + P'[i, c]       E = max(Gg_up, E_up + ge)
+    F  = max(Gg_left, F_left + ge) G = max(H', E, F, 0)      Gg = G + go
+
+with the running best taken over G, and boundary Gg = go, E = F = 0.
+
+On a CUDA tensor :func:`sw_stream` launches the kernel in
+``csrc/sw_stream.cu`` or raises; on a CPU tensor it runs
+:func:`sw_stream_reference`. Single query only.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..convert import ROW_ALIGN
+
+# The port's query-row limit: the biased profile sits in one block's
+# shared memory as (rows, 32) int32, 1536 * 128 B = 192 KiB of the 227 KiB
+# a Hopper block may hold. Longer queries need the row-striped kernel (K2).
+MAX_QUERY_ROWS = 1536
+
+# Positions per kernel block, chained through registers per sweep over the
+# query rows; the one block size the CUDA kernel is built for (the plain
+# version takes any). On an H100 16 ran 1.35-1.9x faster than 8 at lq=144
+# (PERF.md).
+STREAM_JB = 16
+
+ALPHA = 32
+
+
+def supported_scoring(profile, go: int, ge: int) -> bool:
+    """True if the stream kernel scores this (profile, gaps) pair exactly.
+
+    The G-form needs ge >= go. Every attainable value must fit int32: G lies
+    in [0, Lq * max(P, 0)] as long as ge <= 0 (a positive extend grows E
+    with the database length, which no bound on the query covers), and the
+    intermediate sums add at most |go|, |ge| and max|P - go| to that.
+    Systems outside this envelope go to the wavefront engine.
+    """
+    if ge < go or ge > 0:
+        return False
+    prof = np.asarray(profile, dtype=np.int64)
+    if prof.size == 0:
+        return True
+    lq = prof.shape[-2]
+    bound = (
+        lq * max(int(prof.max()), 0)
+        + abs(int(go)) + abs(int(ge))
+        + int(np.abs(prof - int(go)).max())
+    )
+    return bound < 2**31
+
+
+def _check(profile_biased, streams, fs, go, ge, nslots, jb):
+    if profile_biased.ndim == 3:
+        raise NotImplementedError(
+            "a 3-D (multi-query) profile needs the K3 row-stacked kernel, "
+            "which is not yet ported"
+        )
+    if profile_biased.ndim != 2 or profile_biased.shape[1] != ALPHA:
+        raise ValueError(
+            f"profile shape {tuple(profile_biased.shape)} != (rows, {ALPHA})"
+        )
+    lqp = profile_biased.shape[0]
+    if lqp % ROW_ALIGN:
+        raise ValueError(f"profile rows {lqp} not a multiple of {ROW_ALIGN}")
+    if lqp > MAX_QUERY_ROWS:
+        raise NotImplementedError(
+            f"query of {lqp} rows exceeds MAX_QUERY_ROWS={MAX_QUERY_ROWS}; "
+            "longer queries need the K2 row-striped kernel, which is not "
+            "yet ported"
+        )
+    if jb < 1:
+        raise ValueError(f"jb={jb} is not positive")
+    if streams.ndim != 3:
+        raise ValueError(f"streams must be (NW, L, win), got {streams.shape}")
+    nw, length, _ = streams.shape
+    if length == 0 or length % jb:
+        raise ValueError(f"stream length {length} not a positive multiple of {jb=}")
+    if tuple(fs.shape) != (length // jb, nw, 2):
+        raise ValueError(f"fs shape {tuple(fs.shape)} != {(length // jb, nw, 2)}")
+    for name, t, dt in (
+        ("profile", profile_biased, torch.int32),
+        ("streams", streams, torch.int8),
+        ("fs", fs, torch.int32),
+    ):
+        if t.dtype != dt:
+            raise ValueError(f"{name} dtype {t.dtype} != {dt}")
+        if t.device != streams.device:
+            raise ValueError(f"{name} on {t.device}, streams on {streams.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+    if ge < go:
+        raise ValueError(f"G-form kernel requires ge >= go (got {go=}, {ge=})")
+    if fs.numel():
+        lo, hi = torch.aminmax(fs)
+        if int(lo) < 0 or int(hi) > nslots:
+            raise ValueError(f"fs names slots outside [0, {nslots}]")
+
+
+def sw_stream(
+    profile_biased: torch.Tensor,
+    streams: torch.Tensor,
+    fs: torch.Tensor,
+    go: int,
+    ge: int,
+    *,
+    nslots: int,
+    jb: int,
+) -> torch.Tensor:
+    """Score one query against segmented window streams in one launch.
+
+    Args:
+      profile_biased: ``(lqp, 32)`` int32 ``P - go`` (``convert.
+        profile_to_torch``), ``lqp`` a multiple of ``ROW_ALIGN`` and at most
+        ``MAX_QUERY_ROWS``.
+      streams: ``(NW, L, win)`` int8 database streams, chars in 0..31.
+      fs: ``(L//jb, NW, 2)`` int32 segment table (see module docstring).
+      go, ge: total gap-open and gap-extend penalties, ``ge >= go``.
+      nslots: number of output slots.
+      jb: positions per block; segment starts fall on block starts. The
+        CUDA kernel takes only ``STREAM_JB``.
+
+    Returns:
+      ``(nslots, win)`` int32 per-segment best scores.
+    """
+    _check(profile_biased, streams, fs, go, ge, nslots, jb)
+    if streams.device.type == "cpu":
+        return sw_stream_reference(
+            profile_biased, streams, fs, go, ge, nslots=nslots, jb=jb
+        )
+    if streams.device.type != "cuda":
+        raise ValueError(f"no stream kernel for device {streams.device}")
+    if jb != STREAM_JB:
+        raise ValueError(f"the CUDA kernel is built for jb={STREAM_JB}, got {jb=}")
+    from . import _build
+
+    lib = _build.load()
+    nw, length, win = streams.shape
+    lqp = profile_biased.shape[0]
+    dev = streams.device
+    out = torch.zeros((nslots, win), dtype=torch.int32, device=dev)
+    # Rolling (Gg, E) rows, [w][i][lane]; the kernel writes them before it
+    # reads them.
+    rows = torch.empty((2, nw, lqp, win), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.sw_stream_launch(
+            profile_biased.data_ptr(), streams.data_ptr(), fs.data_ptr(),
+            out.data_ptr(), rows[0].data_ptr(), rows[1].data_ptr(),
+            lqp, length, win, nw, jb, int(go), int(ge),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err:
+        raise RuntimeError(
+            f"sw_stream launch failed: CUDA error {err} "
+            f"({_build.error_string(err)})"
+        )
+    sw_stream.launches += 1
+    return out
+
+
+sw_stream.launches = 0
+
+
+def sw_stream_reference(
+    profile_biased: torch.Tensor,
+    streams: torch.Tensor,
+    fs: torch.Tensor,
+    go: int,
+    ge: int,
+    *,
+    nslots: int,
+    jb: int,
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`sw_stream`, same contract.
+
+    An anti-diagonal wavefront over every window's whole stream at once:
+    step ``d`` computes the cells ``(i, j = d - i)`` of all windows and
+    lanes. A position that starts a segment sees the boundary (Gg = go,
+    E = 0) on its up and diagonal sides, and each cell's G is max-reduced
+    into its segment's best.
+    """
+    _check(profile_biased, streams, fs, go, ge, nslots, jb)
+    sw_stream_reference.calls += 1
+    dev = streams.device
+    lqp = profile_biased.shape[0]
+    nw, length, win = streams.shape
+    nj = length // jb
+    out = torch.zeros((nslots, win), dtype=torch.int32, device=dev)
+    if lqp == 0 or nw == 0:
+        return out
+
+    # Segment of every block and position; a flagged block starts one.
+    starts = fs[:, :, 0] > 0  # (nj, nw)
+    seg_blk = torch.cumsum(starts.long(), dim=0)  # (nj, nw)
+    seg = seg_blk.repeat_interleave(jb, dim=0).T.contiguous()  # (nw, L)
+    fresh = torch.zeros((nw, length), dtype=torch.bool, device=dev)
+    fresh[:, ::jb] = starts.T
+    fresh[:, 0] = True
+    nseg = int(seg_blk[-1].max()) + 1
+    # Slot of every (segment, window): a start flag names the slot of the
+    # segment before it; fs[last, w, 1] names the final segment's.
+    slot_of = torch.full((nseg, nw), -1, dtype=torch.long, device=dev)
+    jj, ww = torch.nonzero(starts, as_tuple=True)
+    slot_of[seg_blk[jj, ww] - 1, ww] = fs[jj, ww, 0].long() - 1
+    wall = torch.arange(nw, device=dev)
+    last = fs[nj - 1, :, 1]
+    ends = last > 0
+    slot_of[seg_blk[-1, ends], wall[ends]] = last[ends].long() - 1
+
+    prof_flat = profile_biased.reshape(-1)
+    iota = torch.arange(lqp, device=dev)
+    row_base = (iota * ALPHA)[:, None, None]
+    w_idx = wall[None, :]
+    best = torch.zeros((nseg, nw, win), dtype=torch.int32, device=dev)
+    go_row = torch.full((1, nw, win), go, dtype=torch.int32, device=dev)
+    zero_row = torch.zeros((1, nw, win), dtype=torch.int32, device=dev)
+
+    def down(x, fill):  # out[i] = x[i-1], out[0] = the row -1 boundary
+        return torch.cat([fill, x[:-1]], dim=0)
+
+    shape = (lqp, nw, win)
+    gg1 = torch.full(shape, go, dtype=torch.int32, device=dev)  # diagonal d-1
+    e1 = torch.zeros(shape, dtype=torch.int32, device=dev)
+    f1 = torch.zeros(shape, dtype=torch.int32, device=dev)
+    gg2 = gg1  # Gg on diagonal d-2
+    for d in range(length + lqp - 1):
+        j = d - iota
+        jc = j.clamp(0, length - 1)[:, None]  # (lqp, 1)
+        chars = streams[w_idx, jc].long() & (ALPHA - 1)  # (lqp, nw, win)
+        s = prof_flat[row_base + chars]
+        new = fresh[w_idx, jc][:, :, None]  # (lqp, nw, 1)
+        gg_up = torch.where(new, go, gg1)
+        e_up = torch.where(new, 0, e1)
+        gg_diag = torch.where(new, go, down(gg2, go_row))
+        hp = gg_diag + s
+        e = torch.maximum(gg_up, e_up + ge)
+        f = torch.maximum(down(gg1, go_row), down(f1, zero_row) + ge)
+        g = torch.maximum(torch.maximum(hp, e), torch.clamp_min(f, 0))
+        valid = ((j >= 0) & (j < length))[:, None, None]
+        best.scatter_reduce_(
+            0,
+            seg[w_idx, jc][:, :, None].expand(shape),
+            torch.where(valid, g, 0),
+            reduce="amax",
+        )
+        gg2, gg1, e1, f1 = gg1, g + go, e, f
+
+    flushed = slot_of >= 0
+    out[slot_of[flushed]] = best[flushed]
+    return out
+
+
+sw_stream_reference.calls = 0

@@ -1,0 +1,241 @@
+"""bench.py's synthetic Swiss-Prot, and where a search over it spends its time.
+
+:func:`swissprot_db` rebuilds the database of ``bench.py:308-332``: 565,247
+records with gamma(1.8, 202) lengths clipped to 2..35,000 (about 205 M
+residues), UniProt amino-acid frequencies, seed 42, plus a query drawn from
+the same stream.
+
+    python -m seqalign_tpu_torch.swissprot [--lq 17,144,512,1536]
+        [--windows 132,264,396,528,1056] [--out chiprun_out/swissprot.json]
+
+times each layer of a search over it on the GPU, PAM250, gaps -2/-1: the
+FASTA parse, ``pack_streams``, the host-to-device copy, the kernel (CUDA
+events), the fetch and scatter, the whole ``search_database`` call, and the
+device's busy share under ``torch.profiler``. It then times the kernel at
+each query length of ``--lq`` (the pipeline's own window count) and, with
+the 144-residue query, at each window count of ``--windows``. Every line
+printed names the card and its power limit; ``--out`` gets the same as
+JSON. The FASTA is written to and parsed from ``build/`` of the checkout.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from .host import EncodedDatabase, ScoringModel, encode, load_builtin
+
+AA = "ACDEFGHIKLMNPQRSTVWY"
+AA_FREQS = np.array([
+    8.25, 1.37, 5.45, 6.75, 3.86, 7.07, 2.27, 5.96, 5.84, 9.66,
+    2.42, 4.06, 4.70, 3.93, 5.53, 6.56, 5.34, 6.87, 1.08, 2.92,
+])
+AA_FREQS = AA_FREQS / AA_FREQS.sum()
+N_ENTRIES = 565_247
+QUERY_LEN = 144
+
+
+def swissprot_db(seed: int = 42):
+    """(encoded 144-residue query, EncodedDatabase), records in descending
+    length."""
+    rng = np.random.default_rng(seed)
+    aa20 = np.array(encode(AA), dtype=np.int8)
+    query = aa20[rng.choice(20, QUERY_LEN, p=AA_FREQS)].astype(np.int32)
+    lengths = np.clip(
+        rng.gamma(shape=1.8, scale=202.0, size=N_ENTRIES).astype(np.int64),
+        2, 35_000,
+    )
+    lengths = np.sort(lengths)[::-1].copy()
+    offsets = np.zeros(N_ENTRIES + 1, dtype=np.int64)
+    np.cumsum(lengths, out=offsets[1:])
+    seq = aa20[rng.choice(20, int(offsets[-1]), p=AA_FREQS)]
+    return query, EncodedDatabase(seq=seq, offsets=offsets, names=[""] * N_ENTRIES)
+
+
+def random_query(lq: int, seed: int) -> np.ndarray:
+    """An encoded query of ``lq`` residues at UniProt frequencies."""
+    rng = np.random.default_rng(seed)
+    aa20 = np.array(encode(AA), dtype=np.int32)
+    return aa20[rng.choice(20, lq, p=AA_FREQS)]
+
+
+def pam250() -> ScoringModel:
+    return load_builtin(
+        "PAM250", ScoringModel(gap_open=-2, gap_extend=-1, use_match_mismatch=False)
+    )
+
+
+def write_fasta(db: EncodedDatabase, path: Path) -> None:
+    letters = np.zeros(32, dtype=np.uint8)
+    letters[np.array(encode(AA))] = np.frombuffer(AA.encode(), dtype=np.uint8)
+    buf = letters[db.seq].tobytes()
+    off = db.offsets
+    with open(path, "wb") as f:
+        f.write(b"".join(
+            b">r%d\n%s\n" % (k, buf[off[k] : off[k + 1]]) for k in range(db.n)
+        ))
+
+
+def card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int) -> float:
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    fn()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _seconds(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def main(argv=None) -> int:
+    from . import pipeline
+    from .convert import profile_to_torch, stream_pack_to_torch
+    from .host import pack_streams, parse_file_cached
+    from .ops.swa_cuda import STREAM_JB, sw_stream
+    from .ops.swa_torch import make_profile
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--lq", default="17,144,512,1536")
+    ap.add_argument("--windows", default="132,264,396,528,1056")
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("swissprot: no CUDA device")
+    lqs = [int(x) for x in args.lq.split(",")]
+    windows = [int(x) for x in args.windows.split(",") if x]
+    smi = card()
+    dev = torch.device("cuda")
+    sc = pam250()
+    go, ge = sc.gap_open_total, sc.gap_extend
+    result = {"card": smi, "steps_s": {}, "lq": [], "windows": []}
+    steps = result["steps_s"]
+
+    def say(msg):
+        print(f"{msg} | {smi}", flush=True)
+
+    query, db = swissprot_db()
+    residues = int(db.offsets[-1])
+    build = Path(__file__).resolve().parent.parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        fasta = Path(tmp) / "swissprot.fa"
+        write_fasta(db, fasta)
+        t0 = time.perf_counter()
+        parsed = parse_file_cached(str(fasta), None)
+        steps["parse"] = time.perf_counter() - t0
+    if not np.array_equal(parsed.seq, db.seq):
+        raise SystemExit("swissprot: the parsed FASTA differs from the database")
+    del parsed
+    say(f"[steps] parse {db.n} records, {residues} residues: {steps['parse']} s")
+
+    # The pipeline's steps one by one, as _stream_search runs them.
+    pipeline.search_database(query, db, sc, device=dev)  # builds the kernel
+    t0 = time.perf_counter()
+    order = np.argsort(-db.lengths, kind="stable")
+    win = pipeline.WINDOW_LANES
+    nw = pipeline.choose_windows(
+        db.lengths[order], win, None, pipeline.resident_lanes(dev)
+    )
+    steps["sort_and_windows"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pack = pack_streams(db, order, nw, win=win, jb=STREAM_JB,
+                        grain=pipeline.STREAM_GRAIN)
+    steps["pack"] = time.perf_counter() - t0
+    (streams, fs), steps["h2d"] = _seconds(lambda: stream_pack_to_torch(pack, dev))
+    prof = profile_to_torch(make_profile(sc.table, query), go, dev)
+    kw = dict(nslots=len(pack.slot_ids), jb=STREAM_JB)
+    kernel_ms = cuda_ms(lambda: sw_stream(prof, streams, fs, go, ge, **kw), 5)
+    steps["kernel"] = kernel_ms / 1e3
+    out = sw_stream(prof, streams, fs, go, ge, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scores = np.zeros(db.n, np.int32)
+    scores[order] = out.cpu().numpy().reshape(-1)[: db.n]
+    steps["fetch_and_scatter"] = time.perf_counter() - t0
+    padded = pack.padded_cells_per_query_row / residues
+    for k, v in steps.items():
+        say(f"[steps] {k}: {v} s")
+
+    walls = []
+    for _ in range(3):
+        (_, kernel_s), wall = _seconds(
+            lambda: pipeline.search_database(query, db, sc, device=dev)
+        )
+        walls.append({"wall_s": wall, "kernel_timer_s": kernel_s})
+        say(f"[search] wall {wall} s, kernel timer {kernel_s} s = "
+            f"{len(query) * residues / kernel_s / 1e9} GCUPS")
+    result["search"] = walls
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        (_, _), wall = _seconds(
+            lambda: pipeline.search_database(query, db, sc, device=dev)
+        )
+    # Device-side events only: a host op (aten::copy_) also reports the
+    # device time of the memcpy it issued.
+    on_device = [e for e in p.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in on_device)
+    top = sorted(((e.key, e.self_device_time_total / 1e3) for e in on_device),
+                 key=lambda kv: -kv[1])[:6]
+    result["profile"] = {"wall_s": wall, "device_ms": busy_us / 1e3,
+                         "busy_share": busy_us / 1e6 / wall, "top_ms": top}
+    say(f"[profile] device {busy_us / 1e3} ms in a {wall} s search wall, "
+        f"busy share {busy_us / 1e6 / wall}; {top}")
+
+    shape = f"nw={nw} L={streams.shape[1]} win={win} jb={STREAM_JB}"
+    for lq in lqs:
+        q = query if lq == len(query) else random_query(lq, lq)
+        pq = profile_to_torch(make_profile(sc.table, q), go, dev)
+        ms = cuda_ms(lambda: sw_stream(pq, streams, fs, go, ge, **kw), 3)
+        gcups = lq * residues / ms / 1e6
+        result["lq"].append({"lq": lq, "ms": ms, "gcups": gcups, "shape": shape,
+                             "padded_over_real": padded})
+        say(f"[lq] lq={lq} {shape}: kernel {ms} ms = {gcups} GCUPS over real "
+            f"residues (padded/real cells {padded})")
+    del streams, fs
+    for w in windows:
+        pw = pack_streams(db, order, w, win=win, jb=STREAM_JB,
+                          grain=pipeline.STREAM_GRAIN)
+        s_w, fs_w = stream_pack_to_torch(pw, dev)
+        kw_w = dict(nslots=len(pw.slot_ids), jb=STREAM_JB)
+        ms = cuda_ms(lambda: sw_stream(prof, s_w, fs_w, go, ge, **kw_w), 3)
+        pad_w = pw.padded_cells_per_query_row / residues
+        gcups = len(query) * residues / ms / 1e6
+        result["windows"].append({"nw": w, "L": s_w.shape[1], "ms": ms,
+                                  "gcups": gcups, "padded_over_real": pad_w})
+        say(f"[windows] nw={w} L={s_w.shape[1]} lq={len(query)}: kernel {ms} ms = "
+            f"{gcups} GCUPS (padded/real cells {pad_w})")
+        del s_w, fs_w
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(result, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,138 @@
+"""The port's CLI against the JAX package's CLI with ``--engine oracle``:
+identical output once the ``Total Time`` line is dropped."""
+
+import gzip
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from seqalign_tpu import cli as jax_cli
+from seqalign_tpu_torch import cli
+
+from conftest import random_protein
+
+
+@pytest.fixture(autouse=True)
+def _cpu(monkeypatch):
+    monkeypatch.setenv("SEQALIGN_PLATFORM", "cpu")
+
+
+@pytest.fixture
+def files(tmp_path):
+    rng = np.random.default_rng(31)
+    q = tmp_path / "q.fa"
+    q.write_text(">query1 test\n" + random_protein(rng, 24) + "\n")
+    recs = "".join(
+        f">entry{k} d{k}\n{random_protein(rng, int(rng.integers(1, 60)))}\n"
+        for k in range(40)
+    )
+    db = tmp_path / "db.fa"
+    db.write_text(recs)
+    dbz = tmp_path / "db.fa.gz"
+    with gzip.open(dbz, "wt") as f:
+        f.write(recs)
+    multi = tmp_path / "multi.fa"
+    multi.write_text(">a\nMKVLAWQ\n>b\nHEAGAWGHEE\n")
+    return {"q": str(q), "db": str(db), "dbz": str(dbz), "multi": str(multi)}
+
+
+def _run(main, args, capsys):
+    code = main(["smith_waterman"] + args)
+    out, err = capsys.readouterr()
+    return code, out, err
+
+
+def _drop_time(out):
+    return [ln for ln in out.splitlines() if not ln.startswith("Total Time:")]
+
+
+CASES = {
+    "default": [],
+    "blosum62": ["--substitution_matrix", "BLOSUM62"],
+    "pam250_gaps": ["--substitution_matrix", "PAM250", "--gapopen", "-5",
+                    "--gapextend", "-2"],
+    "gzip": ["--db", "dbz"],
+    "topk": ["--substitution_matrix", "BLOSUM45", "--topk", "5"],
+    "minscore": ["--minscore", "6"],
+    "printfasta_seq": ["--printfasta", "--printseq"],
+    "gapopen_positive": ["--gapopen", "2"],
+    "no_sort_lanes": ["--no-sort", "--lanes", "512"],
+    "first_query": ["--q", "multi", "--first-query"],
+}
+
+
+def _args(case, files):
+    args = list(CASES[case])
+    q, db = files["q"], files["db"]
+    if "--db" in args:
+        db = files[args.pop(args.index("--db") + 1)]
+        args.remove("--db")
+    if "--q" in args:
+        q = files[args.pop(args.index("--q") + 1)]
+        args.remove("--q")
+    return ["--files", q, db] + args
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_output_matches_jax_oracle(case, files, capsys):
+    args = _args(case, files)
+    # A positive gap makes '*' padding score: the JAX package routes that
+    # system to its wavefront engine over the same lane batches, as the
+    # port does, and the unpadded oracle scores it differently.
+    jax_engine = "wavefront" if case == "gapopen_positive" else "oracle"
+    code, out, _ = _run(cli.main, args, capsys)
+    jcode, jout, _ = _run(jax_cli.main, args + ["--engine", jax_engine], capsys)
+    assert code == jcode == 0
+    assert "Entry #" in out and "Total Time:" in out
+    assert _drop_time(out) == _drop_time(jout)
+
+
+@pytest.mark.parametrize("extra", [[], ["--topk", "3", "--minscore", "5"]])
+def test_json_matches_jax_oracle(extra, files, capsys):
+    args = ["--files", files["q"], files["db"], "--json"] + extra
+    code, out, _ = _run(cli.main, args, capsys)
+    jcode, jout, _ = _run(jax_cli.main, args + ["--engine", "oracle"], capsys)
+    assert code == jcode == 0
+    got, want = (json.loads(o.splitlines()[-1]) for o in (out, jout))
+    for d in (got, want):
+        d.pop("total_time")
+        d.pop("entries_per_s")
+    assert got == want
+
+
+@pytest.mark.parametrize("flag", cli.NOT_PORTED)
+def test_flag_not_yet_ported(flag, files, capsys):
+    code, out, err = _run(
+        cli.main, ["--files", files["q"], files["db"], flag, "1"], capsys
+    )
+    assert code == 1
+    assert f"Error: {flag} is not yet ported to seqalign_tpu_torch" in err
+    assert "Entry #" not in out
+
+
+def test_multi_record_query_not_yet_ported(files, capsys):
+    code, out, err = _run(cli.main, ["--files", files["multi"], files["db"]], capsys)
+    assert code == 1
+    assert "is not yet ported to seqalign_tpu_torch" in err
+    assert "Entry #" not in out
+
+
+@pytest.mark.parametrize(
+    "args",
+    [[], ["--match", "x"], ["--files", "a"], ["--bogus"], ["--match", "-3"]],
+)
+def test_usage_errors_match_jax(args, capsys):
+    code, _, err = _run(cli.main, args, capsys)
+    jcode, _, jerr = _run(jax_cli.main, args, capsys)
+    assert code == jcode == 1
+    assert err.splitlines()[0] == jerr.splitlines()[0]
+
+
+def test_no_gpu_exits_1(files, capsys, monkeypatch):
+    monkeypatch.delenv("SEQALIGN_PLATFORM")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    code, out, err = _run(cli.main, ["--files", files["q"], files["db"]], capsys)
+    assert code == 1
+    assert "Error: no CUDA device" in err and "Entry #" not in out
