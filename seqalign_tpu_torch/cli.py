@@ -1,11 +1,13 @@
 """``smith_waterman``-compatible command-line tool on PyTorch + CUDA.
 
 ``python -m seqalign_tpu_torch.cli`` takes the flags of ``seqalign_tpu.cli``
-for the single-query search and prints the same lines: the "Query File=...
-and Database File=..." line, ``Entry #N:`` / ``score: S`` per entry, and the
-trailing ``Total Time:`` / ``Total Entries:`` lines, with the same messages
-and exit codes. Flags of modes the port does not have yet exit 1 with
-``Error: <flag> is not yet ported to seqalign_tpu_torch``.
+for the single-query and the multi-query search and prints the same lines:
+the "Query File=... and Database File=..." line, ``Entry #N:`` / ``score: S``
+per entry (under a ``Query #k: name`` line per query of a multi-record
+query file), and the trailing ``Total Time:`` / ``Total Entries:`` lines,
+with the same messages and exit codes. Flags of modes the port does not
+have yet exit 1 with ``Error: <flag> is not yet ported to
+seqalign_tpu_torch``.
 
 ``SEQALIGN_PLATFORM`` picks the device: ``cuda`` (the default) or ``cpu``.
 """
@@ -48,14 +50,17 @@ USAGE = """usage: {prog} [OPTIONS] [seq1 seq2]
     --lanes <n>          lane-batch width override
     --no-sort            do not length-sort the database (assume pre-sorted)
     --topk <n>           print only the n best-scoring entries
-    --first-query        score only the first record of the query file
+    --all-queries        score EVERY query-file record (batched on-device;
+                         on by default for multi-record query files)
+    --first-query        strict reference behavior: score only the first
+                         query record (src/alignment_cmdline.c:355-360)
     --db-cache <path>    persistent encoded-database cache (.sqc): parse
                          the FASTA once, mmap thereafter ('auto' = sidecar
                          <db>.sqc; rebuilt when the FASTA changes)
     --json               print results as one JSON object
 
-  Not yet ported: --all-queries, --align, --stream-chunk, --checkpoint,
-  --trace, --hosts, --host-id, --coordinator.
+  Not yet ported: --align, --stream-chunk, --checkpoint, --trace, --hosts,
+  --host-id, --coordinator.
   SEQALIGN_PLATFORM=cuda|cpu picks the device [default: cuda].
 
  DETAILS:
@@ -67,8 +72,8 @@ USAGE = """usage: {prog} [OPTIONS] [seq1 seq2]
 
 # Flags of the JAX package's later slices: recognised, refused.
 NOT_PORTED = (
-    "--all-queries", "--align", "--stream-chunk", "--checkpoint", "--trace",
-    "--hosts", "--host-id", "--coordinator",
+    "--align", "--stream-chunk", "--checkpoint", "--trace", "--hosts",
+    "--host-id", "--coordinator",
 )
 
 
@@ -135,6 +140,7 @@ def main(argv: list[str] | None = None) -> int:
     minscore = None
     as_json = False
     first_query = False
+    all_queries = False
     matrix_spec = None
     db_cache = None
 
@@ -158,6 +164,8 @@ def main(argv: list[str] | None = None) -> int:
                 file1, file2 = "", None
             elif al == "--no-sort":
                 sort = False
+            elif al == "--all-queries":
+                all_queries = True
             elif al == "--first-query":
                 first_query = True
             elif al == "--json":
@@ -261,17 +269,15 @@ def main(argv: list[str] | None = None) -> int:
             return 0  # reference main returns EXIT_SUCCESS here
         return _usage_exit(prog, scoring, "No input specified")
 
-    # A multi-record query file is batched through the multi-query kernel
-    # (K3) by the JAX package; --first-query and --printseq keep the
-    # reference's first-record behaviour.
+    # A multi-record query file batches every record through the
+    # multi-query kernel (the reference reads only the first record,
+    # src/alignment_cmdline.c:355-360); --first-query and --printseq keep
+    # first-record behaviour.
     if (
-        not first_query and not print_seq and file1 != "-"
-        and _has_second_record(file1)
+        not all_queries and not first_query and not print_seq
+        and file1 != "-" and _has_second_record(file1)
     ):
-        return _not_ported(
-            "a multi-record query file (--all-queries; pass --first-query "
-            "to score only the first record)"
-        )
+        all_queries = True
 
     from .pipeline import resolve_device, search_files
 
@@ -280,6 +286,12 @@ def main(argv: list[str] | None = None) -> int:
     except (RuntimeError, ValueError) as e:
         sys.stderr.write(f"Error: {e}\n")
         return 1
+
+    if all_queries:
+        return _run_multi(
+            file1, file2, scoring, engine, lanes, topk, as_json, print_fasta,
+            minscore=minscore, db_cache=db_cache,
+        )
 
     if db_cache is not None and print_seq:
         # --printseq needs the original sequence strings, which the
@@ -349,6 +361,78 @@ def main(argv: list[str] | None = None) -> int:
         if print_seq:
             out.write(result.seqs[k] + "\n")
         out.write(f"score: {int(result.scores[k])}\n\n")
+
+    out.write(f"Total Time: {result.kernel_time:f}\n")
+    out.write(f"Total Entries: {result.total_entries}\n")
+    return 0
+
+
+def _run_multi(
+    file1, file2, scoring, engine, lanes, topk, as_json, print_fasta,
+    minscore=None, db_cache=None,
+) -> int:
+    """--all-queries mode: one block of entries per query record."""
+    from .pipeline import search_files_multi
+
+    try:
+        result = search_files_multi(
+            file1, file2, scoring, engine=engine, lanes=lanes,
+            db_cache=db_cache,
+        )
+    except NotImplementedError as e:
+        sys.stderr.write(f"Error: {e}\n")
+        return 1
+    except ValueError as e:
+        sys.stderr.write(str(e) + "\n")
+        return 0
+
+    out = sys.stdout
+    nq = len(result.query_names)
+
+    def order_for(qi):
+        order = range(result.total_entries)
+        if topk is not None:
+            import numpy as np
+
+            order = list(np.argsort(-result.scores[qi], kind="stable")[:topk])
+        if minscore is not None:
+            order = [k for k in order if result.scores[qi, k] >= minscore]
+        return order
+
+    if as_json:
+        import json
+
+        json.dump(
+            {
+                "queries": [
+                    {
+                        "query": result.query_names[qi],
+                        "entries": [
+                            {
+                                "entry": int(k),
+                                "name": result.names[k],
+                                "score": int(result.scores[qi, k]),
+                            }
+                            for k in order_for(qi)
+                        ],
+                    }
+                    for qi in range(nq)
+                ],
+                "total_time": result.kernel_time,
+                "total_entries": result.total_entries,
+            },
+            out,
+        )
+        out.write("\n")
+        return 0
+
+    for qi in range(nq):
+        out.write(f"Query #{qi}: {result.query_names[qi]}\n")
+        for k in order_for(qi):
+            out.write(f"Entry #{k}:\n")
+            if print_fasta:
+                out.write(result.names[k] + "\n")
+            out.write(f"score: {int(result.scores[qi, k])}\n\n")
 
     out.write(f"Total Time: {result.kernel_time:f}\n")
     out.write(f"Total Entries: {result.total_entries}\n")

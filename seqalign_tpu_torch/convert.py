@@ -23,22 +23,21 @@ ROW_ALIGN = 4
 def profile_to_torch(
     profile: np.ndarray, go: int, device: torch.device | str
 ) -> torch.Tensor:
-    """The stream kernel's biased profile ``P' = P - go`` as int32.
+    """The stream kernels' biased profile ``P' = P - go`` as int32.
 
-    ``profile`` is the ``(Lq, 32)`` query profile of ``make_profile``; the
-    result is ``(lqp, 32)`` with ``lqp`` = Lq rounded up to ``ROW_ALIGN``,
-    the extra rows zero. Exact in int32: no bf16 rounding as on the TPU.
+    ``profile`` is the ``(Lq, 32)`` query profile of ``make_profile``, or an
+    ``(NQ, Lq, 32)`` stack of them (``search_database_multi`` pads each
+    query to Lq with ``P = 0`` rows). The result is ``(lqp, 32)`` or
+    ``(NQ, lqp, 32)`` with ``lqp`` = Lq rounded up to ``ROW_ALIGN`` and each
+    query's extra rows zero. Exact in int32: no bf16 rounding as on the TPU.
     """
     prof = np.asarray(profile, dtype=np.int64)
-    if prof.ndim != 2:
-        raise NotImplementedError(
-            "a 3-D (multi-query) profile needs the K3 row-stacked kernel, "
-            "which is not yet ported"
-        )
-    lq = prof.shape[0]
+    if prof.ndim not in (2, 3):
+        raise ValueError(f"profile shape {prof.shape} is not (Lq, 32) or (NQ, Lq, 32)")
+    lq = prof.shape[-2]
     lqp = -(-lq // ROW_ALIGN) * ROW_ALIGN
-    out = np.zeros((lqp, prof.shape[1]), dtype=np.int32)
-    out[:lq] = prof - int(go)
+    out = np.zeros((*prof.shape[:-2], lqp, prof.shape[-1]), dtype=np.int32)
+    out[..., :lq, :] = prof - int(go)
     return torch.from_numpy(out).to(device)
 
 

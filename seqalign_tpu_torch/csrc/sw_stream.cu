@@ -1,8 +1,9 @@
-// Segmented-stream Smith-Waterman scoring (one query, many database
-// sequences) for Hopper, sm_90a.
+// Segmented-stream Smith-Waterman scoring for Hopper, sm_90a: one query
+// (K1) or a batch of queries (K3) against many database sequences.
 //
 // Replaces the TPU kernel seqalign_tpu/ops/swa_pallas.py:_kernel_stream
-// + _run_block (K1): the same G-form affine-gap recurrence over the same
+// + _run_block, called through sw_pallas_stream with a 2-D profile (K1) or
+// a 3-D one (K3): the same G-form affine-gap recurrence over the same
 // inputs (biased profile P' = P - go, NW window streams, segment table fs),
 // with the same per-segment outputs, bit for bit.
 //
@@ -12,8 +13,18 @@
 // loop, so nothing crosses CTAs. The CTAs of a window read the same fs
 // column, so the flush/reset branch is uniform across a CTA.
 //
+// Several queries (K3). The TPU kernel stacks the queries' rows in one
+// sweep and cuts the left/diagonal chain at each query boundary. Here the
+// query is the grid's z axis instead: each CTA runs the K1 body for one
+// query, with that query's profile in its shared memory, its own rows of
+// the scratch ([q][w][i][lane]) and its own column of the output
+// ((nslots, nq, win)). Each query's CTAs read the stream bytes again, which
+// costs little: a char is loaded once per lqp cells. A batch puts nq times
+// K1's CTAs into one launch. Both kernels instantiate one templated body;
+// K1's instance folds q = 0, nq = 1 into the offsets it always had.
+//
 // State. The rolling (Gg, E) rows, lqp per lane, live in a device-memory
-// scratch laid out [w][i][lane], so a warp's accesses are coalesced. The
+// scratch laid out [q][w][i][lane], so a warp's accesses are coalesced. The
 // left/diagonal chain of the JB positions stays in registers, as in
 // _run_block. P' sits in shared memory as (lqp, 32) int32: one row is 32
 // words, one per bank, so a warp gathering P'[i][c_lane] has no bank
@@ -39,17 +50,22 @@ constexpr int kThreads = 256;
 constexpr int kRowUnroll = 4;  // the wrapper pads rows to this multiple
 constexpr int JB = 16;  // positions per block (swa_cuda.STREAM_JB)
 
-__global__ void __launch_bounds__(kThreads) sw_stream_kernel(
-    const int32_t* __restrict__ prof,    // (lqp, 32) biased profile
+// The body of both kernels; kMulti takes the query from blockIdx.z.
+template <bool kMulti>
+__device__ __forceinline__ void stream_body(
+    const int32_t* __restrict__ prof,    // ([nq,] lqp, 32) biased profile
     const int8_t* __restrict__ streams,  // (nw, L, win) chars 0..31
     const int32_t* __restrict__ fs,      // (L/JB, nw, 2) segment table
-    int32_t* __restrict__ out,           // (nslots, win) per-segment bests
-    int32_t* __restrict__ row_gg,        // (nw, lqp, win) scratch
-    int32_t* __restrict__ row_e,         // (nw, lqp, win) scratch
+    int32_t* __restrict__ out,           // (nslots, [nq,] win) bests
+    int32_t* __restrict__ row_gg,        // ([nq,] nw, lqp, win) scratch
+    int32_t* __restrict__ row_e,         // ([nq,] nw, lqp, win) scratch
     int lqp, int len, int win, int nw, int go, int ge) {
+  const int q = kMulti ? (int)blockIdx.z : 0;
+  const int nq = kMulti ? (int)gridDim.z : 1;
   extern __shared__ int32_t sprof[];
+  const int32_t* qprof = prof + (size_t)q * lqp * kAlpha;
   for (int k = threadIdx.x; k < lqp * kAlpha; k += blockDim.x) {
-    sprof[k] = prof[k];
+    sprof[k] = qprof[k];
   }
   __syncthreads();
 
@@ -57,9 +73,12 @@ __global__ void __launch_bounds__(kThreads) sw_stream_kernel(
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= win) return;
 
-  const size_t rows_off = (size_t)w * lqp * win + lane;
+  const size_t rows_off = ((size_t)q * nw + w) * lqp * win + lane;
   int32_t* gg_row = row_gg + rows_off;
   int32_t* e_row = row_e + rows_off;
+  // Slot s of this query and lane: qout[s * slot_stride].
+  int32_t* qout = out + (size_t)q * win + lane;
+  const size_t slot_stride = (size_t)nq * win;
   const int8_t* col = streams + (size_t)w * len * win + lane;
   const int nblocks = len / JB;
 
@@ -69,7 +88,7 @@ __global__ void __launch_bounds__(kThreads) sw_stream_kernel(
     const int slot = fs[((size_t)blk * nw + w) * 2];
     if (slot > 0) {
       // A new segment starts here: flush the finished one, reset.
-      out[(size_t)(slot - 1) * win + lane] = best;
+      qout[(size_t)(slot - 1) * slot_stride] = best;
       best = 0;
       fresh = true;
     }
@@ -114,8 +133,28 @@ __global__ void __launch_bounds__(kThreads) sw_stream_kernel(
   }
   if (nblocks > 0) {
     const int slot = fs[((size_t)(nblocks - 1) * nw + w) * 2 + 1];
-    if (slot > 0) out[(size_t)(slot - 1) * win + lane] = best;
+    if (slot > 0) qout[(size_t)(slot - 1) * slot_stride] = best;
   }
+}
+
+// K1: one query; grid (lane blocks, nw).
+__global__ void __launch_bounds__(kThreads) sw_stream_kernel(
+    const int32_t* __restrict__ prof, const int8_t* __restrict__ streams,
+    const int32_t* __restrict__ fs, int32_t* __restrict__ out,
+    int32_t* __restrict__ row_gg, int32_t* __restrict__ row_e,
+    int lqp, int len, int win, int nw, int go, int ge) {
+  stream_body<false>(prof, streams, fs, out, row_gg, row_e, lqp, len, win,
+                     nw, go, ge);
+}
+
+// K3: nq queries of lqp rows each; grid (lane blocks, nw, nq).
+__global__ void __launch_bounds__(kThreads) sw_stream_multi_kernel(
+    const int32_t* __restrict__ prof, const int8_t* __restrict__ streams,
+    const int32_t* __restrict__ fs, int32_t* __restrict__ out,
+    int32_t* __restrict__ row_gg, int32_t* __restrict__ row_e,
+    int lqp, int len, int win, int nw, int go, int ge) {
+  stream_body<true>(prof, streams, fs, out, row_gg, row_e, lqp, len, win,
+                    nw, go, ge);
 }
 
 }  // namespace
@@ -139,6 +178,30 @@ int sw_stream_launch(const void* prof, const void* streams, const void* fs,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((win + kThreads - 1) / kThreads, nw);
   sw_stream_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (const int32_t*)prof, (const int8_t*)streams, (const int32_t*)fs,
+      (int32_t*)out, (int32_t*)row_gg, (int32_t*)row_e, lqp, len, win, nw,
+      go, ge);
+  return (int)cudaGetLastError();
+}
+
+// Launch the K3 kernel for nq queries on `stream`; same contract as
+// sw_stream_launch, with prof (nq, lqp, 32), out (nslots, nq, win) and the
+// scratch (nq, nw, lqp, win).
+int sw_stream_multi_launch(const void* prof, const void* streams,
+                           const void* fs, void* out, void* row_gg,
+                           void* row_e, int lqp, int len, int win, int nw,
+                           int nq, int jb, int go, int ge, void* stream) {
+  if (lqp % kRowUnroll || win <= 0 || nw <= 0 || nw > 65535 || nq <= 0 ||
+      nq > 65535 || len <= 0 || jb != JB || len % JB) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const size_t smem = (size_t)lqp * kAlpha * sizeof(int32_t);
+  cudaError_t err = cudaFuncSetAttribute(
+      sw_stream_multi_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((win + kThreads - 1) / kThreads, nw, nq);
+  sw_stream_multi_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       (const int32_t*)prof, (const int8_t*)streams, (const int32_t*)fs,
       (int32_t*)out, (int32_t*)row_gg, (int32_t*)row_e, lqp, len, win, nw,
       go, ge);

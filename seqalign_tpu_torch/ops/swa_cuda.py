@@ -1,5 +1,5 @@
-"""The segmented-stream Smith-Waterman kernel (K1) for Hopper, and its plain
-PyTorch version.
+"""The segmented-stream Smith-Waterman kernels for Hopper, one query (K1)
+and a batch of queries (K3), and their plain PyTorch versions.
 
 :func:`sw_stream` keeps the contract of ``seqalign_tpu.ops.swa_pallas.
 sw_pallas_stream``: NW window streams, each a back-to-back concatenation of
@@ -19,9 +19,14 @@ in int32 throughout, on the biased profile ``P' = P - go``::
 
 with the running best taken over G, and boundary Gg = go, E = F = 0.
 
-On a CUDA tensor :func:`sw_stream` launches the kernel in
-``csrc/sw_stream.cu`` or raises; on a CPU tensor it runs
-:func:`sw_stream_reference`. Single query only.
+:func:`sw_stream_multi` is the same search for ``nq`` queries at once
+(``sw_pallas_stream`` with a 3-D profile): each query's DP is independent
+and keeps its own best, so slot ``s`` of query ``q`` lands in
+``out[s, q]``.
+
+On a CUDA tensor each wrapper launches its kernel in ``csrc/sw_stream.cu``
+or raises; on a CPU tensor it runs its plain version
+(:func:`sw_stream_reference`, :func:`sw_stream_multi_reference`).
 """
 
 from __future__ import annotations
@@ -68,17 +73,19 @@ def supported_scoring(profile, go: int, ge: int) -> bool:
     return bound < 2**31
 
 
-def _check(profile_biased, streams, fs, go, ge, nslots, jb):
-    if profile_biased.ndim == 3:
-        raise NotImplementedError(
-            "a 3-D (multi-query) profile needs the K3 row-stacked kernel, "
-            "which is not yet ported"
+def _check(profile_biased, streams, fs, go, ge, nslots, jb, *, multi=False):
+    want = "(nq, rows, 32)" if multi else "(rows, 32)"
+    if profile_biased.ndim != (3 if multi else 2) or profile_biased.shape[-1] != ALPHA:
+        hint = (
+            "; a 3-D (multi-query) profile goes to sw_stream_multi (K3)"
+            if not multi and profile_biased.ndim == 3 else ""
         )
-    if profile_biased.ndim != 2 or profile_biased.shape[1] != ALPHA:
         raise ValueError(
-            f"profile shape {tuple(profile_biased.shape)} != (rows, {ALPHA})"
+            f"profile shape {tuple(profile_biased.shape)} != {want}{hint}"
         )
-    lqp = profile_biased.shape[0]
+    if multi and profile_biased.shape[0] < 1:
+        raise ValueError("a multi-query profile needs at least one query")
+    lqp = profile_biased.shape[-2]
     if lqp % ROW_ALIGN:
         raise ValueError(f"profile rows {lqp} not a multiple of {ROW_ALIGN}")
     if lqp > MAX_QUERY_ROWS:
@@ -146,6 +153,55 @@ def sw_stream(
         return sw_stream_reference(
             profile_biased, streams, fs, go, ge, nslots=nslots, jb=jb
         )
+    out = _launch("sw_stream", profile_biased, streams, fs, go, ge, nslots, jb)
+    sw_stream.launches += 1
+    return out
+
+
+sw_stream.launches = 0
+
+
+def sw_stream_multi(
+    profile_biased: torch.Tensor,
+    streams: torch.Tensor,
+    fs: torch.Tensor,
+    go: int,
+    ge: int,
+    *,
+    nslots: int,
+    jb: int,
+) -> torch.Tensor:
+    """Score ``nq`` queries against the same segmented window streams in one
+    launch (K3).
+
+    Args:
+      profile_biased: ``(nq, lqe, 32)`` int32 ``P - go`` (``convert.
+        profile_to_torch`` of a 3-D profile), ``lqe`` a multiple of
+        ``ROW_ALIGN`` and at most ``MAX_QUERY_ROWS``.
+      streams, fs, go, ge, nslots, jb: as :func:`sw_stream`.
+
+    Returns:
+      ``(nslots, nq, win)`` int32 per-segment best scores of each query.
+    """
+    _check(profile_biased, streams, fs, go, ge, nslots, jb, multi=True)
+    if streams.device.type == "cpu":
+        return sw_stream_multi_reference(
+            profile_biased, streams, fs, go, ge, nslots=nslots, jb=jb
+        )
+    out = _launch(
+        "sw_stream_multi", profile_biased, streams, fs, go, ge, nslots, jb
+    )
+    sw_stream_multi.launches += 1
+    return out
+
+
+sw_stream_multi.launches = 0
+
+
+def _launch(name, prof, streams, fs, go, ge, nslots, jb) -> torch.Tensor:
+    """Launch the CUDA kernel ``name`` (``sw_stream``: a 2-D profile,
+    ``sw_stream_multi``: a 3-D one) on checked tensors; raise on another
+    device or block size, and on a refused launch."""
     if streams.device.type != "cuda":
         raise ValueError(f"no stream kernel for device {streams.device}")
     if jb != STREAM_JB:
@@ -154,29 +210,27 @@ def sw_stream(
 
     lib = _build.load()
     nw, length, win = streams.shape
-    lqp = profile_biased.shape[0]
+    nq = prof.shape[0] if prof.ndim == 3 else 1
+    lqp = prof.shape[-2]
     dev = streams.device
-    out = torch.zeros((nslots, win), dtype=torch.int32, device=dev)
-    # Rolling (Gg, E) rows, [w][i][lane]; the kernel writes them before it
-    # reads them.
-    rows = torch.empty((2, nw, lqp, win), dtype=torch.int32, device=dev)
+    out = torch.zeros((nslots, *prof.shape[:-2], win), dtype=torch.int32, device=dev)
+    # Rolling (Gg, E) rows, [q][w][i][lane]; the kernel writes them before
+    # it reads them.
+    rows = torch.empty((2, nq, nw, lqp, win), dtype=torch.int32, device=dev)
+    dims = (lqp, length, win, nw) + ((nq,) if prof.ndim == 3 else ())
     with torch.cuda.device(dev):
-        err = lib.sw_stream_launch(
-            profile_biased.data_ptr(), streams.data_ptr(), fs.data_ptr(),
+        err = getattr(lib, f"{name}_launch")(
+            prof.data_ptr(), streams.data_ptr(), fs.data_ptr(),
             out.data_ptr(), rows[0].data_ptr(), rows[1].data_ptr(),
-            lqp, length, win, nw, jb, int(go), int(ge),
+            *dims, jb, int(go), int(ge),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err:
         raise RuntimeError(
-            f"sw_stream launch failed: CUDA error {err} "
+            f"{name} launch failed: CUDA error {err} "
             f"({_build.error_string(err)})"
         )
-    sw_stream.launches += 1
     return out
-
-
-sw_stream.launches = 0
 
 
 def sw_stream_reference(
@@ -189,22 +243,52 @@ def sw_stream_reference(
     nslots: int,
     jb: int,
 ) -> torch.Tensor:
-    """Plain PyTorch version of :func:`sw_stream`, same contract.
-
-    An anti-diagonal wavefront over every window's whole stream at once:
-    step ``d`` computes the cells ``(i, j = d - i)`` of all windows and
-    lanes. A position that starts a segment sees the boundary (Gg = go,
-    E = 0) on its up and diagonal sides, and each cell's G is max-reduced
-    into its segment's best.
-    """
+    """Plain PyTorch version of :func:`sw_stream`, same contract."""
     _check(profile_biased, streams, fs, go, ge, nslots, jb)
     sw_stream_reference.calls += 1
+    return _wavefront(profile_biased[None], streams, fs, go, ge, nslots, jb)[:, 0]
+
+
+sw_stream_reference.calls = 0
+
+
+def sw_stream_multi_reference(
+    profile_biased: torch.Tensor,
+    streams: torch.Tensor,
+    fs: torch.Tensor,
+    go: int,
+    ge: int,
+    *,
+    nslots: int,
+    jb: int,
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`sw_stream_multi`, same contract."""
+    _check(profile_biased, streams, fs, go, ge, nslots, jb, multi=True)
+    sw_stream_multi_reference.calls += 1
+    return _wavefront(profile_biased, streams, fs, go, ge, nslots, jb)
+
+
+sw_stream_multi_reference.calls = 0
+
+
+def _wavefront(prof, streams, fs, go, ge, nslots, jb) -> torch.Tensor:
+    """The plain versions' body: ``(nq, lqp, 32)`` profile -> ``(nslots, nq,
+    win)``.
+
+    An anti-diagonal wavefront over every query and every window's whole
+    stream at once: step ``d`` computes the cells ``(i, j = d - i)`` of all
+    queries, windows and lanes. Row 0 of each query sees the row -1
+    boundary (Gg = go, F = 0) on its left and diagonal sides; a position
+    that starts a segment sees it (Gg = go, E = 0) on its up and diagonal
+    sides; each cell's G is max-reduced into its segment's best. State is
+    laid out ``(row, window, query, lane)``.
+    """
     dev = streams.device
-    lqp = profile_biased.shape[0]
+    nq, lqp, _ = prof.shape
     nw, length, win = streams.shape
     nj = length // jb
-    out = torch.zeros((nslots, win), dtype=torch.int32, device=dev)
-    if lqp == 0 or nw == 0:
+    out = torch.zeros((nslots, nq, win), dtype=torch.int32, device=dev)
+    if lqp == 0 or nw == 0 or nq == 0:
         return out
 
     # Segment of every block and position; a flagged block starts one.
@@ -225,18 +309,20 @@ def sw_stream_reference(
     ends = last > 0
     slot_of[seg_blk[-1, ends], wall[ends]] = last[ends].long() - 1
 
-    prof_flat = profile_biased.reshape(-1)
+    prof_flat = prof.reshape(-1)
     iota = torch.arange(lqp, device=dev)
-    row_base = (iota * ALPHA)[:, None, None]
+    qs = torch.arange(nq, device=dev)
+    # Flat index of P'[q, i, 0], laid out (row, 1, query, 1).
+    row_base = ((qs[None, :] * lqp + iota[:, None]) * ALPHA)[:, None, :, None]
     w_idx = wall[None, :]
-    best = torch.zeros((nseg, nw, win), dtype=torch.int32, device=dev)
-    go_row = torch.full((1, nw, win), go, dtype=torch.int32, device=dev)
-    zero_row = torch.zeros((1, nw, win), dtype=torch.int32, device=dev)
+    best = torch.zeros((nseg, nw, nq, win), dtype=torch.int32, device=dev)
+    go_row = torch.full((1, nw, nq, win), go, dtype=torch.int32, device=dev)
+    zero_row = torch.zeros((1, nw, nq, win), dtype=torch.int32, device=dev)
 
     def down(x, fill):  # out[i] = x[i-1], out[0] = the row -1 boundary
         return torch.cat([fill, x[:-1]], dim=0)
 
-    shape = (lqp, nw, win)
+    shape = (lqp, nw, nq, win)
     gg1 = torch.full(shape, go, dtype=torch.int32, device=dev)  # diagonal d-1
     e1 = torch.zeros(shape, dtype=torch.int32, device=dev)
     f1 = torch.zeros(shape, dtype=torch.int32, device=dev)
@@ -245,8 +331,8 @@ def sw_stream_reference(
         j = d - iota
         jc = j.clamp(0, length - 1)[:, None]  # (lqp, 1)
         chars = streams[w_idx, jc].long() & (ALPHA - 1)  # (lqp, nw, win)
-        s = prof_flat[row_base + chars]
-        new = fresh[w_idx, jc][:, :, None]  # (lqp, nw, 1)
+        s = prof_flat[row_base + chars[:, :, None, :]]
+        new = fresh[w_idx, jc][:, :, None, None]  # (lqp, nw, 1, 1)
         gg_up = torch.where(new, go, gg1)
         e_up = torch.where(new, 0, e1)
         gg_diag = torch.where(new, go, down(gg2, go_row))
@@ -254,10 +340,10 @@ def sw_stream_reference(
         e = torch.maximum(gg_up, e_up + ge)
         f = torch.maximum(down(gg1, go_row), down(f1, zero_row) + ge)
         g = torch.maximum(torch.maximum(hp, e), torch.clamp_min(f, 0))
-        valid = ((j >= 0) & (j < length))[:, None, None]
+        valid = ((j >= 0) & (j < length))[:, None, None, None]
         best.scatter_reduce_(
             0,
-            seg[w_idx, jc][:, :, None].expand(shape),
+            seg[w_idx, jc][:, :, None, None].expand(shape),
             torch.where(valid, g, 0),
             reduce="amax",
         )
@@ -266,6 +352,3 @@ def sw_stream_reference(
     flushed = slot_of >= 0
     out[slot_of[flushed]] = best[flushed]
     return out
-
-
-sw_stream_reference.calls = 0

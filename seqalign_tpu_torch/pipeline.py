@@ -1,11 +1,12 @@
 """Query-vs-database search: the port of ``seqalign_tpu.pipeline``'s
-single-query path.
+single-query and multi-query paths.
 
 Reads the query and the database FASTA (the JAX package's numpy host code),
 length-sorts the records, packs them into segmented window streams, scores
 each chunk of streams in one launch of the stream kernel
-(``ops.swa_cuda.sw_stream``) and scatters the scores back to database
-order. The timer covers the launch, the kernel and the fetch of the scores;
+(``ops.swa_cuda.sw_stream``; ``sw_stream_multi`` per block of queries for a
+multi-query search) and scatters the scores back to database order. The
+timer covers the launches, the kernels and the fetch of the scores;
 parsing, packing and the host-to-device copy stay outside it, the same
 boundary as the JAX package's and the reference's.
 
@@ -26,10 +27,13 @@ import torch
 
 from .convert import profile_to_torch, stream_pack_to_torch
 from .host import (
-    EncodedDatabase, ScoringModel, SeqRecord, encode, lattice_round_up,
-    pack_batch, pack_streams, parse_file_cached, read_fasta, read_first,
+    EncodedDatabase, ScoringModel, SeqRecord, StreamPack, encode,
+    lattice_round_up, pack_batch, pack_streams, parse_file_cached, read_fasta,
+    read_first,
 )
-from .ops.swa_cuda import MAX_QUERY_ROWS, STREAM_JB, supported_scoring, sw_stream
+from .ops.swa_cuda import (
+    MAX_QUERY_ROWS, STREAM_JB, supported_scoring, sw_stream, sw_stream_multi,
+)
 from .ops.swa_torch import make_profile, sw_scan, sw_wavefront
 
 ENGINES = ("stream", "wavefront", "scan")
@@ -42,6 +46,21 @@ STREAM_GRAIN = 16  # segment-length rounding, a multiple of STREAM_JB
 MAX_STREAM_SLOTS = 4096
 # Lane-batch width of the wavefront and scan engines.
 BATCH_LANES = 512
+# Device memory one multi-query launch may take for its rolling rows and
+# its output (choose_query_block); sets the queries per launch.
+MULTI_SCRATCH_BYTES = 8 << 30
+
+
+@dataclasses.dataclass
+class MultiSearchResult:
+    """Scores for several queries against one database, in stream order."""
+
+    query_names: list[str]
+    query_seqs: list[str]
+    names: list[str]
+    scores: np.ndarray  # (NQ, N) int32
+    kernel_time: float  # seconds in launches + execution + score fetch
+    total_entries: int
 
 
 @dataclasses.dataclass
@@ -124,22 +143,10 @@ def search_database(
 
     if eng == "stream":
         if not supported_scoring(profile, go, ge):
-            print(
-                "Note: scoring system outside the stream kernel's int32 "
-                "G-form envelope (it needs gap_extend >= gap_open + "
-                "gap_extend, gap_extend <= 0, no int32 overflow); using "
-                "wavefront.",
-                file=sys.stderr,
-            )
+            _note_wavefront()
             eng = "wavefront"
-        elif len(query_idx) > MAX_QUERY_ROWS:
-            raise NotImplementedError(
-                f"query of {len(query_idx)} residues exceeds the stream "
-                f"kernel's MAX_QUERY_ROWS={MAX_QUERY_ROWS}; longer queries "
-                "need the K2 row-striped kernel, which is not yet ported "
-                "(--engine wavefront scores them)"
-            )
         else:
+            _check_query_rows(len(query_idx))
             return _stream_search(profile, db, go, ge, order, lanes, dev)
 
     win = lanes or BATCH_LANES
@@ -156,6 +163,103 @@ def search_database(
         kernel_time += time.perf_counter() - t0
         scores[ids] = out.numpy()[: len(ids)]
     return scores, kernel_time
+
+
+def _note_wavefront() -> None:
+    print(
+        "Note: scoring system outside the stream kernel's int32 "
+        "G-form envelope (it needs gap_extend >= gap_open + "
+        "gap_extend, gap_extend <= 0, no int32 overflow); using "
+        "wavefront.",
+        file=sys.stderr,
+    )
+
+
+def _check_query_rows(lq: int) -> None:
+    if lq > MAX_QUERY_ROWS:
+        raise NotImplementedError(
+            f"query of {lq} residues exceeds the stream "
+            f"kernel's MAX_QUERY_ROWS={MAX_QUERY_ROWS}; longer queries "
+            "need the K2 row-striped kernel, which is not yet ported "
+            "(--engine wavefront scores them)"
+        )
+
+
+def search_database_multi(
+    query_idxs: Sequence[np.ndarray],
+    db: EncodedDatabase,
+    scoring: ScoringModel,
+    engine: str | None = None,
+    lanes: int | None = None,
+    sort: bool = True,
+    device: torch.device | str | None = None,
+) -> tuple[np.ndarray, float]:
+    """Score many encoded queries against an EncodedDatabase.
+
+    Returns ((NQ, N) int32 scores in database stream order, kernel seconds).
+    The ``stream`` engine (the default) scores blocks of queries over the
+    same packed streams in one launch of the multi-query kernel each. The
+    ``wavefront`` and ``scan`` engines, and a scoring system outside the
+    stream kernel's envelope (which says so and uses ``wavefront``), search
+    each query on its own through :func:`search_database`.
+    """
+    eng = engine or "stream"
+    if eng not in ENGINES:
+        raise KeyError(f"unknown engine {eng!r}; expected one of {ENGINES}")
+    dev = resolve_device() if device is None else torch.device(device)
+    nq = len(query_idxs)
+    scores = np.zeros((nq, db.n), dtype=np.int32)
+    if nq == 0 or db.n == 0:
+        return scores, 0.0
+
+    go, ge = scoring.gap_open_total, scoring.gap_extend
+    profiles = multi_profile(scoring.table, query_idxs)
+
+    if eng == "stream":
+        if supported_scoring(profiles, go, ge):
+            _check_query_rows(max(len(q) for q in query_idxs))
+            order = np.argsort(-db.lengths, kind="stable") if sort else np.arange(db.n)
+            return _stream_search(profiles, db, go, ge, order, lanes, dev)
+        _note_wavefront()
+        eng = "wavefront"
+
+    kernel_time = 0.0
+    for k, q in enumerate(query_idxs):
+        scores[k], dt = search_database(
+            q, db, scoring, engine=eng, lanes=lanes, sort=sort, device=dev
+        )
+        kernel_time += dt
+    return scores, kernel_time
+
+
+def multi_profile(table: np.ndarray, query_idxs: Sequence[np.ndarray]) -> np.ndarray:
+    """``(NQ, lqmax, 32)`` profiles of encoded queries.
+
+    Shorter queries pad to lqmax with P = 0 rows: an appended row gives
+    H' = G_diag, which never exceeds the best, so no score changes; an
+    empty query is all zero and scores 0.
+    """
+    lqmax = max(len(q) for q in query_idxs)
+    profiles = np.zeros((len(query_idxs), max(lqmax, 1), 32), dtype=np.int32)
+    for k, q in enumerate(query_idxs):
+        if len(q):
+            profiles[k, : len(q)] = make_profile(table, q)
+    return profiles
+
+
+def choose_query_block(nq: int, rows: int, nw_max: int, win: int) -> int:
+    """Queries per multi-query launch.
+
+    As many as fit ``MULTI_SCRATCH_BYTES``: per query, the kernel's rolling
+    rows (``2 x 4 B x rows x win`` per window, at most ``nw_max`` windows)
+    and its output (``4 B x win`` per slot, at most ``MAX_STREAM_SLOTS``);
+    then evened out so the blocks differ by at most one query and the last
+    block pads as few as it can.
+    """
+    per_query = 4 * win * (2 * rows * max(nw_max, 1) + MAX_STREAM_SLOTS)
+    cap = max(1, MULTI_SCRATCH_BYTES // per_query)
+    n_blocks = -(-nq // cap)
+    return -(-nq // n_blocks)
 
 
 def resident_lanes(device: torch.device) -> int | None:
@@ -192,6 +296,47 @@ def choose_windows(
     return max(1, nw)
 
 
+def query_blocks(
+    profile: np.ndarray, go: int, n: int, lanes: int | None,
+    device: torch.device,
+) -> list[torch.Tensor]:
+    """The blocks of queries a multi-query search over ``n`` records
+    launches, one multi-query launch each per chunk.
+
+    ``profile`` is ``(NQ, Lq, 32)``; each block is ``(nq_b, lqe, 32)``
+    biased, on ``device`` (:func:`choose_query_block`), the last one filled
+    up with zero profiles.
+    """
+    prof = profile_to_torch(profile, go, "cpu")
+    win = WINDOW_LANES
+    # choose_windows gives no more windows than a chunk has segments, nor
+    # than the lanes it is allowed.
+    nw_max = min(-(-n // win), MAX_STREAM_SLOTS)
+    cap = lanes or resident_lanes(device)
+    if cap:
+        nw_max = min(nw_max, max(1, cap // win))
+    nq_b = choose_query_block(prof.shape[0], prof.shape[1], nw_max, win)
+    pad = prof.new_zeros((-prof.shape[0] % nq_b, *prof.shape[1:]))
+    return [b.to(device) for b in torch.cat([prof, pad]).split(nq_b)]
+
+
+def stream_chunks(
+    db: EncodedDatabase, order: np.ndarray, lanes: int | None,
+    device: torch.device,
+) -> Iterable[tuple[np.ndarray, StreamPack]]:
+    """``(records, pack)`` of each chunk a search launches on: the records
+    of ``order``, ``MAX_STREAM_SLOTS`` lane groups at a time, packed into
+    :func:`choose_windows` streams."""
+    max_lanes = resident_lanes(device)
+    per_chunk = MAX_STREAM_SLOTS * WINDOW_LANES
+    for start in range(0, db.n, per_chunk):
+        chunk = order[start : start + per_chunk]
+        nw = choose_windows(db.lengths[chunk], WINDOW_LANES, lanes, max_lanes)
+        yield chunk, pack_streams(
+            db, chunk, nw, win=WINDOW_LANES, jb=STREAM_JB, grain=STREAM_GRAIN
+        )
+
+
 def _stream_search(
     profile: np.ndarray,
     db: EncodedDatabase,
@@ -201,40 +346,52 @@ def _stream_search(
     lanes: int | None,
     device: torch.device,
 ) -> tuple[np.ndarray, float]:
-    """Whole-database search through the segmented stream kernel.
+    """Whole-database search through the segmented stream kernels.
 
     The database becomes NW window streams scored in one launch per chunk
-    of ``MAX_STREAM_SLOTS`` segments.
+    of ``MAX_STREAM_SLOTS`` segments (:func:`stream_chunks`). A 3-D
+    ``(NQ, Lq, 32)`` profile runs one multi-query launch per block of
+    queries (:func:`query_blocks`) over the same device-resident streams.
+    The chunks are the single-query search's: the JAX package's smaller
+    chunks for a batch (``MAX_STREAM_SLOTS // nq_b`` segments) pad each
+    stream to a longer segment, and on an H100 that cost 1.27x the K3 time
+    at 8 x 17 and 1.54x at 64 x 144 (PERF.md). Returns ``(N,)`` or
+    ``(NQ, N)`` scores.
     """
     n = db.n
-    win = WINDOW_LANES
-    scores = np.zeros(n, dtype=np.int32)
+    multi = profile.ndim == 3
     kernel_time = 0.0
-    prof_dev = profile_to_torch(profile, go, device)
     if device.type == "cuda":
         from .ops import _build
 
         _build.load()  # a first use builds the kernel: set-up, not timed
-    max_lanes = resident_lanes(device)
-    per_chunk = MAX_STREAM_SLOTS * win
-    for start in range(0, n, per_chunk):
-        chunk = order[start : start + per_chunk]
-        nw = choose_windows(db.lengths[chunk], win, lanes, max_lanes)
-        pack = pack_streams(
-            db, chunk, nw, win=win, jb=STREAM_JB, grain=STREAM_GRAIN
-        )
+    if multi:
+        nq = profile.shape[0]
+        scores = np.zeros((nq, n), dtype=np.int32)
+        blocks = query_blocks(profile, go, n, lanes, device)
+    else:
+        scores = np.zeros(n, dtype=np.int32)
+        prof_dev = profile_to_torch(profile, go, device)
+    for chunk, pack in stream_chunks(db, order, lanes, device):
         streams, fs = stream_pack_to_torch(pack, device)
+        kw = dict(nslots=len(pack.slot_ids), jb=STREAM_JB)
         _sync(device)
         t0 = time.perf_counter()
-        out = sw_stream(
-            prof_dev, streams, fs, go, ge,
-            nslots=len(pack.slot_ids), jb=STREAM_JB,
-        ).cpu()
+        if multi:
+            # Every block's launch is enqueued before the one fetch.
+            outs = [sw_stream_multi(b, streams, fs, go, ge, **kw) for b in blocks]
+            out = torch.cat(outs, dim=1).cpu()
+        else:
+            out = sw_stream(prof_dev, streams, fs, go, ge, **kw).cpu()
         kernel_time += time.perf_counter() - t0
         # Slot s holds chunk records [s*win, (s+1)*win): the flattened slots
         # are the chunk in packing order, the final group's padding lanes
         # past its end.
-        scores[chunk] = out.numpy().reshape(-1)[: len(chunk)]
+        if multi:
+            flat = out.numpy().transpose(1, 0, 2).reshape(out.shape[1], -1)
+            scores[:, chunk] = flat[:nq, : len(chunk)]
+        else:
+            scores[chunk] = out.numpy().reshape(-1)[: len(chunk)]
     return scores, kernel_time
 
 
@@ -326,6 +483,35 @@ def search_files(
         query_seq=query.seq,
         names=db.names,
         seqs=None,
+        scores=scores,
+        kernel_time=kernel_time,
+        total_entries=db.n,
+    )
+
+
+def search_files_multi(
+    query_path: str,
+    db_path: str,
+    scoring: ScoringModel,
+    engine: str | None = None,
+    lanes: int | None = None,
+    db_cache: str | None = None,
+) -> MultiSearchResult:
+    """Search every record of a query FASTA against a database FASTA."""
+    queries = list(read_fasta(query_path))
+    if not queries:
+        raise ValueError(f"no sequences in {query_path}")
+    query_idxs = [scoring.query_indices(q.seq) for q in queries]
+    for q in query_idxs:
+        _warn_padding(scoring, q)
+    db = parse_file_cached(db_path, db_cache)
+    scores, kernel_time = search_database_multi(
+        query_idxs, db, scoring, engine=engine, lanes=lanes
+    )
+    return MultiSearchResult(
+        query_names=[q.name for q in queries],
+        query_seqs=[q.seq for q in queries],
+        names=db.names,
         scores=scores,
         kernel_time=kernel_time,
         total_entries=db.n,

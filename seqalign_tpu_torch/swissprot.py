@@ -6,7 +6,7 @@ residues), UniProt amino-acid frequencies, seed 42, plus a query drawn from
 the same stream.
 
     python -m seqalign_tpu_torch.swissprot [--lq 17,144,512,1536]
-        [--windows 132,264,396,528,1056] [--out chiprun_out/swissprot.json]
+        [--windows 132,264,396,528,1056] [--nq N] [--out FILE.json]
 
 times each layer of a search over it on the GPU, PAM250, gaps -2/-1: the
 FASTA parse, ``pack_streams``, the host-to-device copy, the kernel (CUDA
@@ -16,6 +16,14 @@ each query length of ``--lq`` (the pipeline's own window count) and, with
 the 144-residue query, at each window count of ``--windows``. Every line
 printed names the card and its power limit; ``--out`` gets the same as
 JSON. The FASTA is written to and parsed from ``build/`` of the checkout.
+
+With ``--nq N`` it times the multi-query search instead, for a batch of N
+random queries of each length of ``--lq`` (``--nq 8 --lq 17`` is
+bench.py's multi-query point): the pack, the host-to-device copy, the
+multi-query kernel (CUDA events, every launch of the batch), the fetch and
+scatter, the whole ``search_database_multi`` call and the device's busy
+share; beside them, the single-query kernel looped over the N queries on
+the same streams.
 """
 
 from __future__ import annotations
@@ -110,6 +118,103 @@ def _seconds(fn):
     return out, time.perf_counter() - t0
 
 
+def _busy(fn):
+    """(wall seconds, device-busy ms, top kernels) of fn under torch.profiler;
+    device-side events only (a host op such as aten::copy_ also reports
+    the device time of the memcpy it issued)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        _, wall = _seconds(fn)
+    on_device = [e for e in p.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in on_device)
+    top = sorted(((e.key, e.self_device_time_total / 1e3) for e in on_device),
+                 key=lambda kv: -kv[1])[:6]
+    return wall, busy_us / 1e3, top
+
+
+def multi_breakdown(db, nq: int, lq: int, say) -> dict:
+    """Where a multi-query search of nq queries of lq residues spends its
+    time, and the single-query kernel looped over the same queries."""
+    from . import pipeline
+    from .convert import profile_to_torch, stream_pack_to_torch
+    from .ops.swa_cuda import STREAM_JB, sw_stream, sw_stream_multi
+    from .ops.swa_torch import make_profile
+
+    dev = torch.device("cuda")
+    sc = pam250()
+    go, ge = sc.gap_open_total, sc.gap_extend
+    kw = dict(jb=STREAM_JB)
+    queries = [random_query(lq, 100 + k) for k in range(nq)]
+    cells = nq * lq * int(db.offsets[-1])
+    tag = f"[multi {nq}x{lq}]"
+    pipeline.search_database_multi(queries, db, sc, device=dev)  # builds the kernel
+    steps = {}
+    t0 = time.perf_counter()
+    order = np.argsort(-db.lengths, kind="stable")
+    blocks = pipeline.query_blocks(
+        pipeline.multi_profile(sc.table, queries), go, db.n, None, dev)
+    steps["sort_and_plan"] = time.perf_counter() - t0
+    steps["pack"] = steps["h2d"] = steps["fetch_and_scatter"] = 0.0
+    chunks = []
+    it = pipeline.stream_chunks(db, order, None, dev)
+    while True:
+        t0 = time.perf_counter()
+        item = next(it, None)
+        steps["pack"] += time.perf_counter() - t0
+        if item is None:
+            break
+        chunk, pack = item
+        (streams, fs), dt = _seconds(lambda: stream_pack_to_torch(pack, dev))
+        steps["h2d"] += dt
+        chunks.append((chunk, streams, fs, len(pack.slot_ids)))
+
+    def k3_all():
+        return [sw_stream_multi(b, s, f, go, ge, nslots=ns, **kw)
+                for _, s, f, ns in chunks for b in blocks]
+
+    steps["kernel"] = cuda_ms(k3_all, 3) / 1e3
+    scores = np.zeros((nq, db.n), np.int32)
+    for chunk, s, f, ns in chunks:
+        outs = [sw_stream_multi(b, s, f, go, ge, nslots=ns, **kw) for b in blocks]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = torch.cat(outs, dim=1).cpu().numpy()
+        scores[:, chunk] = out.transpose(1, 0, 2).reshape(out.shape[1], -1)[:nq, : len(chunk)]
+        steps["fetch_and_scatter"] += time.perf_counter() - t0
+    shape = (f"{len(blocks)} block(s) of {blocks[0].shape[0]} x {blocks[0].shape[1]} "
+             f"rows, {len(chunks)} chunk(s), nw="
+             + "/".join(str(s.shape[0]) for _, s, _, _ in chunks)
+             + " L=" + "/".join(str(s.shape[1]) for _, s, _, _ in chunks))
+    say(f"{tag} {shape}")
+    for k, v in steps.items():
+        say(f"{tag} [steps] {k}: {v} s")
+    say(f"{tag} K3 {steps['kernel'] * 1e3} ms = {cells / steps['kernel'] / 1e9} GCUPS")
+
+    walls = []
+    for _ in range(3):
+        (_, kernel_s), wall = _seconds(
+            lambda: pipeline.search_database_multi(queries, db, sc, device=dev))
+        walls.append({"wall_s": wall, "kernel_timer_s": kernel_s})
+        say(f"{tag} [search] wall {wall} s, kernel timer {kernel_s} s = "
+            f"{cells / kernel_s / 1e9} GCUPS")
+    wall, busy_ms, top = _busy(
+        lambda: pipeline.search_database_multi(queries, db, sc, device=dev))
+    say(f"{tag} [profile] device {busy_ms} ms in a {wall} s search wall, busy "
+        f"share {busy_ms / 1e3 / wall}; {top}")
+
+    # K1 over the same queries and streams: what nq single-query searches
+    # launch.
+    profs = [profile_to_torch(make_profile(sc.table, q), go, dev) for q in queries]
+    k1_ms = cuda_ms(lambda: [sw_stream(p, s, f, go, ge, nslots=ns, **kw)
+                             for _, s, f, ns in chunks for p in profs], 3)
+    say(f"{tag} K1 x {nq}: {k1_ms} ms = {cells / k1_ms / 1e6} GCUPS")
+    return {"nq": nq, "lq": lq, "shape": shape, "steps_s": steps, "search": walls,
+            "profile": {"wall_s": wall, "device_ms": busy_ms, "top_ms": top},
+            "k3_ms": steps["kernel"] * 1e3, "k1_loop_ms": k1_ms}
+
+
 def main(argv=None) -> int:
     from . import pipeline
     from .convert import profile_to_torch, stream_pack_to_torch
@@ -120,6 +225,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--lq", default="17,144,512,1536")
     ap.add_argument("--windows", default="132,264,396,528,1056")
+    ap.add_argument("--nq", type=int, default=0,
+                    help="time the multi-query search of this many queries")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -138,6 +245,10 @@ def main(argv=None) -> int:
 
     query, db = swissprot_db()
     residues = int(db.offsets[-1])
+    if args.nq:
+        result["multi"] = [multi_breakdown(db, args.nq, lq, say) for lq in lqs]
+        _write(args.out, result)
+        return 0
     build = Path(__file__).resolve().parent.parent / "build"
     build.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build) as tmp:
@@ -189,23 +300,12 @@ def main(argv=None) -> int:
             f"{len(query) * residues / kernel_s / 1e9} GCUPS")
     result["search"] = walls
 
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
-        (_, _), wall = _seconds(
-            lambda: pipeline.search_database(query, db, sc, device=dev)
-        )
-    # Device-side events only: a host op (aten::copy_) also reports the
-    # device time of the memcpy it issued.
-    on_device = [e for e in p.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in on_device)
-    top = sorted(((e.key, e.self_device_time_total / 1e3) for e in on_device),
-                 key=lambda kv: -kv[1])[:6]
-    result["profile"] = {"wall_s": wall, "device_ms": busy_us / 1e3,
-                         "busy_share": busy_us / 1e6 / wall, "top_ms": top}
-    say(f"[profile] device {busy_us / 1e3} ms in a {wall} s search wall, "
-        f"busy share {busy_us / 1e6 / wall}; {top}")
+    wall, busy_ms, top = _busy(
+        lambda: pipeline.search_database(query, db, sc, device=dev))
+    result["profile"] = {"wall_s": wall, "device_ms": busy_ms,
+                         "busy_share": busy_ms / 1e3 / wall, "top_ms": top}
+    say(f"[profile] device {busy_ms} ms in a {wall} s search wall, "
+        f"busy share {busy_ms / 1e3 / wall}; {top}")
 
     shape = f"nw={nw} L={streams.shape[1]} win={win} jb={STREAM_JB}"
     for lq in lqs:
@@ -231,10 +331,14 @@ def main(argv=None) -> int:
         say(f"[windows] nw={w} L={s_w.shape[1]} lq={len(query)}: kernel {ms} ms = "
             f"{gcups} GCUPS (padded/real cells {pad_w})")
         del s_w, fs_w
-    if args.out:
-        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-        Path(args.out).write_text(json.dumps(result, indent=1))
+    _write(args.out, result)
     return 0
+
+
+def _write(out, result) -> None:
+    if out:
+        Path(out).parent.mkdir(parents=True, exist_ok=True)
+        Path(out).write_text(json.dumps(result, indent=1))
 
 
 if __name__ == "__main__":

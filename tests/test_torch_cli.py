@@ -35,7 +35,12 @@ def files(tmp_path):
         f.write(recs)
     multi = tmp_path / "multi.fa"
     multi.write_text(">a\nMKVLAWQ\n>b\nHEAGAWGHEE\n")
-    return {"q": str(q), "db": str(db), "dbz": str(dbz), "multi": str(multi)}
+    multi3 = tmp_path / "multi3.fa"
+    multi3.write_text("".join(
+        f">mq{k} query {k}\n{random_protein(rng, 5 + 7 * k)}\n" for k in range(3)
+    ))
+    return {"q": str(q), "db": str(db), "dbz": str(dbz), "multi": str(multi),
+            "multi3": str(multi3)}
 
 
 def _run(main, args, capsys):
@@ -113,10 +118,64 @@ def test_flag_not_yet_ported(flag, files, capsys):
 
 
 def test_multi_record_query_not_yet_ported(files, capsys):
-    code, out, err = _run(cli.main, ["--files", files["multi"], files["db"]], capsys)
-    assert code == 1
-    assert "is not yet ported to seqalign_tpu_torch" in err
-    assert "Entry #" not in out
+    """A multi-record query file is no longer refused: every record is
+    scored, one ``Query #k`` block each, as the JAX CLI prints it."""
+    args = ["--files", files["multi"], files["db"]]
+    code, out, err = _run(cli.main, args, capsys)
+    jcode, jout, _ = _run(jax_cli.main, args + ["--engine", "wavefront"], capsys)
+    assert code == jcode == 0
+    assert "is not yet ported" not in err
+    assert [ln for ln in out.splitlines() if ln.startswith("Query #")] == [
+        "Query #0: a", "Query #1: b",
+    ]
+    assert _drop_time(out) == _drop_time(jout)
+
+
+MULTI_CASES = {
+    "auto_batched": [],
+    "all_queries": ["--all-queries"],
+    "all_queries_one_record": ["--q", "q", "--all-queries"],
+    "minscore": ["--minscore", "8"],
+    "printfasta": ["--printfasta"],
+    "topk_blosum62": ["--substitution_matrix", "BLOSUM62", "--topk", "4"],
+    "gapopen_positive": ["--gapopen", "2"],
+    "wavefront": ["--engine", "wavefront"],
+}
+
+
+@pytest.mark.parametrize("case", sorted(MULTI_CASES))
+def test_multi_query_output_matches_jax(case, files, capsys):
+    args = list(MULTI_CASES[case])
+    q = files["multi3"]
+    if "--q" in args:
+        q = files[args.pop(args.index("--q") + 1)]
+        args.remove("--q")
+    args = ["--files", q, files["db"]] + args
+    code, out, _ = _run(cli.main, args, capsys)
+    jargs = args if "--engine" in args else args + ["--engine", "wavefront"]
+    jcode, jout, _ = _run(jax_cli.main, jargs, capsys)
+    assert code == jcode == 0
+    assert "Query #0:" in out and "Total Entries: 40" in out
+    assert _drop_time(out) == _drop_time(jout)
+
+
+@pytest.mark.parametrize("extra", [["--topk", "3"], ["--minscore", "6"]])
+def test_multi_query_json_matches_jax(extra, files, capsys):
+    args = ["--files", files["multi3"], files["db"], "--json"] + extra
+    code, out, _ = _run(cli.main, args, capsys)
+    jcode, jout, _ = _run(jax_cli.main, args + ["--engine", "wavefront"], capsys)
+    assert code == jcode == 0
+    got, want = (json.loads(o.splitlines()[-1]) for o in (out, jout))
+    for d in (got, want):
+        d.pop("total_time")
+    assert got == want and len(got["queries"]) == 3
+
+
+def test_multi_query_above_row_limit_exits_1(files, capsys, tmp_path):
+    q = tmp_path / "long.fa"
+    q.write_text(">short\nMKV\n>long\n" + "A" * 1537 + "\n")
+    code, out, err = _run(cli.main, ["--files", str(q), files["db"]], capsys)
+    assert code == 1 and "K2" in err and "Entry #" not in out
 
 
 @pytest.mark.parametrize(

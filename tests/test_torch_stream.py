@@ -11,7 +11,8 @@ from seqalign_tpu.utils.packing import pack_streams
 from seqalign_tpu_torch.convert import profile_to_torch, stream_pack_to_torch
 from seqalign_tpu_torch.ops import _build
 from seqalign_tpu_torch.ops.swa_cuda import (
-    MAX_QUERY_ROWS, supported_scoring, sw_stream, sw_stream_reference,
+    MAX_QUERY_ROWS, supported_scoring, sw_stream, sw_stream_multi,
+    sw_stream_reference,
 )
 from seqalign_tpu_torch.ops.swa_torch import make_profile
 from seqalign_tpu_torch.pipeline import _db_from_encoded
@@ -121,11 +122,18 @@ def _small_inputs(rows=4, nw=1, length=8):
 
 
 def test_three_d_profile_names_k3():
+    """A 3-D (multi-query) profile is carried across and scored by the K3
+    wrapper; the K1 wrapper points it there."""
     prof, streams, fs = _small_inputs()
-    with pytest.raises(NotImplementedError, match="K3"):
+    fs[-1, 0, 1] = 1
+    with pytest.raises(ValueError, match="K3"):
         sw_stream(prof[None], streams, fs, -3, -1, nslots=1, jb=JB)
-    with pytest.raises(NotImplementedError, match="K3"):
-        profile_to_torch(np.zeros((2, 3, 32), np.int32), -3, "cpu")
+    prof3 = profile_to_torch(np.zeros((2, 3, 32), np.int32), -3, "cpu")
+    assert tuple(prof3.shape) == (2, 4, 32)
+    got = sw_stream_multi(prof3, streams, fs, -3, -1, nslots=1, jb=JB)
+    assert got.shape == (1, 2, WIN) and got.dtype == torch.int32
+    # P = 0 rows against '*' padding: every score is 0.
+    assert not got.any()
 
 
 def test_query_above_row_limit_names_k2():
