@@ -6,14 +6,19 @@
 Phases, each printing its own lines; any failure exits nonzero:
 
 1. device: the card's name, its power limit (nvidia-smi), torch, CUDA, nvcc;
-2. build: compile csrc/*.cu (one source, both kernels) with nvcc for
-   sm_90a into build/;
+2. build: compile csrc/*.cu (one source, every kernel) with nvcc for
+   sm_90a into build/, and read the inner DP loop of each kernel's SASS
+   (integer instructions per cell, for the bound);
 3. kernel: the single-query stream kernel (K1) against its plain PyTorch
    version on the card, int32-exact (torch.equal), over scoring systems,
    segment layouts, window widths and query lengths up to MAX_QUERY_ROWS;
    then the multi-query kernel (K3) the same way, over 2 to 64 queries of
    unequal lengths, an empty query, queries at MAX_QUERY_ROWS, a tail
    segment and empty windows;
+   then the row-striped kernel (K2), pass by pass (output slots and the
+   boundary row) and as a whole search, at 1537 to 4096 query rows and at
+   35,000 against a small database, over the same scoring systems, a
+   partial final stripe, a tail segment and empty windows;
 4. main path: a Swiss-Prot-scale search (565,247 records, about 205 M
    residues, bench.py's generator, seed 42, PAM250, gaps -2/-1, a
    144-residue query) through seqalign_tpu_torch.pipeline.search_database on
@@ -26,14 +31,21 @@ Phases, each printing its own lines; any failure exits nonzero:
    ran K3 and neither K1 nor a plain version; every score equals K1 run
    per query, and the 8-query batch equals K3's plain version on the same
    card tensors; K3, the K1 loop and the plain version are timed;
-6. CLI: the port's CLI with the stream kernels against the same CLI with
-   --engine wavefront on a 3,000-record FASTA, for one query and for an
-   8-record query file; identical but for Total Time.
+6. long-query path: a 2000-residue query against the same database through
+   pipeline.search_database; the counters prove it ran K2 (stripes x chunks
+   passes) and nothing else; every score equals K2's plain version on the
+   card, pass by pass, and 4,096 records (the 256 longest among them)
+   equal the wavefront engine; K2 is timed per pass and whole, and K1 and
+   K2 side by side at lq=1536;
+7. CLI: the port's CLI with the stream kernels against the same CLI with
+   --engine wavefront on a 3,000-record FASTA, for one query, an 8-record
+   query file, a 2000-residue query and a 3-record file holding one;
+   identical but for Total Time.
 
 The line before the last is a JSON object describing the kernels (route,
-source, launches on their path, max error, times); the last line is
-{"ok": true, "device": {...}}. Without a CUDA device the script exits 1
-before printing either.
+source, launches on their path, max error, times, the card's bound for the
+same work); the last line is {"ok": true, "device": {...}}. Without a CUDA
+device the script exits 1 before printing either.
 """
 
 from __future__ import annotations
@@ -52,6 +64,29 @@ ROOT = Path(__file__).resolve().parent
 
 def fail(msg: str):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+# The least time an H100 SXM could take for a kernel's work: the larger of
+# its bytes over the device memory rate and its integer instructions over
+# the int32 issue rate. Both from the published peaks: 3.35 TB/s, and
+# 67 TFLOP/s float32 = 132 SMs x 128 lanes x 2 (FMA) x 1.98 GHz, of which an
+# SM issues int32 work on 64 lanes: 16.75 T instructions/s.
+HBM_BYTES_PER_S = 3.35e12
+INT32_PER_S = 67e12 / 2 / 2
+
+
+def bound(nbytes: int, cells: int, alu_per_cell: float) -> tuple[float, str]:
+    """(bound_ms, bound_by) for ``nbytes`` read or written once and
+    ``cells`` DP cells of ``alu_per_cell`` integer instructions each.
+    ``cells`` counts the work Smith-Waterman needs, real query rows times
+    real database residues; the packer's padding is not part of it."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = cells * alu_per_cell / INT32_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else "operations"
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def scoring(name: str):
@@ -108,6 +143,9 @@ def phase_device(torch):
 
 
 def phase_build():
+    """Build the kernels; return each kernel's integer ALU instructions per
+    DP cell, counted in the inner loop of its SASS."""
+    from seqalign_tpu_torch import sass
     from seqalign_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -115,6 +153,24 @@ def phase_build():
     _build.load()
     print(f"[build] {path.relative_to(ROOT)} in "
           f"{time.perf_counter() - t0} s", flush=True)
+    alu = {}
+    for mangled, instrs in sass.sass_functions(path).items():
+        loop = sass.inner_loop(instrs)
+        name = next((k for k in sorted(sass.KERNELS, key=len, reverse=True)
+                     if k in mangled), None)
+        if name is None:
+            continue
+        if loop is None:
+            fail(f"no DP loop found in the SASS of {mangled}")
+        print(f"[build] SASS {mangled}: {len(instrs)} instructions; inner loop "
+              f"{loop['instructions']} instructions for {loop['cells']} cells, "
+              f"{loop['alu_per_cell']} integer ALU per cell", flush=True)
+        # K2's bound reads the instance that runs most passes (kIn, kOut).
+        if "striped" not in name or "Lb1ELb1E" in mangled:
+            alu[name.removesuffix("_kernel")] = loop["alu_per_cell"]
+    if sorted(alu) != ["sw_stream", "sw_stream_multi", "sw_stream_striped"]:
+        fail(f"SASS of the kernels not all found: {sorted(alu)}")
+    return alu
 
 
 class Checker:
@@ -123,7 +179,8 @@ class Checker:
 
     def __init__(self, torch):
         self.torch = torch
-        self.max_abs_err = {"sw_stream": 0, "sw_stream_multi": 0}
+        self.max_abs_err = {"sw_stream": 0, "sw_stream_multi": 0,
+                            "sw_stream_striped": 0}
 
     def compare(self, label, prof, streams, fs, go, ge, nslots, jb):
         from seqalign_tpu_torch.ops import swa_cuda
@@ -148,12 +205,71 @@ class Checker:
             fail(f"{name} != plain version for {label}")
         return k
 
+    def compare_striped(self, label, stripes, streams, fs, go, ge, nslots, jb,
+                        plain_driver=True):
+        """K2 against its plain version on the same card tensors: every
+        pass (output slots and boundary row, each pass reading the plain
+        version's boundary of the pass before), then the whole search
+        (``sw_stream_striped``) against the plain passes' max, and, with
+        ``plain_driver``, ``sw_stream_striped_reference`` too. Returns (the
+        kernel's scores, the plain version's ms summed over its passes)."""
+        from seqalign_tpu_torch.ops import swa_cuda
 
-def stream_case(name, lq, n, lo, hi, nw, win, seed, encoded=None, order=None):
+        torch = self.torch
+        kw = dict(nslots=nslots, jb=jb)
+        err, prev, plain_best, plain_ms = 0, None, None, 0.0
+        for p, stripe in enumerate(stripes):
+            last = p == len(stripes) - 1
+            bufs = [None if last else torch.empty((2, *streams.shape), dtype=torch.int32,
+                                                  device=streams.device)
+                    for _ in range(2)]
+            k, kb = swa_cuda.sw_stream_striped_pass(
+                stripe, streams, fs, go, ge, bnd_in=prev, bnd_out=bufs[0], **kw)
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            r, rb = swa_cuda.sw_stream_striped_pass_reference(
+                stripe, streams, fs, go, ge, bnd_in=prev, bnd_out=bufs[1], **kw)
+            end.record()
+            torch.cuda.synchronize()
+            plain_ms += start.elapsed_time(end)
+            pairs = [(k, r)] + ([] if last else [(kb, rb)])
+            err = max([err] + [int((a.long() - b.long()).abs().max()) for a, b in pairs])
+            if not all(torch.equal(a, b) for a, b in pairs):
+                fail(f"sw_stream_striped pass {p} != plain pass for {label}")
+            prev = rb
+            plain_best = r if plain_best is None else torch.maximum(plain_best, r)
+        whole = swa_cuda.sw_stream_striped(stripes, streams, fs, go, ge, **kw)
+        torch.cuda.synchronize()
+        equal = torch.equal(whole, plain_best)
+        if plain_driver:
+            equal = equal and torch.equal(
+                whole, swa_cuda.sw_stream_striped_reference(stripes, streams, fs, go, ge, **kw))
+        err = max(err, int((whole.long() - plain_best.long()).abs().max()))
+        self.max_abs_err["sw_stream_striped"] = max(self.max_abs_err["sw_stream_striped"], err)
+        nw, length, win = streams.shape
+        rows = sum(int(st.shape[0]) for st in stripes)
+        print(f"[kernel] sw_stream_striped {label}: {len(stripes)} passes of "
+              f"{'/'.join(str(st.shape[0]) for st in stripes[:2])}.. rows "
+              f"(rows={rows}) nw={nw} L={length} win={win} jb={jb} slots={nslots} "
+              f"passes+boundaries equal, whole search equal={equal} max_abs_err={err}",
+              flush=True)
+        if not equal:
+            fail(f"sw_stream_striped != plain version for {label}")
+        return whole, plain_ms
+
+
+def stream_case(name, lq, n, lo, hi, nw, win, seed, encoded=None, order=None,
+                striped=False):
     """A stream pack as the pipeline makes it (jb=STREAM_JB, grain=
     STREAM_GRAIN) and the kernel's arguments for it, on the card. A tuple
-    ``lq`` gives one query of each length and a 3-D profile (K3)."""
-    from seqalign_tpu_torch.convert import profile_to_torch, stream_pack_to_torch
+    ``lq`` gives one query of each length and a 3-D profile (K3);
+    ``striped`` gives the profile as K2's stripes of STRIPE_ROWS rows."""
+    from seqalign_tpu_torch.convert import (
+        profile_stripes, profile_to_torch, stream_pack_to_torch,
+    )
+    from seqalign_tpu_torch.ops.swa_cuda import STRIPE_ROWS
     from seqalign_tpu_torch.host import encode, pack_streams
     from seqalign_tpu_torch.ops.swa_cuda import STREAM_JB as jb
     from seqalign_tpu_torch.ops.swa_torch import make_profile
@@ -175,7 +291,10 @@ def stream_case(name, lq, n, lo, hi, nw, win, seed, encoded=None, order=None):
         order = np.argsort(-db.lengths, kind="stable")
     pack = pack_streams(db, order, nw, win=win, jb=jb, grain=grain)
     go, ge = sc.gap_open_total, sc.gap_extend
-    prof = profile_to_torch(profile, go, "cuda")
+    if striped:
+        prof = profile_stripes(profile, go, STRIPE_ROWS, "cuda")
+    else:
+        prof = profile_to_torch(profile, go, "cuda")
     streams, fs = stream_pack_to_torch(pack, "cuda")
     return pack, (prof, streams, fs, go, ge, len(pack.slot_ids), jb)
 
@@ -260,6 +379,41 @@ def phase_kernel_multi(chk: Checker):
     chk.compare("empty windows", *args)
 
 
+def phase_kernel_striped(chk: Checker):
+    from seqalign_tpu_torch.host import encode
+
+    cases = [
+        # name, lq, n, lo, hi, nw, win, seed
+        # (at STRIPE_ROWS = 768)
+        ("BLOSUM45", 1537, 1500, 1, 200, 4, 256, 41),  # a 1-row last stripe
+        ("BLOSUM62", 2000, 1200, 1, 300, 3, 256, 42),  # 768 x 2 + 464
+        ("PAM250", 4096, 800, 1, 150, 3, 256, 43),  # 768 x 5 + 256
+        ("match/mismatch", 3072, 1000, 1, 100, 2, 256, 44),  # 4 whole stripes
+        ("random", 2000, 800, 1, 120, 2, 256, 45),
+        ("go==ge", 1600, 600, 1, 80, 2, 256, 46),
+        ("BLOSUM62", 2000, 2048, 1, 64, 2, 1024, 47),
+        ("PAM250", 35_000, 300, 1, 60, 2, 256, 48),  # 46 passes
+    ]
+    for name, lq, n, lo, hi, nw, win, seed in cases:
+        _, args = stream_case(name, lq, n, lo, hi, nw, win, seed, striped=True)
+        chk.compare_striped(f"{name} lq={lq}", *args)
+
+    rng = np.random.default_rng(49)
+    enc = [encode(random_protein(rng, 40)) for _ in range(256)]
+    enc += [encode(random_protein(rng, 3)) for _ in range(256)]
+    pack, args = stream_case("BLOSUM62", 1600, 0, 0, 0, 1, 256, 49,
+                             encoded=enc, order=np.arange(len(enc)), striped=True)
+    starts = np.nonzero(pack.fs[:, 0, 0])[0]
+    if not (len(starts) == 1 and starts[0] == pack.fs.shape[0] - 1):
+        fail("striped tail-segment case does not start on the final block")
+    chk.compare_striped("tail segment on the final block", *args)
+
+    pack, args = stream_case("PAM250", 1700, 300, 1, 60, 5, 256, 50, striped=True)
+    if np.count_nonzero(pack.fs.any(axis=(0, 2))) != 2:
+        fail("striped empty-window case does not leave windows empty")
+    chk.compare_striped("empty windows", *args)
+
+
 def cuda_ms(torch, fn, reps):
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -272,9 +426,13 @@ def cuda_ms(torch, fn, reps):
 
 
 def reset_counts(swa_cuda):
-    for fn in (swa_cuda.sw_stream, swa_cuda.sw_stream_multi):
+    for fn in (swa_cuda.sw_stream, swa_cuda.sw_stream_multi,
+               swa_cuda.sw_stream_striped_pass):
         fn.launches = 0
-    for fn in (swa_cuda.sw_stream_reference, swa_cuda.sw_stream_multi_reference):
+    for fn in (swa_cuda.sw_stream_striped, swa_cuda.sw_stream_reference,
+               swa_cuda.sw_stream_multi_reference,
+               swa_cuda.sw_stream_striped_reference,
+               swa_cuda.sw_stream_striped_pass_reference):
         fn.calls = 0
 
 
@@ -282,12 +440,16 @@ def read_counts(swa_cuda):
     return {
         "sw_stream": swa_cuda.sw_stream.launches,
         "sw_stream_multi": swa_cuda.sw_stream_multi.launches,
+        "sw_stream_striped_pass": swa_cuda.sw_stream_striped_pass.launches,
+        "sw_stream_striped calls": swa_cuda.sw_stream_striped.calls,
         "plain": swa_cuda.sw_stream_reference.calls
-        + swa_cuda.sw_stream_multi_reference.calls,
+        + swa_cuda.sw_stream_multi_reference.calls
+        + swa_cuda.sw_stream_striped_reference.calls
+        + swa_cuda.sw_stream_striped_pass_reference.calls,
     }
 
 
-def phase_main_path(torch, chk: Checker, smi: str, query, db):
+def phase_main_path(torch, chk: Checker, smi: str, query, db, alu):
     from seqalign_tpu_torch import pipeline
     from seqalign_tpu_torch.convert import profile_to_torch, stream_pack_to_torch
     from seqalign_tpu_torch.host import pack_streams
@@ -307,7 +469,7 @@ def phase_main_path(torch, chk: Checker, smi: str, query, db):
     counts = read_counts(swa_cuda)
     launches = counts["sw_stream"]
     print(f"[main] launches: {counts}", flush=True)
-    if launches < 1 or counts["sw_stream_multi"] or counts["plain"]:
+    if launches < 1 or sum(counts.values()) != launches:
         fail("the main path did not run through K1 alone")
     if scores.shape != (db.n,) or scores.dtype != np.int32 or scores.min() < 0:
         fail("main-path scores have the wrong shape, type or sign")
@@ -346,9 +508,13 @@ def phase_main_path(torch, chk: Checker, smi: str, query, db):
     )
     shape = (f"nw={nw} L={streams.shape[1]} win={win} jb={jb} "
              f"rows={prof.shape[0]} slots={kw['nslots']}")
+    out_bytes = kw["nslots"] * win * 4
+    bound_ms, bound_by = bound(nbytes(prof, streams, fs) + out_bytes, cells,
+                               alu["sw_stream"])
     print(f"[main] main-path shape {shape}: kernel {ms} ms "
           f"({cells / ms / 1e6} GCUPS), plain version {plain_ms} ms "
-          f"({cells / plain_ms / 1e6} GCUPS) | {smi}", flush=True)
+          f"({cells / plain_ms / 1e6} GCUPS), bound {bound_ms} ms by {bound_by} "
+          f"| {smi}", flush=True)
 
     # An independent formulation: the wavefront engine on the 128 longest
     # records and 128 others.
@@ -370,6 +536,8 @@ def phase_main_path(torch, chk: Checker, smi: str, query, db):
         "launches": launches,
         "ms": ms,
         "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
         "shape": f"main path, {db.n} records, lq={QUERY_LEN}, {shape}",
         "main_path_kernel_s": runs[-1][0],
         "main_path_gcups": cells / runs[-1][0] / 1e9,
@@ -397,7 +565,7 @@ def k1_per_query(torch, queries, sc, db, k1_pack):
 
 
 def phase_multi_path(torch, chk: Checker, smi: str, db, k1_pack, nq, lq,
-                     seed, check_plain):
+                     seed, check_plain, alu):
     """One multi-query batch through pipeline.search_database_multi on the
     card, checked against K1 per query (and K3's plain version)."""
     from seqalign_tpu_torch import pipeline
@@ -419,7 +587,7 @@ def phase_multi_path(torch, chk: Checker, smi: str, db, k1_pack, nq, lq,
         runs.append((kernel_s, time.perf_counter() - t0))
     counts = read_counts(swa_cuda)
     print(f"{tag} launches: {counts}", flush=True)
-    if counts["sw_stream_multi"] < 1 or counts["sw_stream"] or counts["plain"]:
+    if counts["sw_stream_multi"] < 1 or sum(counts.values()) != counts["sw_stream_multi"]:
         fail(f"{tag} the multi-query path did not run through K3 alone")
     if scores.shape != (nq, db.n) or scores.dtype != np.int32 or scores.min() < 0:
         fail(f"{tag} scores have the wrong shape, type or sign")
@@ -461,8 +629,13 @@ def phase_multi_path(torch, chk: Checker, smi: str, db, k1_pack, nq, lq,
     shape = (f"{len(blocks)} block(s) of {blocks[0].shape[0]} queries x "
              f"{blocks[0].shape[1]} rows, {len(chunks)} chunk(s), nw="
              f"{'/'.join(str(s.shape[0]) for _, s, _, _ in chunks)}")
+    # Each chunk's streams read once for all blocks; real query rows only.
+    io_bytes = sum(nbytes(s, f) + ns * nq * s.shape[2] * 4 for _, s, f, ns in chunks)
+    bound_ms, bound_by = bound(io_bytes + nbytes(*blocks), cells,
+                               alu["sw_stream_multi"])
     result = {
         "launches": counts["sw_stream_multi"], "ms": k3_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by,
         "k1_loop_ms": k1_loop_ms, "shape": f"{nq}x{lq} on {db.n} records: {shape}",
         "main_path_kernel_s": runs[-1][0],
         "main_path_gcups": cells / runs[-1][0] / 1e9,
@@ -480,11 +653,152 @@ def phase_multi_path(torch, chk: Checker, smi: str, db, k1_pack, nq, lq,
         result["plain_ms"] = cuda_ms(torch, lambda: [
             swa_cuda.sw_stream_multi_reference(b, s, f, go, ge, nslots=ns, jb=jb)
             for _, s, f, ns in chunks for b in blocks], 1)
-    print(f"{tag} {shape}: K3 {k3_ms} ms ({cells / k3_ms / 1e6} GCUPS), K1 looped "
+    print(f"{tag} {shape}: K3 {k3_ms} ms ({cells / k3_ms / 1e6} GCUPS), bound "
+          f"{bound_ms} ms by {bound_by}, K1 looped "
           f"over the {nq} queries {k1_loop_ms} ms ({cells / k1_loop_ms / 1e6} GCUPS)"
           + (f", K3's plain version {result['plain_ms']} ms" if check_plain else "")
           + f" | {smi}", flush=True)
     return result
+
+
+def wavefront_sample(torch, sc, query, db, groups):
+    """Scores of the records of each group (one lane batch each) by the
+    plain wavefront engine on the card, concatenated."""
+    from seqalign_tpu_torch.ops.swa_torch import make_profile, sw_wavefront
+
+    prof = torch.from_numpy(make_profile(sc.table, query)).cuda()
+    outs = []
+    for ids in groups:
+        lb = int(db.lengths[ids].max())
+        block = np.full((lb, len(ids)), 31, dtype=np.int8)
+        for lane, r in enumerate(ids):
+            rec = db.record(int(r))
+            block[: len(rec), lane] = rec
+        outs.append(sw_wavefront(
+            prof, torch.from_numpy(block).cuda(), sc.gap_open_total, sc.gap_extend
+        ).cpu().numpy())
+    return np.concatenate(outs)
+
+
+def phase_striped_path(torch, chk: Checker, smi: str, db, alu, lq=2000):
+    """A long query through pipeline.search_database on the card: K2 alone,
+    every score held against K2's plain version and a sample against the
+    wavefront engine; K2 timed per pass and whole; K1 and K2 at lq=1536."""
+    from seqalign_tpu_torch import pipeline
+    from seqalign_tpu_torch.convert import (
+        profile_stripes, profile_to_torch, stream_pack_to_torch,
+    )
+    from seqalign_tpu_torch.ops import swa_cuda
+    from seqalign_tpu_torch.ops.swa_torch import make_profile
+    from seqalign_tpu_torch.swissprot import random_query, striped_pass_ms
+
+    tag = f"[long lq={lq}]"
+    sc = scoring("PAM250")
+    go, ge = sc.gap_open_total, sc.gap_extend
+    residues = int(db.offsets[-1])
+    query = random_query(lq, 2000)
+    dev = torch.device("cuda")
+
+    reset_counts(swa_cuda)
+    runs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        scores, kernel_s = pipeline.search_database(query, db, sc, device="cuda")
+        runs.append((kernel_s, time.perf_counter() - t0))
+    counts = read_counts(swa_cuda)
+    print(f"{tag} launches: {counts}", flush=True)
+    order = np.argsort(-db.lengths, kind="stable")
+    chunks = [(c, *stream_pack_to_torch(p, dev), len(p.slot_ids)) for c, p in
+              pipeline.stream_chunks(db, order, None, dev, pipeline.striped_chunk_residues())]
+    stripes = profile_stripes(make_profile(sc.table, query), go, swa_cuda.STRIPE_ROWS, "cuda")
+    passes = len(stripes) * len(chunks)
+    if (counts["sw_stream_striped_pass"] != 2 * passes
+            or counts["sw_stream_striped calls"] != 2 * len(chunks)
+            or sum(counts.values()) != 2 * (passes + len(chunks))):
+        fail(f"{tag} the long-query path did not run through K2 alone "
+             f"({len(stripes)} stripes x {len(chunks)} chunks per search)")
+    if scores.shape != (db.n,) or scores.dtype != np.int32 or scores.min() < 0:
+        fail(f"{tag} scores have the wrong shape, type or sign")
+    cells = lq * residues
+    for k, (kernel_s, wall_s) in enumerate(runs):
+        print(f"{tag} run {k}: kernel timer {kernel_s} s = {cells / kernel_s / 1e9} "
+              f"GCUPS over real residues; search wall {wall_s} s incl. host packing "
+              f"| {smi}", flush=True)
+
+    # Every score against the plain version, pass by pass, on the card.
+    full = np.zeros(db.n, np.int32)
+    plain_ms = 0.0
+    jb = swa_cuda.STREAM_JB
+    for chunk, streams, fs, nslots in chunks:
+        out, ms = chk.compare_striped(
+            f"long-query path ({len(chunk)} records)", stripes, streams, fs, go, ge,
+            nslots, jb, plain_driver=False)
+        plain_ms += ms
+        full[chunk] = out.cpu().numpy().reshape(-1)[: len(chunk)]
+    if not np.array_equal(full, scores):
+        fail(f"{tag} scores != K2's plain version")
+    print(f"{tag} all {db.n} records: scores == K2's plain version", flush=True)
+
+    # An independent route: the wavefront engine on the 256 longest records
+    # and 3840 others.
+    rng = np.random.default_rng(8)
+    groups = [order[:256], rng.choice(order[256:], 3840, replace=False)]
+    pick = np.concatenate(groups)
+    t0 = time.perf_counter()
+    wf = wavefront_sample(torch, sc, query, db, groups)
+    if not np.array_equal(wf, scores[pick]):
+        fail(f"{tag} scores != wavefront engine on {len(pick)} records")
+    print(f"{tag} {len(pick)} records (the 256 longest among them): scores == "
+          f"wavefront engine ({time.perf_counter() - t0} s)", flush=True)
+
+    # K2 timed per pass and whole, on the pipeline's chunk(s).
+    kw = [dict(nslots=ns, jb=jb) for _, _, _, ns in chunks]
+    whole_ms = cuda_ms(torch, lambda: [
+        swa_cuda.sw_stream_striped(stripes, s, f, go, ge, **k)
+        for (_, s, f, _), k in zip(chunks, kw)], 3)
+    _, streams, fs, nslots = chunks[0]
+    pass_ms = striped_pass_ms(stripes, streams, fs, go, ge, nslots, 2)
+    io_bytes = sum(nbytes(s, f) + ns * s.shape[2] * 4 for _, s, f, ns in chunks)
+    bound_ms, bound_by = bound(io_bytes + nbytes(*stripes), cells,
+                               alu["sw_stream_striped"])
+    shape = (f"{len(stripes)} stripes of {stripes[0].shape[0]} rows "
+             f"(last {stripes[-1].shape[0]}), {len(chunks)} chunk(s), nw="
+             f"{'/'.join(str(s.shape[0]) for _, s, _, _ in chunks)} L="
+             f"{'/'.join(str(s.shape[1]) for _, s, _, _ in chunks)} win={streams.shape[2]}")
+    print(f"{tag} {shape}: K2 {whole_ms} ms ({cells / whole_ms / 1e6} GCUPS) per "
+          f"search, per pass {pass_ms} ms, plain version {plain_ms} ms, bound "
+          f"{bound_ms} ms by {bound_by} | {smi}", flush=True)
+
+    # K1 and K2 side by side at K1's row limit (lq=1536), in turns, on the
+    # same streams.
+    edge = swa_cuda.MAX_QUERY_ROWS
+    q_edge = make_profile(sc.table, random_query(edge, 1536))
+    p1 = profile_to_torch(q_edge, go, dev)
+    s1 = profile_stripes(q_edge, go, swa_cuda.STRIPE_ROWS, dev)
+    at1536 = {"lq": edge, "k1_ms": [], "k2_ms": []}
+    for _ in range(2):
+        at1536["k1_ms"].append(cuda_ms(torch, lambda: swa_cuda.sw_stream(
+            p1, streams, fs, go, ge, **kw[0]), 2))
+        at1536["k2_ms"].append(cuda_ms(torch, lambda: swa_cuda.sw_stream_striped(
+            s1, streams, fs, go, ge, **kw[0]), 2))
+    if not torch.equal(swa_cuda.sw_stream(p1, streams, fs, go, ge, **kw[0]),
+                       swa_cuda.sw_stream_striped(s1, streams, fs, go, ge, **kw[0])):
+        fail(f"{tag} K1 and K2 disagree at lq={edge}")
+    print(f"{tag} lq={edge} on the same streams, in turns: K1 {at1536['k1_ms']} ms, "
+          f"K2 ({len(s1)} stripes) {at1536['k2_ms']} ms; scores equal | {smi}",
+          flush=True)
+    return {
+        "launches": counts["sw_stream_striped_pass"],
+        "ms": whole_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "pass_ms": pass_ms,
+        "at_lq1536": at1536,
+        "shape": f"long-query path, {db.n} records, lq={lq}, {shape}",
+        "main_path_kernel_s": runs[-1][0],
+        "main_path_gcups": cells / runs[-1][0] / 1e9,
+    }
 
 
 def phase_cli():
@@ -500,8 +814,12 @@ def phase_cli():
         f">q{k} query {k}\n{random_protein(rng, int(rng.integers(5, 150)))}\n"
         for k in range(8)
     ))
+    (out_dir / "q2000.fa").write_text(">long\n" + random_protein(rng, 2000) + "\n")
+    (out_dir / "qmix.fa").write_text(
+        f">s1\n{random_protein(rng, 60)}\n>long\n{random_protein(rng, 2000)}\n"
+        f">s2\n{random_protein(rng, 17)}\n")
     env = dict(os.environ, SEQALIGN_PLATFORM="cuda")
-    for qfile, blocks in (("q.fa", 0), ("q8.fa", 8)):
+    for qfile, blocks in (("q.fa", 0), ("q8.fa", 8), ("q2000.fa", 0), ("qmix.fa", 3)):
         outs = []
         for extra in ([], ["--engine", "wavefront"]):
             cmd = [sys.executable, "-m", "seqalign_tpu_torch.cli",
@@ -509,7 +827,10 @@ def phase_cli():
                    "--files", str(out_dir / qfile), str(out_dir / "db.fa"), *extra]
             proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
                                   text=True, timeout=600)
-            if proc.returncode != 0 or "Note:" in proc.stderr:
+            # Only a batch holding a long query says so, and only under the
+            # stream kernels.
+            note = qfile == "qmix.fa" and not extra
+            if proc.returncode != 0 or ("Note:" in proc.stderr) != note:
                 fail(f"CLI {qfile} {' '.join(extra) or 'stream'}: "
                      f"rc={proc.returncode} {proc.stderr[-2000:]}")
             lines = proc.stdout.splitlines()
@@ -537,10 +858,11 @@ def main() -> int:
               file=sys.stderr)
         return 1
     name, smi = phase_device(torch)
-    phase_build()
+    alu = phase_build()
     chk = Checker(torch)
     phase_kernel(chk)
     phase_kernel_multi(chk)
+    phase_kernel_striped(chk)
 
     from seqalign_tpu_torch.swissprot import swissprot_db
 
@@ -548,9 +870,10 @@ def main() -> int:
     query, db = swissprot_db()
     print(f"[main] database: {db.n} records, {int(db.offsets[-1])} residues, "
           f"generated in {time.perf_counter() - t0} s", flush=True)
-    main_path, k1_pack = phase_main_path(torch, chk, smi, query, db)
-    multi8 = phase_multi_path(torch, chk, smi, db, k1_pack, 8, 17, 100, True)
-    multi64 = phase_multi_path(torch, chk, smi, db, k1_pack, 64, 144, 200, False)
+    main_path, k1_pack = phase_main_path(torch, chk, smi, query, db, alu)
+    multi8 = phase_multi_path(torch, chk, smi, db, k1_pack, 8, 17, 100, True, alu)
+    multi64 = phase_multi_path(torch, chk, smi, db, k1_pack, 64, 144, 200, False, alu)
+    long_path = phase_striped_path(torch, chk, smi, db, alu)
     phase_cli()
     kernels = [{
         "name": "sw_stream",
@@ -561,6 +884,9 @@ def main() -> int:
         "max_abs_err": chk.max_abs_err["sw_stream"],
         "ms": main_path["ms"],
         "plain_ms": main_path["plain_ms"],
+        "bound_ms": main_path["bound_ms"],
+        "bound_by": main_path["bound_by"],
+        "library_ms": None,
         "shape": main_path["shape"],
         "main_path_kernel_s": main_path["main_path_kernel_s"],
         "main_path_gcups": main_path["main_path_gcups"],
@@ -574,13 +900,34 @@ def main() -> int:
         "max_abs_err": chk.max_abs_err["sw_stream_multi"],
         "ms": multi8["ms"],
         "plain_ms": multi8["plain_ms"],
+        "bound_ms": multi8["bound_ms"],
+        "bound_by": multi8["bound_by"],
+        "library_ms": None,
         "k1_loop_ms": multi8["k1_loop_ms"],
         "shape": multi8["shape"],
         "main_path_kernel_s": multi8["main_path_kernel_s"],
         "main_path_gcups": multi8["main_path_gcups"],
         "north_star": {k: multi64[k] for k in
-                       ("launches", "ms", "k1_loop_ms", "shape",
-                        "main_path_kernel_s", "main_path_gcups")},
+                       ("launches", "ms", "bound_ms", "bound_by", "k1_loop_ms",
+                        "shape", "main_path_kernel_s", "main_path_gcups")},
+        "card": smi,
+    }, {
+        "name": "sw_stream_striped",
+        "route": "cuda",
+        "source": "seqalign_tpu_torch/csrc/sw_stream.cu",
+        "replaces": "seqalign_tpu/ops/swa_pallas.py:1067",
+        "launches": long_path["launches"],
+        "max_abs_err": chk.max_abs_err["sw_stream_striped"],
+        "ms": long_path["ms"],
+        "plain_ms": long_path["plain_ms"],
+        "bound_ms": long_path["bound_ms"],
+        "bound_by": long_path["bound_by"],
+        "library_ms": None,
+        "pass_ms": long_path["pass_ms"],
+        "at_lq1536": long_path["at_lq1536"],
+        "shape": long_path["shape"],
+        "main_path_kernel_s": long_path["main_path_kernel_s"],
+        "main_path_gcups": long_path["main_path_gcups"],
         "card": smi,
     }]
     print(json.dumps({"kernels": kernels}))

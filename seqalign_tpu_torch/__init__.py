@@ -1,14 +1,18 @@
 """seqalign_tpu_torch: the Smith-Waterman database search on PyTorch + CUDA.
 
 The port of ``seqalign_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA Hopper
-GPU. It imports the JAX package's numpy-only host modules (``models``,
-``utils.fasta``, ``utils.native_io``, ``utils.packing``) and never JAX.
+GPU. It keeps its own copy of the JAX package's numpy host modules
+(``models``, ``utils.fasta``, ``utils.native_io``, ``utils.packing``) and
+imports neither JAX nor the JAX package.
 
 Layers:
+  models, utils - host code: alphabet, scoring, FASTA, encoded database,
+                  stream packing (``host`` re-exports what the port uses)
   ops/swa_torch - plain PyTorch engines (scan, wavefront)
-  ops/swa_cuda  - the segmented-stream kernel (CUDA, csrc/sw_stream.cu) and
-                  its plain version
-  convert       - numpy inputs of the shared host code -> device tensors
+  ops/swa_cuda  - the segmented-stream kernels (CUDA, csrc/sw_stream.cu):
+                  one query (K1), a batch (K3), row stripes of a long query
+                  (K2); and their plain versions
+  convert       - numpy inputs of the host code -> device tensors
   pipeline      - query-vs-database search
   cli           - ``smith_waterman``-compatible command line tool
 """

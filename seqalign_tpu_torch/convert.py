@@ -1,9 +1,10 @@
-"""Carry the JAX package's numpy inputs across to the port's tensors.
+"""Carry the host code's numpy inputs across to the port's tensors.
 
-The host side of the search (encoding, profiles, ``pack_streams``) is the
-JAX package's numpy code, shared by both packages. These functions turn its
-outputs into the tensors the port's engines take, on an explicit device, so
-that tests can feed the same numpy objects to both packages.
+The host side of the search (encoding, profiles, ``pack_streams``) is numpy
+code; the port keeps its own copy of the JAX package's (``models``,
+``utils``). These functions turn its outputs into the tensors the port's
+engines take, on an explicit device, so that tests can feed the same numpy
+objects to both packages.
 """
 
 from __future__ import annotations
@@ -51,3 +52,27 @@ def stream_pack_to_torch(
     streams = torch.from_numpy(np.ascontiguousarray(pack.streams, np.int8))
     fs = torch.from_numpy(np.ascontiguousarray(pack.fs, np.int32))
     return streams.to(device), fs.to(device)
+
+
+def profile_stripes(
+    profile: np.ndarray, go: int, stripe_rows: int, device: torch.device | str
+) -> list[torch.Tensor]:
+    """The ``(Lq, 32)`` profile cut into row stripes for the striped kernel
+    (K2), each biased as :func:`profile_to_torch` biases a profile.
+
+    Every stripe but the last is exactly ``stripe_rows`` real rows: its last
+    row is the boundary the next pass reads, so it must be a real row, and
+    ``stripe_rows`` must be a multiple of ``ROW_ALIGN``. Only the last
+    stripe is padded (to ``ROW_ALIGN``, with ``P' = 0`` rows).
+    """
+    prof = np.asarray(profile)
+    if prof.ndim != 2:
+        raise ValueError(f"profile shape {prof.shape} is not (Lq, 32)")
+    if stripe_rows <= 0 or stripe_rows % ROW_ALIGN:
+        raise ValueError(
+            f"stripe_rows={stripe_rows} is not a positive multiple of {ROW_ALIGN}"
+        )
+    return [
+        profile_to_torch(prof[s : s + stripe_rows], go, device)
+        for s in range(0, prof.shape[0], stripe_rows)
+    ]

@@ -1,11 +1,13 @@
 // Segmented-stream Smith-Waterman scoring for Hopper, sm_90a: one query
-// (K1) or a batch of queries (K3) against many database sequences.
+// (K1), a batch of queries (K3) or one row stripe of a long query (K2)
+// against many database sequences.
 //
 // Replaces the TPU kernel seqalign_tpu/ops/swa_pallas.py:_kernel_stream
 // + _run_block, called through sw_pallas_stream with a 2-D profile (K1) or
-// a 3-D one (K3): the same G-form affine-gap recurrence over the same
-// inputs (biased profile P' = P - go, NW window streams, segment table fs),
-// with the same per-segment outputs, bit for bit.
+// a 3-D one (K3), and _kernel_stream_striped + _run_block(bnd=...), called
+// through _stream_striped_pass (K2): the same G-form affine-gap recurrence
+// over the same inputs (biased profile P' = P - go, NW window streams,
+// segment table fs), with the same per-segment outputs, bit for bit.
 //
 // Layout of the work. One thread owns one lane (one database sequence at a
 // time) of one window and walks that window's stream in blocks of JB
@@ -36,9 +38,23 @@
 // the int32 ALU limit (a shared load and about seven add/max/DPX
 // instructions per cell, near 2 T cells/s on 132 SMs): on an H100, a JB = 8
 // build ran 1.35-1.9x slower than JB = 16. A later kernel keeps stripes of query rows in
-// registers and passes only a stripe's boundary row through device memory
-// (the structure of the striped TPU kernel, K2), which removes the row
-// traffic and lets one thread work on several cells at once.
+// registers and passes only a stripe's boundary row through device memory,
+// which removes the row traffic and lets one thread work on several cells
+// at once.
+//
+// Row stripes (K2). A query longer than one launch's shared profile runs
+// as one launch per stripe of rows, the K1 body with a boundary: with kIn
+// the block's left chain (lgg, lf) starts from the previous stripe's last
+// row, (Gg, F) at each position, read from bnd_in in place of (go, 0), and
+// the row-0 diagonal is that boundary's Gg one position back, kept in a
+// register from the previous block (go where a segment starts: the
+// boundary at a segment start already belongs to the new sequence, so it
+// is read, never reset). With kOut the last row's (Gg, F) are stored to
+// bnd_out after the block's rows. Both are laid out [Gg|F][w][pos][lane]
+// like the streams, so a warp's accesses are coalesced; they cost 16 B per
+// position per pass, 16 / stripe rows B per cell (0.02 at 768) against the
+// rolling rows' 1 B. Each pass writes its own (nslots, win) bests; the
+// wrapper max-merges them with one elementwise max per pass.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -50,8 +66,9 @@ constexpr int kThreads = 256;
 constexpr int kRowUnroll = 4;  // the wrapper pads rows to this multiple
 constexpr int JB = 16;  // positions per block (swa_cuda.STREAM_JB)
 
-// The body of both kernels; kMulti takes the query from blockIdx.z.
-template <bool kMulti>
+// The body of all kernels; kMulti takes the query from blockIdx.z, kIn
+// reads row -1 from bnd_in, kOut writes the last row to bnd_out.
+template <bool kMulti, bool kIn = false, bool kOut = false>
 __device__ __forceinline__ void stream_body(
     const int32_t* __restrict__ prof,    // ([nq,] lqp, 32) biased profile
     const int8_t* __restrict__ streams,  // (nw, L, win) chars 0..31
@@ -59,7 +76,9 @@ __device__ __forceinline__ void stream_body(
     int32_t* __restrict__ out,           // (nslots, [nq,] win) bests
     int32_t* __restrict__ row_gg,        // ([nq,] nw, lqp, win) scratch
     int32_t* __restrict__ row_e,         // ([nq,] nw, lqp, win) scratch
-    int lqp, int len, int win, int nw, int go, int ge) {
+    int lqp, int len, int win, int nw, int go, int ge,
+    const int32_t* __restrict__ bnd_in = nullptr,  // (2, nw, L, win)
+    int32_t* __restrict__ bnd_out = nullptr) {     // (2, nw, L, win)
   const int q = kMulti ? (int)blockIdx.z : 0;
   const int nq = kMulti ? (int)gridDim.z : 1;
   extern __shared__ int32_t sprof[];
@@ -81,9 +100,13 @@ __device__ __forceinline__ void stream_body(
   const size_t slot_stride = (size_t)nq * win;
   const int8_t* col = streams + (size_t)w * len * win + lane;
   const int nblocks = len / JB;
+  // The boundary's Gg plane at this window and lane; F is one plane on.
+  const size_t bnd_col = (size_t)w * len * win + lane;
+  const size_t bnd_plane = (size_t)nw * len * win;
 
   int best = 0;
   bool fresh = true;  // the rows hold the boundary (Gg = go, E = 0)
+  int bprev = go;     // kIn: bnd_in's Gg at the previous block's last position
   for (int blk = 0; blk < nblocks; ++blk) {
     const int slot = fs[((size_t)blk * nw + w) * 2];
     if (slot > 0) {
@@ -98,14 +121,28 @@ __device__ __forceinline__ void stream_body(
       // Read the char unsigned and mask it: never a negative index.
       c[t] = (int)(uint8_t)col[(size_t)(blk * JB + t) * win] & (kAlpha - 1);
     }
-    // Query row -1 is the boundary: Gg = go, F = 0 at every position.
+    // Query row -1 is the boundary: Gg = go, F = 0 at every position; for
+    // a later stripe, the previous stripe's last row.
     int lgg[JB], lf[JB];
+    if constexpr (kIn) {
+      const int32_t* b = bnd_in + bnd_col + (size_t)blk * JB * win;
 #pragma unroll
-    for (int t = 0; t < JB; ++t) {
-      lgg[t] = go;
-      lf[t] = 0;
+      for (int t = 0; t < JB; ++t) {
+        lgg[t] = b[(size_t)t * win];
+        lf[t] = b[bnd_plane + (size_t)t * win];
+      }
+    } else {
+#pragma unroll
+      for (int t = 0; t < JB; ++t) {
+        lgg[t] = go;
+        lf[t] = 0;
+      }
     }
     int dt = go;  // Gg(i-1, block start - 1), the t = 0 diagonal
+    if constexpr (kIn) {
+      if (!fresh) dt = bprev;
+      bprev = lgg[JB - 1];
+    }
 #pragma unroll 4  // kRowUnroll
     for (int i = 0; i < lqp; ++i) {
       const int32_t* prow = sprof + i * kAlpha;
@@ -128,6 +165,14 @@ __device__ __forceinline__ void stream_body(
       dt = t0n;
       gg_row[(size_t)i * win] = gg_prev;
       e_row[(size_t)i * win] = e_prev;
+    }
+    if constexpr (kOut) {
+      int32_t* b = bnd_out + bnd_col + (size_t)blk * JB * win;
+#pragma unroll
+      for (int t = 0; t < JB; ++t) {
+        b[(size_t)t * win] = lgg[t];
+        b[bnd_plane + (size_t)t * win] = lf[t];
+      }
     }
     fresh = false;
   }
@@ -155,6 +200,36 @@ __global__ void __launch_bounds__(kThreads) sw_stream_multi_kernel(
     int lqp, int len, int win, int nw, int go, int ge) {
   stream_body<true>(prof, streams, fs, out, row_gg, row_e, lqp, len, win,
                     nw, go, ge);
+}
+
+// K2: one row stripe of one query; grid (lane blocks, nw).
+template <bool kIn, bool kOut>
+__global__ void __launch_bounds__(kThreads) sw_stream_striped_kernel(
+    const int32_t* __restrict__ prof, const int8_t* __restrict__ streams,
+    const int32_t* __restrict__ fs, int32_t* __restrict__ out,
+    int32_t* __restrict__ row_gg, int32_t* __restrict__ row_e,
+    const int32_t* __restrict__ bnd_in, int32_t* __restrict__ bnd_out,
+    int lqp, int len, int win, int nw, int go, int ge) {
+  stream_body<false, kIn, kOut>(prof, streams, fs, out, row_gg, row_e, lqp,
+                                len, win, nw, go, ge, bnd_in, bnd_out);
+}
+
+template <bool kIn, bool kOut>
+int launch_striped(const void* prof, const void* streams, const void* fs,
+                   void* out, void* row_gg, void* row_e, const void* bnd_in,
+                   void* bnd_out, int lqp, int len, int win, int nw, int go,
+                   int ge, cudaStream_t stream) {
+  const size_t smem = (size_t)lqp * kAlpha * sizeof(int32_t);
+  cudaError_t err = cudaFuncSetAttribute(
+      sw_stream_striped_kernel<kIn, kOut>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((win + kThreads - 1) / kThreads, nw);
+  sw_stream_striped_kernel<kIn, kOut><<<grid, kThreads, smem, stream>>>(
+      (const int32_t*)prof, (const int8_t*)streams, (const int32_t*)fs,
+      (int32_t*)out, (int32_t*)row_gg, (int32_t*)row_e,
+      (const int32_t*)bnd_in, (int32_t*)bnd_out, lqp, len, win, nw, go, ge);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -206,6 +281,35 @@ int sw_stream_multi_launch(const void* prof, const void* streams,
       (int32_t*)out, (int32_t*)row_gg, (int32_t*)row_e, lqp, len, win, nw,
       go, ge);
   return (int)cudaGetLastError();
+}
+
+// Launch one K2 pass on `stream`; same contract as sw_stream_launch, plus
+// bnd_in (the previous stripe's last row, NULL for the first stripe) and
+// bnd_out (this stripe's last row, NULL for the last), each (2, nw, L, win).
+// A pass with neither is a one-stripe query, K1's work: refused.
+int sw_stream_striped_launch(const void* prof, const void* streams,
+                             const void* fs, void* out, void* row_gg,
+                             void* row_e, const void* bnd_in, void* bnd_out,
+                             int lqp, int len, int win, int nw, int jb,
+                             int go, int ge, void* stream) {
+  if (lqp % kRowUnroll || win <= 0 || nw <= 0 || nw > 65535 || len <= 0 ||
+      jb != JB || len % JB || (!bnd_in && !bnd_out)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  if (bnd_in && bnd_out) {
+    return launch_striped<true, true>(prof, streams, fs, out, row_gg, row_e,
+                                      bnd_in, bnd_out, lqp, len, win, nw, go,
+                                      ge, s);
+  }
+  if (bnd_in) {
+    return launch_striped<true, false>(prof, streams, fs, out, row_gg, row_e,
+                                       bnd_in, bnd_out, lqp, len, win, nw, go,
+                                       ge, s);
+  }
+  return launch_striped<false, true>(prof, streams, fs, out, row_gg, row_e,
+                                     bnd_in, bnd_out, lqp, len, win, nw, go,
+                                     ge, s);
 }
 
 const char* sw_stream_error_string(int err) {

@@ -1,13 +1,13 @@
-"""The host side of the search that the port shares with the JAX package.
+"""The host side of the search: the names the rest of the port takes.
 
 Encoding, scoring models, FASTA reading, the encoded database and the stream
-packer are numpy code in ``seqalign_tpu.models`` and ``seqalign_tpu.utils``;
-none of them loads JAX. The port takes them from here, its one import of the
-JAX package, and never from ``seqalign_tpu.ops`` or ``seqalign_tpu.pipeline``
-(those load JAX).
+packer are numpy code. The port keeps its own copy of them, module for
+module under the JAX package's names (``models``, ``utils.fasta``,
+``utils.native_io``, ``utils.packing``), and imports nothing of the JAX
+package; the tests hold both copies to identical outputs.
 """
 
-from seqalign_tpu.models import (
+from .models import (
     PAD_INDEX,
     ScoringModel,
     encode,
@@ -15,13 +15,9 @@ from seqalign_tpu.models import (
     load_substitution_matrix,
     sw_default_scoring,
 )
-from seqalign_tpu.utils.fasta import SeqRecord, read_fasta, read_first
-from seqalign_tpu.utils.native_io import (
-    EncodedDatabase,
-    pack_batch,
-    parse_file_cached,
-)
-from seqalign_tpu.utils.packing import StreamPack, lattice_round_up, pack_streams
+from .utils.fasta import SeqRecord, read_fasta, read_first
+from .utils.native_io import EncodedDatabase, pack_batch, parse_file_cached
+from .utils.packing import StreamPack, lattice_round_up, pack_streams
 
 __all__ = [
     "PAD_INDEX",

@@ -82,6 +82,10 @@ def load() -> ctypes.CDLL:
         lib.sw_stream_multi_launch.argtypes = (
             [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         )
+        lib.sw_stream_striped_launch.restype = ctypes.c_int
+        lib.sw_stream_striped_launch.argtypes = (
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        )
         lib.sw_stream_error_string.restype = ctypes.c_char_p
         lib.sw_stream_error_string.argtypes = [ctypes.c_int]
         _lib = lib

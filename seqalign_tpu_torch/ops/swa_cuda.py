@@ -24,9 +24,22 @@ with the running best taken over G, and boundary Gg = go, E = F = 0.
 and keeps its own best, so slot ``s`` of query ``q`` lands in
 ``out[s, q]``.
 
+:func:`sw_stream_striped` scores a query of any length (the contract of
+``sw_pallas_stream_striped``, K2): the query's rows are cut into stripes
+(``convert.profile_stripes``) and each stripe is one launch over the same
+streams (:func:`sw_stream_striped_pass`). A pass reads the previous
+stripe's last row, ``(Gg, F)`` at every stream position, as its row -1 in
+place of the boundary (Gg = go, F = 0), and writes its own last row for
+the next pass; the passes' bests are max-merged. The boundary is a ``(2,
+NW, L, win)`` int32 tensor: Gg in ``[0]``, F in ``[1]``, laid out like the
+streams. A segment start resets a stripe's own rows and its diagonal seed
+(Gg = go), not its row -1: the boundary there already belongs to the new
+sequence.
+
 On a CUDA tensor each wrapper launches its kernel in ``csrc/sw_stream.cu``
 or raises; on a CPU tensor it runs its plain version
-(:func:`sw_stream_reference`, :func:`sw_stream_multi_reference`).
+(:func:`sw_stream_reference`, :func:`sw_stream_multi_reference`,
+:func:`sw_stream_striped_pass_reference`).
 """
 
 from __future__ import annotations
@@ -36,10 +49,17 @@ import torch
 
 from ..convert import ROW_ALIGN
 
-# The port's query-row limit: the biased profile sits in one block's
-# shared memory as (rows, 32) int32, 1536 * 128 B = 192 KiB of the 227 KiB
-# a Hopper block may hold. Longer queries need the row-striped kernel (K2).
+# The port's query-row limit for one launch: the biased profile sits in one
+# block's shared memory as (rows, 32) int32, 1536 * 128 B = 192 KiB of the
+# 227 KiB a Hopper block may hold. Longer queries go to the row-striped
+# kernel (K2, sw_stream_striped), whose launches take STRIPE_ROWS rows each.
 MAX_QUERY_ROWS = 1536
+
+# Rows per pass of the striped kernel (a multiple of convert.ROW_ALIGN):
+# 96 KiB of shared profile, which leaves room for the 2 CTAs per SM that
+# the registers allow. On an H100 at lq=2000, 768 ran 0.3% faster than 512
+# and 1.3% faster than 256; 1024 (1 CTA per SM) 1.7x slower (PERF.md).
+STRIPE_ROWS = 768
 
 # Positions per kernel block, chained through registers per sweep over the
 # query rows; the one block size the CUDA kernel is built for (the plain
@@ -90,9 +110,9 @@ def _check(profile_biased, streams, fs, go, ge, nslots, jb, *, multi=False):
         raise ValueError(f"profile rows {lqp} not a multiple of {ROW_ALIGN}")
     if lqp > MAX_QUERY_ROWS:
         raise NotImplementedError(
-            f"query of {lqp} rows exceeds MAX_QUERY_ROWS={MAX_QUERY_ROWS}; "
-            "longer queries need the K2 row-striped kernel, which is not "
-            "yet ported"
+            f"query of {lqp} rows exceeds MAX_QUERY_ROWS={MAX_QUERY_ROWS} of "
+            "one launch; longer queries go to sw_stream_striped (K2, row "
+            "stripes)"
         )
     if jb < 1:
         raise ValueError(f"jb={jb} is not positive")
@@ -198,10 +218,131 @@ def sw_stream_multi(
 sw_stream_multi.launches = 0
 
 
-def _launch(name, prof, streams, fs, go, ge, nslots, jb) -> torch.Tensor:
+def _check_bnd(name, bnd, streams):
+    if bnd is None:
+        return
+    want = (2, *streams.shape)
+    if tuple(bnd.shape) != want:
+        raise ValueError(f"{name} shape {tuple(bnd.shape)} != {want}")
+    if bnd.dtype != torch.int32 or bnd.device != streams.device:
+        raise ValueError(f"{name} must be int32 on {streams.device}")
+    if not bnd.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")
+
+
+def sw_stream_striped_pass(
+    profile_biased: torch.Tensor,
+    streams: torch.Tensor,
+    fs: torch.Tensor,
+    go: int,
+    ge: int,
+    *,
+    nslots: int,
+    jb: int,
+    bnd_in: torch.Tensor | None = None,
+    bnd_out: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """One row stripe of a long query against the streams, in one launch
+    (one pass of K2).
+
+    Args:
+      profile_biased: ``(rows, 32)`` int32 biased stripe
+        (``convert.profile_stripes``), as :func:`sw_stream` takes it.
+      streams, fs, go, ge, nslots, jb: as :func:`sw_stream`.
+      bnd_in: ``(2, NW, L, win)`` int32 ``(Gg, F)`` of the previous
+        stripe's last row, or None for the first stripe (row -1 is then the
+        boundary Gg = go, F = 0).
+      bnd_out: ``(2, NW, L, win)`` int32 tensor this pass overwrites with
+        its own last row's ``(Gg, F)``, or None for the last stripe. At
+        least one of ``bnd_in`` and ``bnd_out`` is given: a pass with
+        neither is a one-stripe query, :func:`sw_stream`'s work.
+
+    Returns:
+      ``((nslots, win)`` int32 per-segment bests over this stripe's rows,
+      ``bnd_out)``.
+    """
+    _check(profile_biased, streams, fs, go, ge, nslots, jb)
+    _check_bnd("bnd_in", bnd_in, streams)
+    _check_bnd("bnd_out", bnd_out, streams)
+    if bnd_in is None and bnd_out is None:
+        raise ValueError(
+            "a pass with no boundary in or out is a one-stripe query: "
+            "use sw_stream (K1)"
+        )
+    if streams.device.type == "cpu":
+        return sw_stream_striped_pass_reference(
+            profile_biased, streams, fs, go, ge, nslots=nslots, jb=jb,
+            bnd_in=bnd_in, bnd_out=bnd_out,
+        )
+    out = _launch(
+        "sw_stream_striped", profile_biased, streams, fs, go, ge, nslots, jb,
+        bnd=(bnd_in, bnd_out),
+    )
+    sw_stream_striped_pass.launches += 1
+    return out, bnd_out
+
+
+sw_stream_striped_pass.launches = 0
+
+
+def sw_stream_striped(
+    stripes: list[torch.Tensor],
+    streams: torch.Tensor,
+    fs: torch.Tensor,
+    go: int,
+    ge: int,
+    *,
+    nslots: int,
+    jb: int,
+) -> torch.Tensor:
+    """Score a query of any length, one launch of K2 per row stripe.
+
+    Args:
+      stripes: the query's biased row stripes in order
+        (``convert.profile_stripes``); every stripe but the last is all
+        real rows, since its last row is the next pass's boundary.
+      streams, fs, go, ge, nslots, jb: as :func:`sw_stream`.
+
+    Returns:
+      ``(nslots, win)`` int32 per-segment best scores: the max over the
+      passes (G's running max over disjoint row sets). One stripe is one
+      launch of :func:`sw_stream`. ``sw_stream_striped.calls`` counts the
+      calls; the launches are counted by the pass.
+    """
+    sw_stream_striped.calls += 1
+    if len(stripes) == 1:
+        return sw_stream(stripes[0], streams, fs, go, ge, nslots=nslots, jb=jb)
+    return _striped(sw_stream_striped_pass, stripes, streams, fs, go, ge, nslots, jb)
+
+
+sw_stream_striped.calls = 0
+
+
+def _striped(pass_fn, stripes, streams, fs, go, ge, nslots, jb) -> torch.Tensor:
+    """Run ``pass_fn`` over the stripes, the boundary ping-ponging between
+    two arrays allocated once, and max-merge the passes' bests."""
+    if not stripes:
+        raise ValueError("a striped search needs at least one stripe")
+    bnd = None
+    if len(stripes) > 1:
+        bnd = torch.empty((2, 2, *streams.shape), dtype=torch.int32,
+                          device=streams.device)
+    best = None
+    for p, stripe in enumerate(stripes):
+        out, _ = pass_fn(
+            stripe, streams, fs, go, ge, nslots=nslots, jb=jb,
+            bnd_in=bnd[(p - 1) % 2] if p > 0 else None,
+            bnd_out=bnd[p % 2] if p < len(stripes) - 1 else None,
+        )
+        best = out if best is None else torch.maximum(best, out)
+    return best
+
+
+def _launch(name, prof, streams, fs, go, ge, nslots, jb, bnd=()) -> torch.Tensor:
     """Launch the CUDA kernel ``name`` (``sw_stream``: a 2-D profile,
-    ``sw_stream_multi``: a 3-D one) on checked tensors; raise on another
-    device or block size, and on a refused launch."""
+    ``sw_stream_multi``: a 3-D one, ``sw_stream_striped``: a 2-D stripe and
+    its boundary tensors ``bnd``, None for none) on checked tensors; raise
+    on another device or block size, and on a refused launch."""
     if streams.device.type != "cuda":
         raise ValueError(f"no stream kernel for device {streams.device}")
     if jb != STREAM_JB:
@@ -222,6 +363,7 @@ def _launch(name, prof, streams, fs, go, ge, nslots, jb) -> torch.Tensor:
         err = getattr(lib, f"{name}_launch")(
             prof.data_ptr(), streams.data_ptr(), fs.data_ptr(),
             out.data_ptr(), rows[0].data_ptr(), rows[1].data_ptr(),
+            *(None if t is None else t.data_ptr() for t in bnd),
             *dims, jb, int(go), int(ge),
             torch.cuda.current_stream(dev).cuda_stream,
         )
@@ -271,7 +413,58 @@ def sw_stream_multi_reference(
 sw_stream_multi_reference.calls = 0
 
 
-def _wavefront(prof, streams, fs, go, ge, nslots, jb) -> torch.Tensor:
+def sw_stream_striped_pass_reference(
+    profile_biased: torch.Tensor,
+    streams: torch.Tensor,
+    fs: torch.Tensor,
+    go: int,
+    ge: int,
+    *,
+    nslots: int,
+    jb: int,
+    bnd_in: torch.Tensor | None = None,
+    bnd_out: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Plain PyTorch version of :func:`sw_stream_striped_pass`, same
+    contract."""
+    _check(profile_biased, streams, fs, go, ge, nslots, jb)
+    _check_bnd("bnd_in", bnd_in, streams)
+    _check_bnd("bnd_out", bnd_out, streams)
+    sw_stream_striped_pass_reference.calls += 1
+    out = _wavefront(
+        profile_biased[None], streams, fs, go, ge, nslots, jb, bnd_in, bnd_out
+    )
+    return out[:, 0], bnd_out
+
+
+sw_stream_striped_pass_reference.calls = 0
+
+
+def sw_stream_striped_reference(
+    stripes: list[torch.Tensor],
+    streams: torch.Tensor,
+    fs: torch.Tensor,
+    go: int,
+    ge: int,
+    *,
+    nslots: int,
+    jb: int,
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`sw_stream_striped`, same contract:
+    the plain pass over every stripe."""
+    sw_stream_striped_reference.calls += 1
+    return _striped(
+        sw_stream_striped_pass_reference, stripes, streams, fs, go, ge,
+        nslots, jb,
+    )
+
+
+sw_stream_striped_reference.calls = 0
+
+
+def _wavefront(
+    prof, streams, fs, go, ge, nslots, jb, bnd_in=None, bnd_out=None
+) -> torch.Tensor:
     """The plain versions' body: ``(nq, lqp, 32)`` profile -> ``(nslots, nq,
     win)``.
 
@@ -282,6 +475,12 @@ def _wavefront(prof, streams, fs, go, ge, nslots, jb) -> torch.Tensor:
     that starts a segment sees it (Gg = go, E = 0) on its up and diagonal
     sides; each cell's G is max-reduced into its segment's best. State is
     laid out ``(row, window, query, lane)``.
+
+    For one query (``nq == 1``), ``bnd_in`` replaces row -1 with a stripe
+    boundary: row 0 at position ``j`` reads ``(Gg, F) = bnd_in[:, w, j]`` on
+    its left side and ``bnd_in[0, w, j - 1]`` on its diagonal (still ``go``
+    where ``j`` starts a segment); ``bnd_out`` receives the last row's
+    ``(Gg, F)`` at every position.
     """
     dev = streams.device
     nq, lqp, _ = prof.shape
@@ -322,6 +521,9 @@ def _wavefront(prof, streams, fs, go, ge, nslots, jb) -> torch.Tensor:
     def down(x, fill):  # out[i] = x[i-1], out[0] = the row -1 boundary
         return torch.cat([fill, x[:-1]], dim=0)
 
+    def bnd_row(k, j):  # bnd_in[k] at position j as a (1, nw, 1, win) row
+        return bnd_in[k][:, min(max(j, 0), length - 1)][None, :, None, :]
+
     shape = (lqp, nw, nq, win)
     gg1 = torch.full(shape, go, dtype=torch.int32, device=dev)  # diagonal d-1
     e1 = torch.zeros(shape, dtype=torch.int32, device=dev)
@@ -335,11 +537,20 @@ def _wavefront(prof, streams, fs, go, ge, nslots, jb) -> torch.Tensor:
         new = fresh[w_idx, jc][:, :, None, None]  # (lqp, nw, 1, 1)
         gg_up = torch.where(new, go, gg1)
         e_up = torch.where(new, 0, e1)
-        gg_diag = torch.where(new, go, down(gg2, go_row))
+        # Row 0 at position d: row -1 is the boundary, or the stripe above.
+        if bnd_in is None:
+            top_gg, top_f, top_diag = go_row, zero_row, go_row
+        else:
+            top_gg, top_f, top_diag = bnd_row(0, d), bnd_row(1, d), bnd_row(0, d - 1)
+        gg_diag = torch.where(new, go, down(gg2, top_diag))
         hp = gg_diag + s
         e = torch.maximum(gg_up, e_up + ge)
-        f = torch.maximum(down(gg1, go_row), down(f1, zero_row) + ge)
+        f = torch.maximum(down(gg1, top_gg), down(f1, top_f) + ge)
         g = torch.maximum(torch.maximum(hp, e), torch.clamp_min(f, 0))
+        jl = d - lqp + 1  # the last row's position
+        if bnd_out is not None and 0 <= jl < length:
+            bnd_out[0][:, jl] = g[-1, :, 0] + go
+            bnd_out[1][:, jl] = f[-1, :, 0]
         valid = ((j >= 0) & (j < length))[:, None, None, None]
         best.scatter_reduce_(
             0,

@@ -1,14 +1,15 @@
 """Query-vs-database search: the port of ``seqalign_tpu.pipeline``'s
 single-query and multi-query paths.
 
-Reads the query and the database FASTA (the JAX package's numpy host code),
-length-sorts the records, packs them into segmented window streams, scores
-each chunk of streams in one launch of the stream kernel
-(``ops.swa_cuda.sw_stream``; ``sw_stream_multi`` per block of queries for a
-multi-query search) and scatters the scores back to database order. The
-timer covers the launches, the kernels and the fetch of the scores;
-parsing, packing and the host-to-device copy stay outside it, the same
-boundary as the JAX package's and the reference's.
+Reads the query and the database FASTA (the port's copy of the JAX
+package's numpy host code), length-sorts the records, packs them into
+segmented window streams, scores each chunk of streams in one launch of the
+stream kernel (``ops.swa_cuda.sw_stream``; ``sw_stream_multi`` per block of
+queries for a multi-query search; ``sw_stream_striped``, one launch per row
+stripe, for a query over ``MAX_QUERY_ROWS``) and scatters the scores back
+to database order. The timer covers the launches, the kernels and the fetch
+of the scores; parsing, packing and the host-to-device copy stay outside
+it, the same boundary as the JAX package's and the reference's.
 
 The device comes from ``SEQALIGN_PLATFORM`` (``cuda``, the default, or
 ``cpu``). With no GPU, ``cuda`` is an error, never a silent run on the CPU.
@@ -25,14 +26,15 @@ from typing import Callable, Iterable, Sequence
 import numpy as np
 import torch
 
-from .convert import profile_to_torch, stream_pack_to_torch
+from .convert import profile_stripes, profile_to_torch, stream_pack_to_torch
 from .host import (
     EncodedDatabase, ScoringModel, SeqRecord, StreamPack, encode,
     lattice_round_up, pack_batch, pack_streams, parse_file_cached, read_fasta,
     read_first,
 )
+from .ops import swa_cuda
 from .ops.swa_cuda import (
-    MAX_QUERY_ROWS, STREAM_JB, supported_scoring, sw_stream, sw_stream_multi,
+    STREAM_JB, supported_scoring, sw_stream, sw_stream_multi, sw_stream_striped,
 )
 from .ops.swa_torch import make_profile, sw_scan, sw_wavefront
 
@@ -49,6 +51,12 @@ BATCH_LANES = 512
 # Device memory one multi-query launch may take for its rolling rows and
 # its output (choose_query_block); sets the queries per launch.
 MULTI_SCRATCH_BYTES = 8 << 30
+# Device memory one chunk of a striped (long-query) search may take for its
+# two boundary arrays, 16 B per stream cell (Gg and F, in and out). Chunks
+# are cut before packing, by real residues at half this many cells, which
+# leaves room for the streams' padding; the Swiss-Prot-scale database
+# (205 M residues, 3.5 GB of boundaries) stays one chunk.
+STRIPED_SCRATCH_BYTES = 8 << 30
 
 
 @dataclasses.dataclass
@@ -146,7 +154,6 @@ def search_database(
             _note_wavefront()
             eng = "wavefront"
         else:
-            _check_query_rows(len(query_idx))
             return _stream_search(profile, db, go, ge, order, lanes, dev)
 
     win = lanes or BATCH_LANES
@@ -175,16 +182,6 @@ def _note_wavefront() -> None:
     )
 
 
-def _check_query_rows(lq: int) -> None:
-    if lq > MAX_QUERY_ROWS:
-        raise NotImplementedError(
-            f"query of {lq} residues exceeds the stream "
-            f"kernel's MAX_QUERY_ROWS={MAX_QUERY_ROWS}; longer queries "
-            "need the K2 row-striped kernel, which is not yet ported "
-            "(--engine wavefront scores them)"
-        )
-
-
 def search_database_multi(
     query_idxs: Sequence[np.ndarray],
     db: EncodedDatabase,
@@ -198,7 +195,9 @@ def search_database_multi(
 
     Returns ((NQ, N) int32 scores in database stream order, kernel seconds).
     The ``stream`` engine (the default) scores blocks of queries over the
-    same packed streams in one launch of the multi-query kernel each. The
+    same packed streams in one launch of the multi-query kernel each; a
+    query over ``MAX_QUERY_ROWS`` rows is searched on its own through the
+    striped kernel (:func:`search_database`), and the search says so. The
     ``wavefront`` and ``scan`` engines, and a scoring system outside the
     stream kernel's envelope (which says so and uses ``wavefront``), search
     each query on its own through :func:`search_database`.
@@ -213,18 +212,38 @@ def search_database_multi(
         return scores, 0.0
 
     go, ge = scoring.gap_open_total, scoring.gap_extend
-    profiles = multi_profile(scoring.table, query_idxs)
-
-    if eng == "stream":
-        if supported_scoring(profiles, go, ge):
-            _check_query_rows(max(len(q) for q in query_idxs))
-            order = np.argsort(-db.lengths, kind="stable") if sort else np.arange(db.n)
-            return _stream_search(profiles, db, go, ge, order, lanes, dev)
-        _note_wavefront()
-        eng = "wavefront"
-
     kernel_time = 0.0
-    for k, q in enumerate(query_idxs):
+    each = range(nq)
+    if eng == "stream":
+        # Only the short queries form the padded (NQ, Lq, 32) batch profile;
+        # search_database checks each long query's scoring on its own.
+        rows = swa_cuda.MAX_QUERY_ROWS
+        short = [k for k, q in enumerate(query_idxs) if len(q) <= rows]
+        long = [k for k, q in enumerate(query_idxs) if len(q) > rows]
+        batch = (
+            multi_profile(scoring.table, [query_idxs[k] for k in short])
+            if short else None
+        )
+        if batch is None or supported_scoring(batch, go, ge):
+            each = long
+            if long:
+                print(
+                    f"Note: {len(long)} of {nq} queries exceed "
+                    f"MAX_QUERY_ROWS={rows}; each is searched on its own "
+                    "through the row-striped kernel, the rest as one batch.",
+                    file=sys.stderr,
+                )
+            if short:
+                order = np.argsort(-db.lengths, kind="stable") if sort else np.arange(db.n)
+                scores[short], kernel_time = _stream_search(
+                    batch, db, go, ge, order, lanes, dev
+                )
+        else:
+            _note_wavefront()
+            eng = "wavefront"
+
+    for k in each:
+        q = query_idxs[k]
         scores[k], dt = search_database(
             q, db, scoring, engine=eng, lanes=lanes, sort=sort, device=dev
         )
@@ -322,19 +341,38 @@ def query_blocks(
 
 def stream_chunks(
     db: EncodedDatabase, order: np.ndarray, lanes: int | None,
-    device: torch.device,
+    device: torch.device, max_residues: int | None = None,
 ) -> Iterable[tuple[np.ndarray, StreamPack]]:
     """``(records, pack)`` of each chunk a search launches on: the records
     of ``order``, ``MAX_STREAM_SLOTS`` lane groups at a time, packed into
-    :func:`choose_windows` streams."""
+    :func:`choose_windows` streams. With ``max_residues`` (the striped
+    search, :func:`striped_chunk_residues`) a chunk also ends, at a lane
+    group's end, before its real residues pass that many; it keeps at
+    least one lane group."""
     max_lanes = resident_lanes(device)
-    per_chunk = MAX_STREAM_SLOTS * WINDOW_LANES
-    for start in range(0, db.n, per_chunk):
-        chunk = order[start : start + per_chunk]
-        nw = choose_windows(db.lengths[chunk], WINDOW_LANES, lanes, max_lanes)
+    win = WINDOW_LANES
+    csum = np.cumsum(db.lengths[order]) if max_residues else None
+    start = 0
+    while start < db.n:
+        stop = min(start + MAX_STREAM_SLOTS * win, db.n)
+        if max_residues:
+            base = csum[start - 1] if start else 0
+            fit = int(np.searchsorted(csum, base + max_residues, side="right"))
+            if fit < stop:
+                stop = max(start + win, fit // win * win)
+        chunk = order[start:stop]
+        nw = choose_windows(db.lengths[chunk], win, lanes, max_lanes)
         yield chunk, pack_streams(
-            db, chunk, nw, win=WINDOW_LANES, jb=STREAM_JB, grain=STREAM_GRAIN
+            db, chunk, nw, win=win, jb=STREAM_JB, grain=STREAM_GRAIN
         )
+        start = stop
+
+
+def striped_chunk_residues() -> int:
+    """Real residues per chunk of a striped search: the cells whose
+    boundaries fit ``STRIPED_SCRATCH_BYTES``, halved for the padding the
+    packer adds (1.06x the real residues at Swiss-Prot scale)."""
+    return STRIPED_SCRATCH_BYTES // 16 // 2
 
 
 def _stream_search(
@@ -355,11 +393,14 @@ def _stream_search(
     The chunks are the single-query search's: the JAX package's smaller
     chunks for a batch (``MAX_STREAM_SLOTS // nq_b`` segments) pad each
     stream to a longer segment, and on an H100 that cost 1.27x the K3 time
-    at 8 x 17 and 1.54x at 64 x 144 (PERF.md). Returns ``(N,)`` or
-    ``(NQ, N)`` scores.
+    at 8 x 17 and 1.54x at 64 x 144 (PERF.md). A query over
+    ``MAX_QUERY_ROWS`` rows runs the striped kernel, one launch per stripe
+    of ``STRIPE_ROWS`` rows, in chunks whose boundaries fit
+    ``STRIPED_SCRATCH_BYTES``. Returns ``(N,)`` or ``(NQ, N)`` scores.
     """
     n = db.n
     multi = profile.ndim == 3
+    striped = not multi and profile.shape[0] > swa_cuda.MAX_QUERY_ROWS
     kernel_time = 0.0
     if device.type == "cuda":
         from .ops import _build
@@ -369,10 +410,14 @@ def _stream_search(
         nq = profile.shape[0]
         scores = np.zeros((nq, n), dtype=np.int32)
         blocks = query_blocks(profile, go, n, lanes, device)
+    elif striped:
+        scores = np.zeros(n, dtype=np.int32)
+        stripes = profile_stripes(profile, go, swa_cuda.STRIPE_ROWS, device)
     else:
         scores = np.zeros(n, dtype=np.int32)
         prof_dev = profile_to_torch(profile, go, device)
-    for chunk, pack in stream_chunks(db, order, lanes, device):
+    max_residues = striped_chunk_residues() if striped else None
+    for chunk, pack in stream_chunks(db, order, lanes, device, max_residues):
         streams, fs = stream_pack_to_torch(pack, device)
         kw = dict(nslots=len(pack.slot_ids), jb=STREAM_JB)
         _sync(device)
@@ -381,6 +426,9 @@ def _stream_search(
             # Every block's launch is enqueued before the one fetch.
             outs = [sw_stream_multi(b, streams, fs, go, ge, **kw) for b in blocks]
             out = torch.cat(outs, dim=1).cpu()
+        elif striped:
+            # Every stripe's launch is enqueued before the one fetch.
+            out = sw_stream_striped(stripes, streams, fs, go, ge, **kw).cpu()
         else:
             out = sw_stream(prof_dev, streams, fs, go, ge, **kw).cpu()
         kernel_time += time.perf_counter() - t0

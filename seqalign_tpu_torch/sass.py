@@ -1,0 +1,195 @@
+"""What nvcc made of the port's kernels: registers, spills and SASS.
+
+    python -m seqalign_tpu_torch.sass [--against DIR] [--out FILE.json]
+
+builds ``csrc/*.cu`` as ``ops/_build.py`` does and prints, for each kernel
+function: the registers and spills ptxas reports (``-Xptxas -v``), its
+number of SASS instructions (``cuobjdump -sass``), and its innermost DP
+loop (the row loop): the instructions of the loop body, the DP cells one
+iteration computes (one ``LDS``, the profile gather ``P'[i][c]``, each)
+and the integer ALU instructions per cell. With ``--against DIR`` it builds
+``DIR/seqalign_tpu_torch/csrc/*.cu`` (another checkout, for example the
+parent commit) the same way and says, kernel by kernel, whether both builds
+compiled to the same SASS, instruction for instruction.
+
+Runs where the CUDA toolkit is (``nvcc`` and ``cuobjdump``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import re
+import subprocess
+import tempfile
+from pathlib import Path
+
+from .ops import _build
+
+KERNELS = ("sw_stream_kernel", "sw_stream_multi_kernel", "sw_stream_striped_kernel")
+# Opcodes that are not integer ALU work: memory, control, conversion.
+_NOT_ALU = ("LD", "ST", "BRA", "BAR", "NOP", "EXIT", "RET", "CALL", "BSYNC",
+            "BSSY", "S2R", "CS2R", "MEMBAR", "ULD", "UST", "WARPSYNC", "DEPBAR")
+
+_INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.+?)\s*;")
+_LABEL = re.compile(r"^\s*(\.L_x_\d+):")
+_TARGET = re.compile(r"`?\((\.L_x_\d+)\)|\b0x([0-9a-f]+)\b")
+
+
+def _tool(name: str) -> str:
+    return str(Path(_build._find_nvcc()).with_name(name))
+
+
+def build_lib(csrc: Path, out_dir: Path) -> tuple[Path, str]:
+    """Compile the ``.cu`` files of ``csrc`` with the port's flags and
+    ``-Xptxas -v``; returns (library, ptxas's report)."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    lib = out_dir / "lib.so"
+    cmd = [_build._find_nvcc(), "-Xptxas", "-v", *_build.NVCC_FLAGS, "-o", str(lib),
+           *map(str, sorted(Path(csrc).glob("*.cu")))]
+    proc = subprocess.run(cmd, capture_output=True, text=True, check=True)
+    return lib, proc.stdout + proc.stderr
+
+
+def ptxas_usage(text: str) -> dict[str, str]:
+    """Kernel (mangled) -> ptxas's 'Used N registers, ...' line."""
+    usage, current = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            current = m.group(1)
+        elif current and ("Used" in line or "spill" in line):
+            usage[current] = (usage.get(current, "") + " " + line.split(":", 1)[-1].strip()).strip()
+    return usage
+
+
+def cuobjdump(lib: Path) -> str:
+    return subprocess.run([_tool("cuobjdump"), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+
+
+def sass_functions(lib: Path, text: str | None = None
+                   ) -> dict[str, list[tuple[int, str, str | None]]]:
+    """Function (mangled) -> [(address, instruction, label before it)]."""
+    if text is None:
+        text = cuobjdump(lib)
+    funcs, cur, label = {}, None, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur, label = m.group(1), None
+            funcs[cur] = []
+            continue
+        if cur is None:
+            continue
+        m = _LABEL.match(line)
+        if m:
+            label = m.group(1)
+            continue
+        m = _INSTR.search(line)
+        if m:
+            funcs[cur].append((int(m.group(1), 16), m.group(2).strip(), label))
+            label = None
+    return funcs
+
+
+def opcode(instr: str) -> str:
+    tok = instr.split()
+    if tok and tok[0].startswith("@"):
+        tok = tok[1:]
+    return tok[0] if tok else ""
+
+
+def inner_loop(instrs) -> dict | None:
+    """The innermost DP loop, the shortest backward branch whose body holds
+    DP work (``VIADDMNMX``, the E and F updates): its size, its cells (one
+    ``LDS`` each, the profile gather) and integer ALU instructions per
+    cell."""
+    at = {lab: i for i, (_, _, lab) in enumerate(instrs) if lab}
+    at.update({addr: i for i, (addr, _, _) in enumerate(instrs)})
+    best = None
+    for k, (_, ins, _) in enumerate(instrs):
+        if opcode(ins).split(".")[0] != "BRA":
+            continue
+        m = _TARGET.search(ins)
+        if not m:
+            continue
+        start = at.get(m.group(1) if m.group(1) else int(m.group(2), 16), k + 1)
+        if start > k:
+            continue
+        body = [opcode(x) for _, x, _ in instrs[start : k + 1]]
+        cells = sum(op.split(".")[0] == "LDS" for op in body)
+        dp = any(op.startswith("VIADDMNMX") for op in body)
+        if dp and cells and (best is None or len(body) < best["instructions"]):
+            hist = collections.Counter(op.split(".")[0] for op in body)
+            alu = sum(n for op, n in hist.items() if not op.startswith(_NOT_ALU))
+            best = {"instructions": len(body), "cells": cells,
+                    "alu_per_cell": alu / cells,
+                    "instructions_per_cell": len(body) / cells,
+                    "opcodes": dict(hist.most_common())}
+    return best
+
+
+def report(lib: Path, ptxas: str) -> dict:
+    """Per kernel: ptxas usage, SASS size, inner loop, and the SASS."""
+    usage = ptxas_usage(ptxas)
+    out = {}
+    for name, instrs in sass_functions(lib).items():
+        short = next((k for k in sorted(KERNELS, key=len, reverse=True) if k in name), None)
+        if short is None:
+            continue
+        key = short + (name[name.index(short) + len(short):][:24] if "striped" in short else "")
+        out[key] = {
+            "mangled": name,
+            "ptxas": next((v for k, v in usage.items() if k == name), None),
+            "sass_instructions": len(instrs),
+            "inner_loop": inner_loop(instrs),
+            "sass": [ins for _, ins, _ in instrs],
+        }
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--against", default=None,
+                    help="another checkout whose kernels to compare with")
+    ap.add_argument("--out", default=None)
+    ap.add_argument("--dump", default=None, help="write the raw SASS here")
+    args = ap.parse_args(argv)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        lib, ptxas = build_lib(_build._CSRC, tmp / "this")
+        if args.dump:
+            Path(args.dump).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.dump).write_text(cuobjdump(lib))
+        this = report(lib, ptxas)
+        other = None
+        if args.against:
+            csrc = Path(args.against) / "seqalign_tpu_torch" / "csrc"
+            olib, optxas = build_lib(csrc, tmp / "other")
+            other = report(olib, optxas)
+    result = {"kernels": {}}
+    for key, r in this.items():
+        row = {k: v for k, v in r.items() if k != "sass"}
+        if other is not None and key in other:
+            row["same_sass_as_other"] = r["sass"] == other[key]["sass"]
+            row["other_sass_instructions"] = other[key]["sass_instructions"]
+        result["kernels"][key] = row
+        loop = r["inner_loop"] or {}
+        print(f"[sass] {key}: {r['ptxas']}; {r['sass_instructions']} SASS "
+              f"instructions; inner loop {loop.get('instructions')} instructions, "
+              f"{loop.get('cells')} cells, {loop.get('alu_per_cell')} integer ALU "
+              f"instructions per cell; "
+              + (f"same SASS as --against: {row['same_sass_as_other']} "
+                 f"({row['other_sass_instructions']} there)"
+                 if "same_sass_as_other" in row else ""), flush=True)
+        print(f"[sass] {key} inner loop opcodes: {loop.get('opcodes')}", flush=True)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(result, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

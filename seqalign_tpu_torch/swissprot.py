@@ -5,17 +5,22 @@ records with gamma(1.8, 202) lengths clipped to 2..35,000 (about 205 M
 residues), UniProt amino-acid frequencies, seed 42, plus a query drawn from
 the same stream.
 
-    python -m seqalign_tpu_torch.swissprot [--lq 17,144,512,1536]
-        [--windows 132,264,396,528,1056] [--nq N] [--out FILE.json]
+    python -m seqalign_tpu_torch.swissprot [--lq 17,144,512,1536,2000]
+        [--stripe-rows 256,512,768] [--windows 132,264,396,528,1056]
+        [--nq N] [--out FILE.json]
 
 times each layer of a search over it on the GPU, PAM250, gaps -2/-1: the
 FASTA parse, ``pack_streams``, the host-to-device copy, the kernel (CUDA
 events), the fetch and scatter, the whole ``search_database`` call, and the
 device's busy share under ``torch.profiler``. It then times the kernel at
 each query length of ``--lq`` (the pipeline's own window count) and, with
-the 144-residue query, at each window count of ``--windows``. Every line
-printed names the card and its power limit; ``--out`` gets the same as
-JSON. The FASTA is written to and parsed from ``build/`` of the checkout.
+the 144-residue query, at each window count of ``--windows``. A query
+longer than ``MAX_QUERY_ROWS`` runs the row-striped kernel (K2) at each
+stripe height of ``--stripe-rows`` (default ``STRIPE_ROWS``): the number of
+passes, each pass's time and the whole search's, then three
+``search_database`` calls at that length. Every line printed names the card
+and its power limit; ``--out`` gets the same as JSON. The FASTA is written
+to and parsed from ``build/`` of the checkout.
 
 With ``--nq N`` it times the multi-query search instead, for a batch of N
 random queries of each length of ``--lq`` (``--nq 8 --lq 17`` is
@@ -108,6 +113,21 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def striped_pass_ms(stripes, streams, fs, go, ge, nslots, reps) -> list[float]:
+    """CUDA-event ms of each K2 pass of ``stripes`` over the streams, each
+    reading the boundary of the pass before (from its own timed runs)."""
+    from .ops.swa_cuda import STREAM_JB, sw_stream_striped_pass
+
+    bnd = torch.empty((2, 2, *streams.shape), dtype=torch.int32, device=streams.device)
+    out = []
+    for p, st in enumerate(stripes):
+        kw = dict(nslots=nslots, jb=STREAM_JB,
+                  bnd_in=bnd[(p - 1) % 2] if p else None,
+                  bnd_out=bnd[p % 2] if p < len(stripes) - 1 else None)
+        out.append(cuda_ms(lambda: sw_stream_striped_pass(st, streams, fs, go, ge, **kw), reps))
+    return out
 
 
 def _seconds(fn):
@@ -217,13 +237,17 @@ def multi_breakdown(db, nq: int, lq: int, say) -> dict:
 
 def main(argv=None) -> int:
     from . import pipeline
-    from .convert import profile_to_torch, stream_pack_to_torch
+    from .convert import profile_stripes, profile_to_torch, stream_pack_to_torch
     from .host import pack_streams, parse_file_cached
-    from .ops.swa_cuda import STREAM_JB, sw_stream
+    from .ops.swa_cuda import (
+        MAX_QUERY_ROWS, STREAM_JB, STRIPE_ROWS, sw_stream, sw_stream_striped,
+    )
     from .ops.swa_torch import make_profile
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--lq", default="17,144,512,1536")
+    ap.add_argument("--stripe-rows", default=str(STRIPE_ROWS),
+                    help="stripe heights at which to time a long query")
     ap.add_argument("--windows", default="132,264,396,528,1056")
     ap.add_argument("--nq", type=int, default=0,
                     help="time the multi-query search of this many queries")
@@ -232,12 +256,13 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("swissprot: no CUDA device")
     lqs = [int(x) for x in args.lq.split(",")]
+    stripe_rows = [int(x) for x in args.stripe_rows.split(",")]
     windows = [int(x) for x in args.windows.split(",") if x]
     smi = card()
     dev = torch.device("cuda")
     sc = pam250()
     go, ge = sc.gap_open_total, sc.gap_extend
-    result = {"card": smi, "steps_s": {}, "lq": [], "windows": []}
+    result = {"card": smi, "steps_s": {}, "lq": [], "windows": [], "long_search": []}
     steps = result["steps_s"]
 
     def say(msg):
@@ -310,6 +335,30 @@ def main(argv=None) -> int:
     shape = f"nw={nw} L={streams.shape[1]} win={win} jb={STREAM_JB}"
     for lq in lqs:
         q = query if lq == len(query) else random_query(lq, lq)
+        if lq > MAX_QUERY_ROWS:
+            # The pipeline's own chunk at this length is this pack as long
+            # as the database stays one striped chunk.
+            if residues > pipeline.striped_chunk_residues():
+                raise SystemExit("swissprot: the striped search takes several chunks")
+            for sr in stripe_rows:
+                stripes = profile_stripes(make_profile(sc.table, q), go, sr, dev)
+                ms = cuda_ms(lambda: sw_stream_striped(stripes, streams, fs, go, ge, **kw), 3)
+                pass_ms = striped_pass_ms(stripes, streams, fs, go, ge, kw["nslots"], 2)
+                gcups = lq * residues / ms / 1e6
+                result["lq"].append({
+                    "lq": lq, "stripe_rows": sr, "passes": len(stripes), "ms": ms,
+                    "pass_ms": pass_ms, "gcups": gcups, "shape": shape,
+                    "padded_over_real": padded})
+                say(f"[lq] lq={lq} {shape}: K2, {len(stripes)} passes of {sr} rows: "
+                    f"{ms} ms = {gcups} GCUPS over real residues; per pass {pass_ms} ms")
+            for _ in range(3):
+                (_, kernel_s), wall = _seconds(
+                    lambda: pipeline.search_database(q, db, sc, device=dev))
+                result["long_search"].append(
+                    {"lq": lq, "wall_s": wall, "kernel_timer_s": kernel_s})
+                say(f"[search] lq={lq}: wall {wall} s, kernel timer {kernel_s} s = "
+                    f"{lq * residues / kernel_s / 1e9} GCUPS")
+            continue
         pq = profile_to_torch(make_profile(sc.table, q), go, dev)
         ms = cuda_ms(lambda: sw_stream(pq, streams, fs, go, ge, **kw), 3)
         gcups = lq * residues / ms / 1e6

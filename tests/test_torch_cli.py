@@ -171,11 +171,72 @@ def test_multi_query_json_matches_jax(extra, files, capsys):
     assert got == want and len(got["queries"]) == 3
 
 
-def test_multi_query_above_row_limit_exits_1(files, capsys, tmp_path):
+def test_multi_query_above_row_limit_exits_1(files, capsys, tmp_path, monkeypatch):
+    """A query file holding a record one row over MAX_QUERY_ROWS is no
+    longer refused: the CLI scores both records (the long one through K2)
+    and prints what the JAX CLI prints, with one Note: on stderr. The
+    limits are shrunk (16 rows, stripes of 8) to keep the plain versions
+    cheap."""
+    from seqalign_tpu_torch.ops import swa_cuda
+
+    monkeypatch.setattr(swa_cuda, "MAX_QUERY_ROWS", 16)
+    monkeypatch.setattr(swa_cuda, "STRIPE_ROWS", 8)
+    rng = np.random.default_rng(32)
     q = tmp_path / "long.fa"
-    q.write_text(">short\nMKV\n>long\n" + "A" * 1537 + "\n")
-    code, out, err = _run(cli.main, ["--files", str(q), files["db"]], capsys)
-    assert code == 1 and "K2" in err and "Entry #" not in out
+    q.write_text(">short\nMKV\n>long\n" + random_protein(rng, 17) + "\n")
+    args = ["--files", str(q), files["db"]]
+    code, out, err = _run(cli.main, args, capsys)
+    jcode, jout, _ = _run(jax_cli.main, args + ["--engine", "wavefront"], capsys)
+    assert code == jcode == 0
+    assert "Note: 1 of 2 queries exceed" in err
+    assert "Query #1: long" in out
+    assert _drop_time(out) == _drop_time(jout)
+
+
+@pytest.fixture
+def long_files(tmp_path, monkeypatch):
+    """Long queries against the 40-record database, with K1's row limit
+    shrunk to 16 and stripes of 8 rows so the striped route is cheap."""
+    from seqalign_tpu_torch.ops import swa_cuda
+
+    monkeypatch.setattr(swa_cuda, "MAX_QUERY_ROWS", 16)
+    monkeypatch.setattr(swa_cuda, "STRIPE_ROWS", 8)
+    rng = np.random.default_rng(33)
+    long = tmp_path / "long.fa"
+    long.write_text(">long query\n" + random_protein(rng, 45) + "\n")
+    mixed = tmp_path / "mixed.fa"
+    mixed.write_text(
+        f">s1\n{random_protein(rng, 9)}\n>long\n{random_protein(rng, 33)}\n"
+        f">s2\n{random_protein(rng, 14)}\n"
+    )
+    return {"long": str(long), "mixed": str(mixed)}
+
+
+LONG_CASES = {
+    "one_long_query": ("long", ["--substitution_matrix", "BLOSUM62"], "oracle"),
+    "long_record_in_file": ("mixed", ["--substitution_matrix", "PAM250"], "wavefront"),
+    "json_topk": ("long", ["--json", "--topk", "3"], "oracle"),
+    "json_topk_mixed": ("mixed", ["--json", "--topk", "3"], "wavefront"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LONG_CASES))
+def test_long_query_output_matches_jax(case, files, long_files, capsys):
+    qname, extra, jax_engine = LONG_CASES[case]
+    args = ["--files", long_files[qname], files["db"]] + extra
+    code, out, err = _run(cli.main, args, capsys)
+    jcode, jout, _ = _run(jax_cli.main, args + ["--engine", jax_engine], capsys)
+    assert code == jcode == 0
+    assert ("Note: 1 of 3 queries exceed" in err) == (qname == "mixed")
+    if "--json" in extra:
+        got, want = (json.loads(o.splitlines()[-1]) for o in (out, jout))
+        for d in (got, want):
+            d.pop("total_time")
+            d.pop("entries_per_s", None)
+        assert got == want
+    else:
+        assert "Entry #" in out
+        assert _drop_time(out) == _drop_time(jout)
 
 
 @pytest.mark.parametrize(

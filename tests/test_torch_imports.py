@@ -21,19 +21,29 @@ def _run(args, cwd, **kw):
     )
 
 
+PORT_MODULES = sorted(
+    ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
+    for p in (ROOT / "seqalign_tpu_torch").rglob("*.py")
+)
+
+
 def test_port_imports_no_jax():
+    """Importing every module of the port, in a fresh interpreter, loads
+    neither jax nor any module of the JAX package."""
     code = (
-        "import sys\n"
-        "import seqalign_tpu_torch, seqalign_tpu_torch.pipeline, "
-        "seqalign_tpu_torch.cli, seqalign_tpu_torch.ops.swa_cuda, "
-        "seqalign_tpu_torch.ops.swa_torch, seqalign_tpu_torch.convert\n"
-        "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
-        "if m.startswith('jax'))\n"
+        "import importlib, sys\n"
+        f"for m in {PORT_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith"
+        "(('jax.', 'seqalign_tpu.')) or m == 'seqalign_tpu')\n"
+        "assert not bad, bad\n"
         "print('ok')\n"
     )
     proc = _run(["-c", code], ROOT)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+    assert "seqalign_tpu_torch.host" in PORT_MODULES
+    assert "seqalign_tpu_torch.utils.native_io" in PORT_MODULES
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])
@@ -67,15 +77,9 @@ def _imported_modules(path):
     ids=lambda p: str(p.relative_to(ROOT)),
 )
 def test_only_host_module_imports_jax_package(path):
-    """chip_smoke.py and the port take the JAX package's numpy host code
-    through ``seqalign_tpu_torch.host`` alone, and never import jax."""
+    """No file of the port, and not chip_smoke.py, imports jax or the JAX
+    package: the port keeps its own copy of the host code (``models``,
+    ``utils``), which ``seqalign_tpu_torch.host`` re-exports."""
     mods = list(_imported_modules(path))
     assert not [m for m in mods if m == "jax" or m.startswith("jax.")]
-    direct = [m for m in mods if m == "seqalign_tpu" or m.startswith("seqalign_tpu.")]
-    if path.name == "host.py":
-        assert direct and all(
-            m.startswith(("seqalign_tpu.models", "seqalign_tpu.utils."))
-            for m in direct
-        )
-    else:
-        assert direct == []
+    assert not [m for m in mods if m == "seqalign_tpu" or m.startswith("seqalign_tpu.")]

@@ -255,14 +255,25 @@ def test_multi_positive_gap_open_searches_each_query_with_wavefront(capsys):
     np.testing.assert_array_equal(got, want)
 
 
-def test_multi_query_above_row_limit_raises_naming_k2():
+def test_multi_query_above_row_limit_raises_naming_k2(capsys, monkeypatch):
+    """A batch holding a query one row over MAX_QUERY_ROWS is no longer
+    refused: the short query runs through K3, the long one through K2, and
+    the search says so; the scores equal the JAX package's. The limits are
+    shrunk (16 rows, stripes of 8) to keep the plain versions cheap."""
+    from seqalign_tpu_torch.ops import swa_cuda
+
+    monkeypatch.setattr(swa_cuda, "MAX_QUERY_ROWS", 16)
+    monkeypatch.setattr(swa_cuda, "STRIPE_ROWS", 8)
     sc = make_scoring("BLOSUM62")
     rng = np.random.default_rng(74)
-    queries = _queries(sc, rng, (10, MAX_QUERY_ROWS + 1))
+    queries = _queries(sc, rng, (10, swa_cuda.MAX_QUERY_ROWS + 1))
+    db = _db(rng, 5)
     calls = sw_stream_multi_reference.calls
-    with pytest.raises(NotImplementedError, match="K2"):
-        pipeline.search_database_multi(queries, _db(rng, 5), sc)
-    assert sw_stream_multi_reference.calls == calls
+    got, _ = pipeline.search_database_multi(queries, db, sc)
+    assert sw_stream_multi_reference.calls == calls + 1
+    assert "Note: 1 of 2 queries exceed MAX_QUERY_ROWS" in capsys.readouterr().err
+    want, _ = jax_pipeline.search_database_multi(queries, db, sc, engine="wavefront")
+    np.testing.assert_array_equal(got, want)
 
 
 def test_multi_cpu_search_launches_no_kernel():

@@ -10,8 +10,9 @@ import torch
 from seqalign_tpu import pipeline as jax_pipeline
 from seqalign_tpu.utils.native_io import EncodedDatabase
 from seqalign_tpu_torch import pipeline
+from seqalign_tpu_torch.ops import swa_cuda
 from seqalign_tpu_torch.ops.swa_cuda import (
-    MAX_QUERY_ROWS, sw_stream, sw_stream_reference,
+    sw_stream, sw_stream_reference, sw_stream_striped_pass_reference,
 )
 
 from _torch_cases import make_scoring, random_records
@@ -99,12 +100,23 @@ def test_positive_gap_open_routes_to_wavefront(capsys):
     np.testing.assert_array_equal(got, want)
 
 
-def test_query_above_row_limit_raises_naming_k2():
+def test_query_above_row_limit_raises_naming_k2(monkeypatch):
+    """A query one row over MAX_QUERY_ROWS is no longer refused: the
+    row-striped kernel (K2; its plain version here) scores it, in stripes
+    of STRIPE_ROWS, equal to the JAX package's scores. The limits are
+    shrunk (16 rows, stripes of 8) to keep the plain version cheap."""
+    monkeypatch.setattr(swa_cuda, "MAX_QUERY_ROWS", 16)
+    monkeypatch.setattr(swa_cuda, "STRIPE_ROWS", 8)
     sc = make_scoring("BLOSUM62")
     rng = np.random.default_rng(26)
-    q = sc.query_indices(random_protein(rng, MAX_QUERY_ROWS + 1))
-    with pytest.raises(NotImplementedError, match="K2"):
-        pipeline.search_database(q, _db(rng, 5), sc)
+    q = sc.query_indices(random_protein(rng, swa_cuda.MAX_QUERY_ROWS + 1))
+    db = _db(rng, 5)
+    calls = sw_stream_striped_pass_reference.calls
+    got, dt = pipeline.search_database(q, db, sc)
+    assert sw_stream_striped_pass_reference.calls == calls + -(-len(q) // swa_cuda.STRIPE_ROWS)
+    want, _ = jax_pipeline.search_database(q, db, sc, engine="wavefront")
+    assert got.dtype == np.int32 and dt > 0
+    np.testing.assert_array_equal(got, want)
 
 
 def test_no_gpu_is_an_error(monkeypatch):

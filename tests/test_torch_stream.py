@@ -179,3 +179,26 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.build(tmp_path / "build")
+
+
+def test_sass_inner_loop_counts_cells():
+    """The bound's instruction count: the shortest backward branch holding
+    DP work is the row loop, one LDS (the profile gather) per cell."""
+    from seqalign_tpu_torch import sass
+
+    text = "\n".join([
+        "\t\tFunction : _ZN12_GLOBAL__N_116sw_stream_kernelEv",
+        "        /*0000*/                   S2R R0, SR_TID.X ;",
+        "        /*0010*/                   LDG.E R2, desc[UR4][R8.64] ;",
+        "        /*0020*/                   LDS R4, [R3] ;",
+        "        /*0030*/                   VIADDMNMX R5, R5, R3, R4, !PT ;",
+        "        /*0040*/                   LDS R6, [R3+0x80] ;",
+        "        /*0050*/                   VIMNMX3.RELU R6, R5, R4, R6 ;",
+        "        /*0060*/               @P0 BRA 0x20 ;",
+        "        /*0070*/               @P1 BRA 0x10 ;",
+        "        /*0080*/                   EXIT ;",
+    ])
+    funcs = sass.sass_functions(None, text)
+    loop = sass.inner_loop(funcs["_ZN12_GLOBAL__N_116sw_stream_kernelEv"])
+    assert (loop["instructions"], loop["cells"]) == (5, 2)
+    assert loop["alu_per_cell"] == 1.0  # VIADDMNMX and VIMNMX3 over 2 cells
