@@ -8,7 +8,8 @@ Phases, each printing its own lines; any failure exits nonzero:
 1. device: the card's name, its power limit (nvidia-smi), torch, CUDA, nvcc;
 2. build: compile csrc/*.cu (one source, every kernel) with nvcc for
    sm_90a into build/, and read the inner DP loop of each kernel's SASS
-   (integer instructions per cell, for the bound);
+   (integer instructions per cell, for the bound): K1, K3, K2, the
+   fixed-batch kernel K4 and its constant-S mode K5 (a loop without LDS);
 3. kernel: the single-query stream kernel (K1) against its plain PyTorch
    version on the card, int32-exact (torch.equal), over scoring systems,
    segment layouts, window widths and query lengths up to MAX_QUERY_ROWS;
@@ -19,6 +20,12 @@ Phases, each printing its own lines; any failure exits nonzero:
    boundary row) and as a whole search, at 1537 to 4096 query rows and at
    35,000 against a small database, over the same scoring systems, a
    partial final stripe, a tail segment and empty windows;
+   then the fixed-batch kernel (K4) and its constant-S mode (K5) against
+   their plain versions, over the six scoring systems, windows of 256 and
+   1,024 lanes, 1 to 8 windows, lq = 1 to MAX_QUERY_ROWS, 3-D profiles of
+   unequal lengths (an empty query, 64 queries), a batch whose length needs
+   '*' padding through the engine interface, one window (sw_window), and
+   K5 against K4 on a biased profile of 7s;
 4. main path: a Swiss-Prot-scale search (565,247 records, about 205 M
    residues, bench.py's generator, seed 42, PAM250, gaps -2/-1, a
    144-residue query) through seqalign_tpu_torch.pipeline.search_database on
@@ -37,7 +44,15 @@ Phases, each printing its own lines; any failure exits nonzero:
    card, pass by pass, and 4,096 records (the 256 longest among them)
    equal the wavefront engine; K2 is timed per pass and whole, and K1 and
    K2 side by side at lq=1536;
-7. CLI: the port's CLI with the stream kernels against the same CLI with
+7. fixed-batch path: the same database and 144-residue query, length-
+   sorted and cut into pipeline.lane_batches of 4,096, 16,384 and 67,584
+   lanes, one call of pipeline.get_engine("windows") each; the counters
+   prove each B launched K4 once per batch and nothing else, and all
+   565,247 scores equal phase 4's K1 scores; K4 and K5 are timed in turns
+   over each B's batches on the card (swissprot.fixed_breakdown); at 67,584
+   lanes K4 and K5 equal their plain versions on every batch, and 8 queries
+   of 17 residues through K4 with a 3-D profile equal phase 5's K3 scores;
+8. CLI: the port's CLI with the stream kernels against the same CLI with
    --engine wavefront on a 3,000-record FASTA, for one query, an 8-record
    query file, a 2000-residue query and a 3-record file holding one;
    identical but for Total Time.
@@ -78,8 +93,10 @@ INT32_PER_S = 67e12 / 2 / 2
 def bound(nbytes: int, cells: int, alu_per_cell: float) -> tuple[float, str]:
     """(bound_ms, bound_by) for ``nbytes`` read or written once and
     ``cells`` DP cells of ``alu_per_cell`` integer instructions each.
-    ``cells`` counts the work Smith-Waterman needs, real query rows times
-    real database residues; the packer's padding is not part of it."""
+    ``cells`` counts the work the kernel's contract asks for: for the stream
+    kernels real query rows times real database residues (the packer's
+    padding is not part of it), for the fixed-batch kernel query rows times
+    every batch's Lb x lanes (the fixed batch is its input)."""
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = cells * alu_per_cell / INT32_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else "operations"
@@ -142,6 +159,17 @@ def phase_device(torch):
     return name, smi
 
 
+# The SASS instance each kernel's bound reads: K2's that runs most passes
+# (a boundary in and out), K4's and K5's single-query ones.
+BOUND_INSTANCES = {
+    "sw_stream_kernel": "sw_stream",
+    "sw_stream_multi_kernel": "sw_stream_multi",
+    "sw_stream_striped_kernel<true, true>": "sw_stream_striped",
+    "sw_windows_kernel<false, false>": "sw_windows",
+    "sw_windows_kernel<false, true>": "sw_windows_const_s",
+}
+
+
 def phase_build():
     """Build the kernels; return each kernel's integer ALU instructions per
     DP cell, counted in the inner loop of its SASS."""
@@ -156,19 +184,26 @@ def phase_build():
     alu = {}
     for mangled, instrs in sass.sass_functions(path).items():
         loop = sass.inner_loop(instrs)
-        name = next((k for k in sorted(sass.KERNELS, key=len, reverse=True)
-                     if k in mangled), None)
-        if name is None:
+        key = sass.kernel_key(mangled)
+        if key is None:
             continue
         if loop is None:
             fail(f"no DP loop found in the SASS of {mangled}")
-        print(f"[build] SASS {mangled}: {len(instrs)} instructions; inner loop "
-              f"{loop['instructions']} instructions for {loop['cells']} cells, "
-              f"{loop['alu_per_cell']} integer ALU per cell", flush=True)
-        # K2's bound reads the instance that runs most passes (kIn, kOut).
-        if "striped" not in name or "Lb1ELb1E" in mangled:
-            alu[name.removesuffix("_kernel")] = loop["alu_per_cell"]
-    if sorted(alu) != ["sw_stream", "sw_stream_multi", "sw_stream_striped"]:
+        print(f"[build] SASS {key}: {len(instrs)} instructions; inner loop "
+              f"{loop['instructions']} instructions for {loop['cells']} cells "
+              f"(from {loop['cells_from']}), {loop['alu_per_cell']} integer ALU "
+              f"per cell", flush=True)
+        # Only K5 (constant S) has a DP loop without the profile gather; a
+        # gather's LDS count must be the unroll K5's cells are taken from.
+        const_s = key.startswith("sw_windows_kernel<") and key.endswith("true>")
+        if const_s != (loop["cells_from"] != "LDS"):
+            fail(f"{key}: the DP loop {'has' if const_s else 'lacks'} a profile gather")
+        if not const_s and loop["cells"] != sass.CELLS_PER_ITERATION:
+            fail(f"{key}: {loop['cells']} LDS per loop iteration, not "
+                 f"CELLS_PER_ITERATION={sass.CELLS_PER_ITERATION}")
+        if key in BOUND_INSTANCES:
+            alu[BOUND_INSTANCES[key]] = loop["alu_per_cell"]
+    if sorted(alu) != sorted(BOUND_INSTANCES.values()):
         fail(f"SASS of the kernels not all found: {sorted(alu)}")
     return alu
 
@@ -180,7 +215,8 @@ class Checker:
     def __init__(self, torch):
         self.torch = torch
         self.max_abs_err = {"sw_stream": 0, "sw_stream_multi": 0,
-                            "sw_stream_striped": 0}
+                            "sw_stream_striped": 0, "sw_windows": 0,
+                            "sw_windows_const_s": 0}
 
     def compare(self, label, prof, streams, fs, go, ge, nslots, jb):
         from seqalign_tpu_torch.ops import swa_cuda
@@ -258,6 +294,36 @@ class Checker:
         if not equal:
             fail(f"sw_stream_striped != plain version for {label}")
         return whole, plain_ms
+
+
+    def compare_windows(self, label, prof, dbw, go, ge, const_s=False, kernel=None):
+        """K4 (K5 with ``const_s``) against its plain version on the same
+        card tensors; ``kernel`` is the kernel's output where a caller ran
+        it (through the engine interface). Returns (the kernel's scores,
+        the plain version's ms)."""
+        from seqalign_tpu_torch.ops import swa_cuda
+
+        torch = self.torch
+        name = "sw_windows_const_s" if const_s else "sw_windows"
+        if kernel is None:
+            kernel = swa_cuda.sw_windows(prof, dbw, go, ge, const_s=const_s)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        r = swa_cuda.sw_windows_reference(prof, dbw, go, ge, const_s=const_s)
+        end.record()
+        torch.cuda.synchronize()
+        err = int((kernel.long() - r.long()).abs().max()) if kernel.numel() else 0
+        self.max_abs_err[name] = max(self.max_abs_err[name], err)
+        equal = torch.equal(kernel, r)
+        nw, length, win = dbw.shape
+        queries = f"nq={prof.shape[0]} " if prof.ndim == 3 else ""
+        print(f"[kernel] {name} {label}: {queries}rows={prof.shape[-2]} nw={nw} "
+              f"Lb={length} win={win} equal={equal} max_abs_err={err}", flush=True)
+        if not equal:
+            fail(f"{name} != plain version for {label}")
+        return kernel, start.elapsed_time(end)
 
 
 def stream_case(name, lq, n, lo, hi, nw, win, seed, encoded=None, order=None,
@@ -414,6 +480,82 @@ def phase_kernel_striped(chk: Checker):
     chk.compare_striped("empty windows", *args)
 
 
+def windows_case(name, lq, nw, win, hi, seed, lb=None):
+    """One fixed batch of ``nw * win`` random records (lengths in [1, hi),
+    one of length ``lb`` if given) as pipeline.lane_batches makes it but
+    unpadded, and the kernel's arguments for it on the card. A tuple ``lq``
+    gives one query of each length and a 3-D profile."""
+    from seqalign_tpu_torch.convert import batch_windows, profile_to_torch
+    from seqalign_tpu_torch.host import encode, pack_batch
+    from seqalign_tpu_torch.ops.swa_cuda import STREAM_JB
+    from seqalign_tpu_torch.ops.swa_torch import make_profile
+    from seqalign_tpu_torch.pipeline import _db_from_encoded, multi_profile
+
+    sc = scoring(name)
+    rng = np.random.default_rng(seed)
+    if isinstance(lq, tuple):
+        profile = multi_profile(sc.table, [sc.query_indices(random_protein(rng, k))
+                                           for k in lq])
+    else:
+        profile = make_profile(sc.table, sc.query_indices(random_protein(rng, lq)))
+    lengths = rng.integers(1, hi, size=nw * win)
+    if lb is not None:
+        lengths[int(rng.integers(nw * win))] = lb
+    db = _db_from_encoded([encode(random_protein(rng, int(k))) for k in lengths])
+    batch = pack_batch(db, np.arange(db.n), nw * win, int(lengths.max()))
+    go, ge = sc.gap_open_total, sc.gap_extend
+    args = (profile_to_torch(profile, go, "cuda"),
+            batch_windows(batch, win, STREAM_JB, "cuda"), go, ge)
+    return profile, batch, args
+
+
+def phase_kernel_windows(chk: Checker):
+    from seqalign_tpu_torch.ops import swa_cuda
+    from seqalign_tpu_torch.ops.swa_cuda import CONST_S, MAX_QUERY_ROWS
+
+    torch = chk.torch
+
+    rng = np.random.default_rng(70)
+    lq64 = tuple(int(k) for k in rng.integers(1, 40, size=64))
+    cases = [
+        # name, lq (a tuple: a 3-D profile), nw, win, hi, seed
+        ("BLOSUM45", 144, 4, 256, 200, 61),
+        ("BLOSUM62", 17, 1, 1024, 300, 62),
+        ("PAM250", 512, 3, 256, 150, 63),
+        ("match/mismatch", 1, 8, 1024, 100, 64),
+        ("random", 144, 2, 1024, 120, 65),
+        ("go==ge", 17, 5, 256, 80, 66),
+        ("BLOSUM62", MAX_QUERY_ROWS, 2, 1024, 64, 67),
+        ("BLOSUM62", (17, 9, 0), 3, 256, 300, 71),
+        ("PAM250", lq64, 2, 1024, 100, 72),
+        ("BLOSUM62", (MAX_QUERY_ROWS, 700), 1, 1024, 64, 73),
+    ]
+    for name, lq, nw, win, hi, seed in cases:
+        _, _, args = windows_case(name, lq, nw, win, hi, seed)
+        label = f"{name} lq={'/'.join(map(str, lq)) if isinstance(lq, tuple) else lq}"[:80]
+        chk.compare_windows(label, *args)
+        chk.compare_windows(label, *args, const_s=True)
+
+    # The engine interface pads a batch of Lb = 37 with '*' to 48.
+    profile, batch, (prof, dbw, go, ge) = windows_case("PAM250", 144, 3, 1024, 30, 74, lb=37)
+    if batch.shape[0] != 37 or dbw.shape[1] != 48:
+        fail(f"engine padding case: Lb {batch.shape[0]} -> {dbw.shape[1]}")
+    out = swa_cuda.sw_windows_engine(profile, batch, go, ge)
+    chk.compare_windows("engine interface, Lb=37 padded to 48", prof, dbw, go, ge, kernel=out)
+    # One window, Lb = 50.
+    profile, batch, (prof, dbw, go, ge) = windows_case("BLOSUM62", 30, 1, 1024, 40, 75, lb=50)
+    out = swa_cuda.sw_window(profile, batch, go, ge)
+    chk.compare_windows("sw_window, one window, Lb=50", prof, dbw, go, ge, kernel=out)
+    # K5 is K4 on a biased profile of 7s where no row is padding.
+    _, _, (prof, dbw, go, ge) = windows_case("BLOSUM62", 144, 2, 1024, 200, 76)
+    k5 = swa_cuda.sw_windows(prof, dbw, go, ge, const_s=True)
+    k4 = swa_cuda.sw_windows(torch.full_like(prof, CONST_S), dbw, go, ge)
+    if not torch.equal(k4, k5):
+        fail("K5 != K4 on a biased profile of 7s")
+    print("[kernel] K5 == K4 on a biased profile of 7s (lq=144, 2 windows of "
+          f"1024 lanes, Lb={dbw.shape[1]})", flush=True)
+
+
 def cuda_ms(torch, fn, reps):
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -427,12 +569,14 @@ def cuda_ms(torch, fn, reps):
 
 def reset_counts(swa_cuda):
     for fn in (swa_cuda.sw_stream, swa_cuda.sw_stream_multi,
-               swa_cuda.sw_stream_striped_pass):
+               swa_cuda.sw_stream_striped_pass, swa_cuda.sw_windows):
         fn.launches = 0
+    swa_cuda.sw_windows.launches_const_s = 0
     for fn in (swa_cuda.sw_stream_striped, swa_cuda.sw_stream_reference,
                swa_cuda.sw_stream_multi_reference,
                swa_cuda.sw_stream_striped_reference,
-               swa_cuda.sw_stream_striped_pass_reference):
+               swa_cuda.sw_stream_striped_pass_reference,
+               swa_cuda.sw_windows_reference):
         fn.calls = 0
 
 
@@ -442,10 +586,13 @@ def read_counts(swa_cuda):
         "sw_stream_multi": swa_cuda.sw_stream_multi.launches,
         "sw_stream_striped_pass": swa_cuda.sw_stream_striped_pass.launches,
         "sw_stream_striped calls": swa_cuda.sw_stream_striped.calls,
+        "sw_windows": swa_cuda.sw_windows.launches,
+        "sw_windows_const_s": swa_cuda.sw_windows.launches_const_s,
         "plain": swa_cuda.sw_stream_reference.calls
         + swa_cuda.sw_stream_multi_reference.calls
         + swa_cuda.sw_stream_striped_reference.calls
-        + swa_cuda.sw_stream_striped_pass_reference.calls,
+        + swa_cuda.sw_stream_striped_pass_reference.calls
+        + swa_cuda.sw_windows_reference.calls,
     }
 
 
@@ -541,7 +688,7 @@ def phase_main_path(torch, chk: Checker, smi: str, query, db, alu):
         "shape": f"main path, {db.n} records, lq={QUERY_LEN}, {shape}",
         "main_path_kernel_s": runs[-1][0],
         "main_path_gcups": cells / runs[-1][0] / 1e9,
-    }, (order, streams, fs, kw["nslots"])
+    }, (order, streams, fs, kw["nslots"]), scores
 
 
 def k1_per_query(torch, queries, sc, db, k1_pack):
@@ -653,6 +800,7 @@ def phase_multi_path(torch, chk: Checker, smi: str, db, k1_pack, nq, lq,
         result["plain_ms"] = cuda_ms(torch, lambda: [
             swa_cuda.sw_stream_multi_reference(b, s, f, go, ge, nslots=ns, jb=jb)
             for _, s, f, ns in chunks for b in blocks], 1)
+        result["scores"] = scores
     print(f"{tag} {shape}: K3 {k3_ms} ms ({cells / k3_ms / 1e6} GCUPS), bound "
           f"{bound_ms} ms by {bound_by}, K1 looped "
           f"over the {nq} queries {k1_loop_ms} ms ({cells / k1_loop_ms / 1e6} GCUPS)"
@@ -801,6 +949,133 @@ def phase_striped_path(torch, chk: Checker, smi: str, db, alu, lq=2000):
     }
 
 
+def phase_fixed_path(torch, chk: Checker, smi: str, query, db, alu, k1, multi8):
+    """The fixed-batch engine over the whole database at each lane-batch
+    width of swissprot.FIXED_LANES, through pipeline.get_engine("windows"):
+    K4 alone, once per batch, every score equal to K1's (``k1``: phase 4's
+    scores and its kernel ms). The times come from
+    swissprot.fixed_breakdown at lq=144 (K4 and K5 in turns at each width).
+    At the widest: K4 and K5 against their plain versions on every batch,
+    and the 8 x 17 batch through K4's 3-D form against K3's scores
+    (``multi8``)."""
+    from seqalign_tpu_torch import pipeline
+    from seqalign_tpu_torch.convert import batch_windows, profile_to_torch
+    from seqalign_tpu_torch.ops import swa_cuda
+    from seqalign_tpu_torch.ops.swa_cuda import FIXED_WINDOW_LANES, STREAM_JB
+    from seqalign_tpu_torch.ops.swa_torch import make_profile
+    from seqalign_tpu_torch.swissprot import FIXED_LANES, QUERY_LEN, fixed_breakdown
+
+    k1_scores, k1_ms = k1
+    sc = scoring("PAM250")
+    go, ge = sc.gap_open_total, sc.gap_extend
+    residues = int(db.offsets[-1])
+    profile = make_profile(sc.table, query)
+    prof = profile_to_torch(profile, go, "cuda")
+    order = np.argsort(-db.lengths, kind="stable")
+    engine = pipeline.get_engine("windows")
+    launches = {}
+    for lanes in FIXED_LANES:
+        tag = f"[fixed B={lanes}]"
+        batches = list(pipeline.lane_batches(db, order, lanes))
+        reset_counts(swa_cuda)
+        scores = np.zeros(db.n, np.int32)
+        t0 = time.perf_counter()
+        for ids, batch in batches:
+            scores[ids] = engine(profile, batch, go, ge).cpu().numpy()[: len(ids)]
+        wall = time.perf_counter() - t0
+        counts = read_counts(swa_cuda)
+        print(f"{tag} launches: {counts}", flush=True)
+        if counts["sw_windows"] != len(batches) or sum(counts.values()) != len(batches):
+            fail(f"{tag} the fixed-batch path did not launch K4 alone, once per "
+                 f"batch ({len(batches)} batches)")
+        if not np.array_equal(scores, k1_scores):
+            bad = int(np.count_nonzero(scores != k1_scores))
+            fail(f"{tag} {bad} scores != phase 4's K1 scores")
+        launches[lanes] = counts["sw_windows"]
+        print(f"{tag} all {db.n} scores == K1's (main path) in {len(batches)} "
+              f"batches; engine wall {wall} s incl. H2D", flush=True)
+
+    rows = fixed_breakdown(db, {QUERY_LEN: prof}, {QUERY_LEN: k1_ms},
+                           lambda msg: print(f"{msg} | {smi}", flush=True))
+    per_b = {r["lanes"]: {"launches": launches[r["lanes"]], "ms": min(r["k4_ms"]),
+                          **{k: v for k, v in r.items() if k not in ("lanes", "lq")}}
+             for r in rows}
+    widest = FIXED_LANES[-1]
+    tag = f"[fixed B={widest}]"
+    res = per_b[widest]
+    k4_ms, k5_ms = res["ms"], min(res["k5_ms"])
+    # ``batches`` are the widest width's, the last of FIXED_LANES.
+    wins = [batch_windows(b, FIXED_WINDOW_LANES, STREAM_JB, "cuda") for _, b in batches]
+
+    # K4 and K5 against their plain versions on every batch, on the card.
+    plain = {False: 0.0, True: 0.0}
+    for k, w in enumerate(wins):
+        for const_s in (False, True):
+            _, plain_ms = chk.compare_windows(f"fixed path batch {k}", prof, w, go, ge,
+                                              const_s=const_s)
+            plain[const_s] += plain_ms
+    print(f"{tag} K4 and K5 == their plain versions on all {len(wins)} batches "
+          f"(plain {plain[False]} ms, {plain[True]} ms)", flush=True)
+
+    # K5's launches, counted on one pass over the batches it was timed on.
+    reset_counts(swa_cuda)
+    for w in wins:
+        swa_cuda.sw_windows(prof, w, go, ge, const_s=True)
+    k5_launches = read_counts(swa_cuda)["sw_windows_const_s"]
+
+    # The 8 x 17 batch through K4's 3-D form against K3's scores.
+    scores8, queries8 = multi8
+    prof8 = profile_to_torch(pipeline.multi_profile(sc.table, queries8), go, "cuda")
+    got = np.zeros((len(queries8), db.n), np.int32)
+    for (ids, _), w in zip(batches, wins):
+        got[:, ids] = swa_cuda.sw_windows(prof8, w, go, ge).cpu().numpy()[:, : len(ids)]
+    if not np.array_equal(got, scores8):
+        fail(f"{tag} K4 with a 3-D profile (8 x 17) != K3's scores")
+    print(f"{tag} 8 x 17 through K4's 3-D form: all {len(queries8)} x {db.n} "
+          "scores == K3's", flush=True)
+
+    shape = (f"{len(wins)} batches of {widest} lanes ({widest // FIXED_WINDOW_LANES} "
+             f"windows of {FIXED_WINDOW_LANES}), Lb={'/'.join(str(w.shape[1]) for w in wins)}, "
+             f"rows={prof.shape[0]}")
+    # Bounds over the batches' cells (K4's contract: the fixed batch is its
+    # input), and over the real cells (query rows x real residues, the
+    # search's own work), which the layout's padding does not count.
+    out_bytes = sum(w.shape[0] * w.shape[2] * 4 for w in wins)
+    cells = QUERY_LEN * sum(w.numel() for w in wins)
+    real = QUERY_LEN * residues
+    k4_bound = bound(sum(nbytes(w) for w in wins) + out_bytes + nbytes(prof), cells,
+                     alu["sw_windows"])
+    k4_real = bound(residues + 4 * db.n + nbytes(prof), real, alu["sw_windows"])
+    # K5's result depends on no input: its bytes are its output alone.
+    k5_bound = bound(out_bytes, cells, alu["sw_windows_const_s"])
+    k5_real = bound(4 * db.n, real, alu["sw_windows_const_s"])
+    print(f"{tag} bounds over the batches' cells: K4 {k4_bound[0]} ms by {k4_bound[1]} "
+          f"({k4_bound[0] / k4_ms} of its time), K5 {k5_bound[0]} ms by {k5_bound[1]} "
+          f"({k5_bound[0] / k5_ms}); over the real cells: K4 {k4_real[0]} ms "
+          f"({k4_real[0] / k4_ms}), K5 {k5_real[0]} ms ({k5_real[0] / k5_ms}) | {smi}",
+          flush=True)
+    common = {"shape": f"fixed-batch path, {db.n} records, lq={QUERY_LEN}, {shape}",
+              "card": smi}
+    return {
+        "sw_windows": {
+            "launches": res["launches"], "ms": k4_ms, "plain_ms": plain[False],
+            "bound_ms": k4_bound[0], "bound_by": k4_bound[1],
+            "bound_real_cells_ms": k4_real[0],
+            "gcups_real": res["gcups_real"], "gcups_batch_cells": res["gcups_batch_cells"],
+            "padded_over_real": res["padded_over_real"],
+            "per_lanes": {str(b): r for b, r in per_b.items()},
+            **common,
+        },
+        "sw_windows_const_s": {
+            "launches": k5_launches, "ms": k5_ms, "plain_ms": plain[True],
+            "bound_ms": k5_bound[0], "bound_by": k5_bound[1],
+            "bound_real_cells_ms": k5_real[0],
+            "k4_ms_in_turns": res["k4_ms"], "k5_ms_in_turns": res["k5_ms"],
+            **common,
+        },
+    }
+
+
 def phase_cli():
     out_dir = ROOT / "build" / "chip_smoke"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -863,6 +1138,7 @@ def main() -> int:
     phase_kernel(chk)
     phase_kernel_multi(chk)
     phase_kernel_striped(chk)
+    phase_kernel_windows(chk)
 
     from seqalign_tpu_torch.swissprot import swissprot_db
 
@@ -870,10 +1146,16 @@ def main() -> int:
     query, db = swissprot_db()
     print(f"[main] database: {db.n} records, {int(db.offsets[-1])} residues, "
           f"generated in {time.perf_counter() - t0} s", flush=True)
-    main_path, k1_pack = phase_main_path(torch, chk, smi, query, db, alu)
+    main_path, k1_pack, k1_scores = phase_main_path(torch, chk, smi, query, db, alu)
     multi8 = phase_multi_path(torch, chk, smi, db, k1_pack, 8, 17, 100, True, alu)
     multi64 = phase_multi_path(torch, chk, smi, db, k1_pack, 64, 144, 200, False, alu)
     long_path = phase_striped_path(torch, chk, smi, db, alu)
+    del k1_pack
+    from seqalign_tpu_torch.swissprot import random_query
+
+    fixed = phase_fixed_path(
+        torch, chk, smi, query, db, alu, (k1_scores, main_path["ms"]),
+        (multi8.pop("scores"), [random_query(17, 100 + k) for k in range(8)]))
     phase_cli()
     kernels = [{
         "name": "sw_stream",
@@ -929,7 +1211,18 @@ def main() -> int:
         "main_path_kernel_s": long_path["main_path_kernel_s"],
         "main_path_gcups": long_path["main_path_gcups"],
         "card": smi,
-    }]
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "seqalign_tpu_torch/csrc/sw_stream.cu",
+        "replaces": replaces,
+        "max_abs_err": chk.max_abs_err[name],
+        "library_ms": None,
+        **fixed[name],
+    } for name, replaces in (
+        ("sw_windows", "seqalign_tpu/ops/swa_pallas.py:526"),
+        ("sw_windows_const_s", "seqalign_tpu/ops/swa_pallas.py:360"),
+    )]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .host import StreamPack
+from .host import PAD_INDEX, StreamPack
 
 # The biased profile's row count is padded to a multiple of this, as
 # ``sw_pallas_stream`` pads to its row unroll; the CUDA kernel unrolls its
@@ -52,6 +52,39 @@ def stream_pack_to_torch(
     streams = torch.from_numpy(np.ascontiguousarray(pack.streams, np.int8))
     fs = torch.from_numpy(np.ascontiguousarray(pack.fs, np.int32))
     return streams.to(device), fs.to(device)
+
+
+def batch_windows(
+    batch, win: int, jb: int, device: torch.device | str
+) -> torch.Tensor:
+    """A lane batch as the fixed-batch kernel's ``(NW, Lb', win)`` int8
+    windows on ``device``, ``Lb'`` the batch length padded with '*' to a
+    positive multiple of ``jb``.
+
+    ``batch`` is ``(Lb, B)`` (``pack_batch``; ``B`` a multiple of ``win``),
+    window ``w`` holding lanes ``[w*win, (w+1)*win)``, or already stacked as
+    ``(NW, Lb, win)``. A numpy batch is split on the host and copied once; a
+    tensor is split where it lies (``device`` is then its own).
+    """
+    is_tensor = isinstance(batch, torch.Tensor)
+    if batch.ndim == 2:
+        lb, b = batch.shape
+        if b % win:
+            raise ValueError(f"lane count {b} not a multiple of the window {win}")
+        nw = b // win
+        split = batch.reshape(lb, nw, win)
+        batch = split.permute(1, 0, 2) if is_tensor else split.transpose(1, 0, 2)
+    elif batch.ndim != 3:
+        raise ValueError(f"batch shape {tuple(batch.shape)} is not (Lb, B) or (NW, Lb, win)")
+    nw, lb, w = batch.shape
+    lbp = max(-(-lb // jb) * jb, jb)
+    if is_tensor:
+        out = torch.full((nw, lbp, w), PAD_INDEX, dtype=torch.int8, device=batch.device)
+        out[:, :lb] = batch
+        return out
+    out = np.full((nw, lbp, w), PAD_INDEX, dtype=np.int8)
+    out[:, :lb] = batch
+    return torch.from_numpy(out).to(device)
 
 
 def profile_stripes(

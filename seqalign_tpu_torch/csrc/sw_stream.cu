@@ -1,13 +1,18 @@
-// Segmented-stream Smith-Waterman scoring for Hopper, sm_90a: one query
-// (K1), a batch of queries (K3) or one row stripe of a long query (K2)
-// against many database sequences.
+// Smith-Waterman scoring for Hopper, sm_90a: one query (K1), a batch of
+// queries (K3) or one row stripe of a long query (K2) against segmented
+// window streams, and one query or a batch against fixed lane batches (K4),
+// with a constant substitution score for timing the DP loop alone (K5).
 //
 // Replaces the TPU kernel seqalign_tpu/ops/swa_pallas.py:_kernel_stream
 // + _run_block, called through sw_pallas_stream with a 2-D profile (K1) or
 // a 3-D one (K3), and _kernel_stream_striped + _run_block(bnd=...), called
 // through _stream_striped_pass (K2): the same G-form affine-gap recurrence
 // over the same inputs (biased profile P' = P - go, NW window streams,
-// segment table fs), with the same per-segment outputs, bit for bit.
+// segment table fs), with the same per-segment outputs, bit for bit. And
+// _kernel + _run_block, called through sw_pallas_windows (K4; K5 with
+// const_s=True): NW equal-length '*'-padded windows, one sequence per lane,
+// the DP state fresh only at position 0 and each lane's best stored once
+// after the last block, window-major ((nq,) nw, win).
 //
 // Layout of the work. One thread owns one lane (one database sequence at a
 // time) of one window and walks that window's stream in blocks of JB
@@ -42,6 +47,19 @@
 // which removes the row traffic and lets one thread work on several cells
 // at once.
 //
+// Fixed batches (K4). The same body with no segment table (kFixed): a
+// window is one sequence per lane, so the rows are fresh only at block 0
+// and the best is stored once, to out[(q * nw + w) * win + lane]. A batch is
+// as wide as its caller makes it: fewer lanes than the card holds leave SMs
+// idle, and every lane runs to the batch's longest record.
+//
+// Constant S (K5, kConstS): P'[i][c] becomes 7 on every row the kernel runs,
+// the rows padded to kRowUnroll included, and at every position, '*'
+// padding included, as _run_block(const_s=True) does; no profile is copied
+// to shared memory and none is requested. The rolling (Gg, E) rows stay:
+// they are the DP's own state. What is left is the DP loop without its
+// gather, for timing only.
+//
 // Row stripes (K2). A query longer than one launch's shared profile runs
 // as one launch per stripe of rows, the K1 body with a boundary: with kIn
 // the block's left chain (lgg, lf) starts from the previous stripe's last
@@ -66,9 +84,14 @@ constexpr int kThreads = 256;
 constexpr int kRowUnroll = 4;  // the wrapper pads rows to this multiple
 constexpr int JB = 16;  // positions per block (swa_cuda.STREAM_JB)
 
+// The S = P'[i][c] of K5: a constant on every row and position.
+constexpr int kConstScore = 7;
+
 // The body of all kernels; kMulti takes the query from blockIdx.z, kIn
-// reads row -1 from bnd_in, kOut writes the last row to bnd_out.
-template <bool kMulti, bool kIn = false, bool kOut = false>
+// reads row -1 from bnd_in, kOut writes the last row to bnd_out, kFixed
+// scores fixed windows (no fs; one best per lane), kConstS uses S = 7.
+template <bool kMulti, bool kIn = false, bool kOut = false,
+          bool kFixed = false, bool kConstS = false>
 __device__ __forceinline__ void stream_body(
     const int32_t* __restrict__ prof,    // ([nq,] lqp, 32) biased profile
     const int8_t* __restrict__ streams,  // (nw, L, win) chars 0..31
@@ -82,11 +105,13 @@ __device__ __forceinline__ void stream_body(
   const int q = kMulti ? (int)blockIdx.z : 0;
   const int nq = kMulti ? (int)gridDim.z : 1;
   extern __shared__ int32_t sprof[];
-  const int32_t* qprof = prof + (size_t)q * lqp * kAlpha;
-  for (int k = threadIdx.x; k < lqp * kAlpha; k += blockDim.x) {
-    sprof[k] = qprof[k];
+  if constexpr (!kConstS) {
+    const int32_t* qprof = prof + (size_t)q * lqp * kAlpha;
+    for (int k = threadIdx.x; k < lqp * kAlpha; k += blockDim.x) {
+      sprof[k] = qprof[k];
+    }
+    __syncthreads();
   }
-  __syncthreads();
 
   const int w = blockIdx.y;
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
@@ -108,12 +133,14 @@ __device__ __forceinline__ void stream_body(
   bool fresh = true;  // the rows hold the boundary (Gg = go, E = 0)
   int bprev = go;     // kIn: bnd_in's Gg at the previous block's last position
   for (int blk = 0; blk < nblocks; ++blk) {
-    const int slot = fs[((size_t)blk * nw + w) * 2];
-    if (slot > 0) {
-      // A new segment starts here: flush the finished one, reset.
-      qout[(size_t)(slot - 1) * slot_stride] = best;
-      best = 0;
-      fresh = true;
+    if constexpr (!kFixed) {
+      const int slot = fs[((size_t)blk * nw + w) * 2];
+      if (slot > 0) {
+        // A new segment starts here: flush the finished one, reset.
+        qout[(size_t)(slot - 1) * slot_stride] = best;
+        best = 0;
+        fresh = true;
+      }
     }
     int c[JB];
 #pragma unroll
@@ -151,7 +178,7 @@ __device__ __forceinline__ void stream_body(
       const int t0n = gg_prev;  // row i+1's t = 0 diagonal
 #pragma unroll
       for (int t = 0; t < JB; ++t) {
-        const int hp = dt + prow[c[t]];
+        const int hp = dt + (kConstS ? kConstScore : prow[c[t]]);
         const int e = __viaddmax_s32(e_prev, ge, gg_prev);
         const int f = __viaddmax_s32(lf[t], ge, lgg[t]);
         const int g = __vimax3_s32_relu(hp, e, f);
@@ -176,7 +203,9 @@ __device__ __forceinline__ void stream_body(
     }
     fresh = false;
   }
-  if (nblocks > 0) {
+  if constexpr (kFixed) {
+    out[((size_t)q * nw + w) * win + lane] = best;
+  } else if (nblocks > 0) {
     const int slot = fs[((size_t)(nblocks - 1) * nw + w) * 2 + 1];
     if (slot > 0) qout[(size_t)(slot - 1) * slot_stride] = best;
   }
@@ -229,6 +258,37 @@ int launch_striped(const void* prof, const void* streams, const void* fs,
       (const int32_t*)prof, (const int8_t*)streams, (const int32_t*)fs,
       (int32_t*)out, (int32_t*)row_gg, (int32_t*)row_e,
       (const int32_t*)bnd_in, (int32_t*)bnd_out, lqp, len, win, nw, go, ge);
+  return (int)cudaGetLastError();
+}
+
+// K4 (K5 with kConstS): nq queries (kMulti) against nw fixed windows;
+// grid (lane blocks, nw[, nq]).
+template <bool kMulti, bool kConstS>
+__global__ void __launch_bounds__(kThreads) sw_windows_kernel(
+    const int32_t* __restrict__ prof, const int8_t* __restrict__ db,
+    int32_t* __restrict__ out, int32_t* __restrict__ row_gg,
+    int32_t* __restrict__ row_e, int lqp, int len, int win, int nw, int go,
+    int ge) {
+  stream_body<kMulti, false, false, true, kConstS>(
+      prof, db, nullptr, out, row_gg, row_e, lqp, len, win, nw, go, ge);
+}
+
+template <bool kMulti, bool kConstS>
+int launch_windows(const void* prof, const void* db, void* out, void* row_gg,
+                   void* row_e, int lqp, int len, int win, int nw, int nq,
+                   int go, int ge, cudaStream_t stream) {
+  // K5 reads no profile: no shared memory.
+  const size_t smem = kConstS ? 0 : (size_t)lqp * kAlpha * sizeof(int32_t);
+  if constexpr (!kConstS) {
+    cudaError_t err = cudaFuncSetAttribute(
+        sw_windows_kernel<kMulti, kConstS>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid((win + kThreads - 1) / kThreads, nw, nq);
+  sw_windows_kernel<kMulti, kConstS><<<grid, kThreads, smem, stream>>>(
+      (const int32_t*)prof, (const int8_t*)db, (int32_t*)out,
+      (int32_t*)row_gg, (int32_t*)row_e, lqp, len, win, nw, go, ge);
   return (int)cudaGetLastError();
 }
 
@@ -310,6 +370,36 @@ int sw_stream_striped_launch(const void* prof, const void* streams,
   return launch_striped<false, true>(prof, streams, fs, out, row_gg, row_e,
                                      bnd_in, bnd_out, lqp, len, win, nw, go,
                                      ge, s);
+}
+
+// Launch K4 (const_s = 0) or K5 (const_s = 1) on `stream`: prof ([nq,]
+// lqp, 32) biased (unread by K5), db (nw, len, win) int8 windows, out
+// ([nq,] nw, win) bests, the scratch ([nq,] nw, lqp, win); `multi` = 1 for
+// a 3-D profile (the query on the grid's z axis), else nq must be 1.
+int sw_windows_launch(const void* prof, const void* db, void* out,
+                      void* row_gg, void* row_e, int lqp, int len, int win,
+                      int nw, int nq, int multi, int const_s, int jb, int go,
+                      int ge, void* stream) {
+  if (lqp % kRowUnroll || win <= 0 || nw <= 0 || nw > 65535 || nq <= 0 ||
+      nq > 65535 || (!multi && nq != 1) || len <= 0 || jb != JB ||
+      len % JB) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  if (multi) {
+    return const_s ? launch_windows<true, true>(prof, db, out, row_gg, row_e,
+                                                lqp, len, win, nw, nq, go,
+                                                ge, s)
+                   : launch_windows<true, false>(prof, db, out, row_gg, row_e,
+                                                 lqp, len, win, nw, nq, go,
+                                                 ge, s);
+  }
+  return const_s ? launch_windows<false, true>(prof, db, out, row_gg, row_e,
+                                               lqp, len, win, nw, nq, go, ge,
+                                               s)
+                 : launch_windows<false, false>(prof, db, out, row_gg, row_e,
+                                                lqp, len, win, nw, nq, go, ge,
+                                                s);
 }
 
 const char* sw_stream_error_string(int err) {

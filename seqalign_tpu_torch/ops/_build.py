@@ -86,6 +86,10 @@ def load() -> ctypes.CDLL:
         lib.sw_stream_striped_launch.argtypes = (
             [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         )
+        lib.sw_windows_launch.restype = ctypes.c_int
+        lib.sw_windows_launch.argtypes = (
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+        )
         lib.sw_stream_error_string.restype = ctypes.c_char_p
         lib.sw_stream_error_string.argtypes = [ctypes.c_int]
         _lib = lib

@@ -1,5 +1,7 @@
-"""The segmented-stream Smith-Waterman kernels for Hopper, one query (K1)
-and a batch of queries (K3), and their plain PyTorch versions.
+"""The Smith-Waterman kernels for Hopper: the segmented-stream kernels for
+one query (K1), a batch of queries (K3) and the row stripes of a long query
+(K2); the fixed-batch kernel (K4) and its constant-S timing mode (K5); and
+their plain PyTorch versions.
 
 :func:`sw_stream` keeps the contract of ``seqalign_tpu.ops.swa_pallas.
 sw_pallas_stream``: NW window streams, each a back-to-back concatenation of
@@ -36,10 +38,21 @@ streams. A segment start resets a stripe's own rows and its diagonal seed
 (Gg = go), not its row -1: the boundary there already belongs to the new
 sequence.
 
+The fixed-batch kernel keeps the contract of ``sw_pallas_windows``:
+:func:`sw_windows` scores one query, or ``nq`` queries with a 3-D profile,
+against NW equal-length '*'-padded windows, one database sequence per
+lane; the DP state starts fresh at position 0 only, and each lane's best
+comes out once, window-major (lane ``w * win + l``). With ``const_s`` (K5)
+every substitution score is the biased constant 7, on every row the kernel
+runs, padded rows included: the DP loop alone, for timing; its scores mean
+nothing. :func:`sw_windows_engine` is the lane-batch engine interface over
+it (``sw_pallas_multi``: an unbiased profile and an ``(Lb, B)`` batch),
+:func:`sw_window` its one-window form (``sw_pallas``).
+
 On a CUDA tensor each wrapper launches its kernel in ``csrc/sw_stream.cu``
 or raises; on a CPU tensor it runs its plain version
 (:func:`sw_stream_reference`, :func:`sw_stream_multi_reference`,
-:func:`sw_stream_striped_pass_reference`).
+:func:`sw_stream_striped_pass_reference`, :func:`sw_windows_reference`).
 """
 
 from __future__ import annotations
@@ -47,7 +60,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..convert import ROW_ALIGN
+from ..convert import ROW_ALIGN, batch_windows, profile_to_torch
+from ..device import resolve_device
 
 # The port's query-row limit for one launch: the biased profile sits in one
 # block's shared memory as (rows, 32) int32, 1536 * 128 B = 192 KiB of the
@@ -68,6 +82,14 @@ STRIPE_ROWS = 768
 STREAM_JB = 16
 
 ALPHA = 32
+
+# Lanes of one window of the fixed-batch engine (sw_windows_engine): four
+# 256-thread CTAs, the JAX package's 1024-lane window.
+FIXED_WINDOW_LANES = 1024
+
+# K5's biased substitution score, on every row and position
+# (swa_pallas.py:363).
+CONST_S = 7
 
 
 def supported_scoring(profile, go: int, ge: int) -> bool:
@@ -105,15 +127,6 @@ def _check(profile_biased, streams, fs, go, ge, nslots, jb, *, multi=False):
         )
     if multi and profile_biased.shape[0] < 1:
         raise ValueError("a multi-query profile needs at least one query")
-    lqp = profile_biased.shape[-2]
-    if lqp % ROW_ALIGN:
-        raise ValueError(f"profile rows {lqp} not a multiple of {ROW_ALIGN}")
-    if lqp > MAX_QUERY_ROWS:
-        raise NotImplementedError(
-            f"query of {lqp} rows exceeds MAX_QUERY_ROWS={MAX_QUERY_ROWS} of "
-            "one launch; longer queries go to sw_stream_striped (K2, row "
-            "stripes)"
-        )
     if jb < 1:
         raise ValueError(f"jb={jb} is not positive")
     if streams.ndim != 3:
@@ -123,23 +136,42 @@ def _check(profile_biased, streams, fs, go, ge, nslots, jb, *, multi=False):
         raise ValueError(f"stream length {length} not a positive multiple of {jb=}")
     if tuple(fs.shape) != (length // jb, nw, 2):
         raise ValueError(f"fs shape {tuple(fs.shape)} != {(length // jb, nw, 2)}")
-    for name, t, dt in (
-        ("profile", profile_biased, torch.int32),
-        ("streams", streams, torch.int8),
-        ("fs", fs, torch.int32),
-    ):
-        if t.dtype != dt:
-            raise ValueError(f"{name} dtype {t.dtype} != {dt}")
-        if t.device != streams.device:
-            raise ValueError(f"{name} on {t.device}, streams on {streams.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} is not contiguous")
-    if ge < go:
-        raise ValueError(f"G-form kernel requires ge >= go (got {go=}, {ge=})")
+    _check_rows_and_tensors(
+        profile_biased, ("streams", streams), ("fs", fs, torch.int32), go=go, ge=ge
+    )
     if fs.numel():
         lo, hi = torch.aminmax(fs)
         if int(lo) < 0 or int(hi) > nslots:
             raise ValueError(f"fs names slots outside [0, {nslots}]")
+
+
+def _check_rows_and_tensors(profile_biased, data, *others, go, ge):
+    """The checks every kernel's inputs share: the profile's rows (a
+    multiple of ``ROW_ALIGN``, at most ``MAX_QUERY_ROWS``), the database
+    tensor ``data = (name, int8 tensor)`` and each ``(name, tensor, dtype)``
+    of ``others`` of their type, on the database's device and contiguous,
+    and ``ge >= go``."""
+    lqp = profile_biased.shape[-2]
+    if lqp % ROW_ALIGN:
+        raise ValueError(f"profile rows {lqp} not a multiple of {ROW_ALIGN}")
+    if lqp > MAX_QUERY_ROWS:
+        raise NotImplementedError(
+            f"query of {lqp} rows exceeds MAX_QUERY_ROWS={MAX_QUERY_ROWS} of "
+            "one launch; longer queries go to sw_stream_striped (K2, row "
+            "stripes) or the wavefront engine"
+        )
+    name, db = data
+    for tname, t, dt in (
+        ("profile", profile_biased, torch.int32), (name, db, torch.int8), *others
+    ):
+        if t.dtype != dt:
+            raise ValueError(f"{tname} dtype {t.dtype} != {dt}")
+        if t.device != db.device:
+            raise ValueError(f"{tname} on {t.device}, {name} on {db.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{tname} is not contiguous")
+    if ge < go:
+        raise ValueError(f"G-form kernel requires ge >= go (got {go=}, {ge=})")
 
 
 def sw_stream(
@@ -347,32 +379,43 @@ def _launch(name, prof, streams, fs, go, ge, nslots, jb, bnd=()) -> torch.Tensor
         raise ValueError(f"no stream kernel for device {streams.device}")
     if jb != STREAM_JB:
         raise ValueError(f"the CUDA kernel is built for jb={STREAM_JB}, got {jb=}")
-    from . import _build
-
-    lib = _build.load()
     nw, length, win = streams.shape
     nq = prof.shape[0] if prof.ndim == 3 else 1
     lqp = prof.shape[-2]
     dev = streams.device
     out = torch.zeros((nslots, *prof.shape[:-2], win), dtype=torch.int32, device=dev)
-    # Rolling (Gg, E) rows, [q][w][i][lane]; the kernel writes them before
-    # it reads them.
-    rows = torch.empty((2, nq, nw, lqp, win), dtype=torch.int32, device=dev)
+    rows = _rows(nq, nw, lqp, win, dev)
     dims = (lqp, length, win, nw) + ((nq,) if prof.ndim == 3 else ())
+    _call(
+        name, dev, prof.data_ptr(), streams.data_ptr(), fs.data_ptr(),
+        out.data_ptr(), rows[0].data_ptr(), rows[1].data_ptr(),
+        *(None if t is None else t.data_ptr() for t in bnd),
+        *dims, jb, int(go), int(ge),
+    )
+    return out
+
+
+def _rows(nq, nw, lqp, win, dev) -> torch.Tensor:
+    """The rolling (Gg, E) rows, ``[q][w][i][lane]``; the kernels write them
+    before they read them."""
+    return torch.empty((2, nq, nw, lqp, win), dtype=torch.int32, device=dev)
+
+
+def _call(name, dev, *args) -> None:
+    """Call ``{name}_launch`` of the kernel library on ``dev``'s current
+    stream; raise on a refused launch."""
+    from . import _build
+
+    lib = _build.load()
     with torch.cuda.device(dev):
         err = getattr(lib, f"{name}_launch")(
-            prof.data_ptr(), streams.data_ptr(), fs.data_ptr(),
-            out.data_ptr(), rows[0].data_ptr(), rows[1].data_ptr(),
-            *(None if t is None else t.data_ptr() for t in bnd),
-            *dims, jb, int(go), int(ge),
-            torch.cuda.current_stream(dev).cuda_stream,
+            *args, torch.cuda.current_stream(dev).cuda_stream
         )
     if err:
         raise RuntimeError(
             f"{name} launch failed: CUDA error {err} "
             f"({_build.error_string(err)})"
         )
-    return out
 
 
 def sw_stream_reference(
@@ -460,6 +503,167 @@ def sw_stream_striped_reference(
 
 
 sw_stream_striped_reference.calls = 0
+
+
+def _check_windows(profile_biased, db_windows, go, ge):
+    if profile_biased.ndim not in (2, 3) or profile_biased.shape[-1] != ALPHA:
+        raise ValueError(
+            f"profile shape {tuple(profile_biased.shape)} is not (rows, 32) "
+            "or (nq, rows, 32)"
+        )
+    if profile_biased.ndim == 3 and profile_biased.shape[0] < 1:
+        raise ValueError("a multi-query profile needs at least one query")
+    if db_windows.ndim != 3:
+        raise ValueError(
+            f"db_windows must be (NW, Lb, win), got {tuple(db_windows.shape)}"
+        )
+    nw, length, win = db_windows.shape
+    if nw < 1 or win < 1:
+        raise ValueError(f"db_windows shape {tuple(db_windows.shape)} is empty")
+    if length == 0 or length % STREAM_JB:
+        raise ValueError(
+            f"db length {length} not a positive multiple of {STREAM_JB} "
+            "(pad with '*', as convert.batch_windows does)"
+        )
+    _check_rows_and_tensors(profile_biased, ("db_windows", db_windows), go=go, ge=ge)
+
+
+def sw_windows(
+    profile_biased: torch.Tensor,
+    db_windows: torch.Tensor,
+    go: int,
+    ge: int,
+    *,
+    const_s: bool = False,
+) -> torch.Tensor:
+    """Score one query, or a batch, against fixed windows in one launch (K4;
+    K5 with ``const_s``).
+
+    Args:
+      profile_biased: ``(lqp, 32)`` or ``(nq, lqp, 32)`` int32 ``P - go``
+        (``convert.profile_to_torch``), ``lqp`` a multiple of ``ROW_ALIGN``
+        and at most ``MAX_QUERY_ROWS``. K5 reads only its shape.
+      db_windows: ``(NW, Lb, win)`` int8 windows, chars in 0..31,
+        '*'-padded, ``Lb`` a positive multiple of ``STREAM_JB``
+        (``convert.batch_windows``).
+      go, ge: total gap-open and gap-extend penalties, ``ge >= go``.
+      const_s: K5: every substitution score is the biased ``CONST_S`` = 7
+        on all ``lqp`` rows and every position.
+
+    Returns:
+      ``(NW * win,)`` int32 best scores in window-major lane order, or
+      ``(nq, NW * win)`` for a 3-D profile. ``sw_windows.launches`` counts
+      K4's launches, ``sw_windows.launches_const_s`` K5's.
+    """
+    _check_windows(profile_biased, db_windows, go, ge)
+    if db_windows.device.type == "cpu":
+        return sw_windows_reference(
+            profile_biased, db_windows, go, ge, const_s=const_s
+        )
+    dev = db_windows.device
+    if dev.type != "cuda":
+        raise ValueError(f"no fixed-batch kernel for device {dev}")
+    multi = profile_biased.ndim == 3
+    nq = profile_biased.shape[0] if multi else 1
+    lqp = profile_biased.shape[-2]
+    nw, length, win = db_windows.shape
+    out = torch.empty(
+        (*profile_biased.shape[:-2], nw * win), dtype=torch.int32, device=dev
+    )
+    rows = _rows(nq, nw, lqp, win, dev)
+    _call(
+        "sw_windows", dev, profile_biased.data_ptr(), db_windows.data_ptr(),
+        out.data_ptr(), rows[0].data_ptr(), rows[1].data_ptr(),
+        lqp, length, win, nw, nq, int(multi), int(const_s), STREAM_JB,
+        int(go), int(ge),
+    )
+    if const_s:
+        sw_windows.launches_const_s += 1
+    else:
+        sw_windows.launches += 1
+    return out
+
+
+sw_windows.launches = 0
+sw_windows.launches_const_s = 0
+
+
+def sw_windows_reference(
+    profile_biased: torch.Tensor,
+    db_windows: torch.Tensor,
+    go: int,
+    ge: int,
+    *,
+    const_s: bool = False,
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`sw_windows`, same contract: the
+    stream version's body with one segment per window."""
+    _check_windows(profile_biased, db_windows, go, ge)
+    sw_windows_reference.calls += 1
+    prof = profile_biased if profile_biased.ndim == 3 else profile_biased[None]
+    if const_s:
+        prof = torch.full_like(prof, CONST_S)
+    nw, length, win = db_windows.shape
+    fs = torch.zeros(
+        (length // STREAM_JB, nw, 2), dtype=torch.int32, device=db_windows.device
+    )
+    fs[-1, :, 1] = torch.arange(1, nw + 1, dtype=torch.int32)
+    out = _wavefront(prof, db_windows, fs, go, ge, nw, STREAM_JB)
+    out = out.permute(1, 0, 2).reshape(prof.shape[0], nw * win)
+    return out if profile_biased.ndim == 3 else out[0]
+
+
+sw_windows_reference.calls = 0
+
+
+def sw_windows_engine(profile, db, go: int, ge: int) -> torch.Tensor:
+    """The fixed-batch kernel behind the lane-batch engine interface
+    (``sw_pallas_multi``): ``fn(profile, db, go, ge) -> (B,)`` scores.
+
+    Args:
+      profile: ``(Lq, 32)`` unbiased query profile (numpy or tensor).
+      db: ``(Lb, B)`` lane batch, ``B`` a multiple of
+        ``FIXED_WINDOW_LANES``, split into windows on the host for numpy and
+        on its device for a tensor; or window-stacked ``(NW, Lb, win)``.
+        ``Lb`` is padded with '*' to ``STREAM_JB``. A numpy batch runs on
+        ``device.resolve_device()``'s device.
+      go, ge: total gap-open and gap-extend penalties.
+
+    Returns:
+      ``(NW * win,)`` int32 scores, lane order. Raises on a 3-D profile
+      (:func:`sw_windows` takes it), a query over ``MAX_QUERY_ROWS`` rows
+      and a scoring system outside :func:`supported_scoring`: such inputs
+      go to the wavefront engine, never silently.
+    """
+    prof = np.asarray(profile.cpu() if isinstance(profile, torch.Tensor) else profile)
+    if prof.ndim != 2:
+        raise ValueError(
+            "sw_windows_engine is the single-query adapter; call sw_windows "
+            "directly for a 3-D (multi-query) profile"
+        )
+    if prof.shape[0] > MAX_QUERY_ROWS:
+        raise NotImplementedError(
+            f"query of {prof.shape[0]} rows exceeds MAX_QUERY_ROWS="
+            f"{MAX_QUERY_ROWS} of the fixed-batch kernel; use the wavefront "
+            "engine"
+        )
+    if not supported_scoring(prof, go, ge):
+        raise ValueError(
+            f"scoring system outside the kernel's int32 G-form envelope (it "
+            f"needs ge >= go, ge <= 0, no int32 overflow; got {go=}, {ge=}); "
+            "use the wavefront engine"
+        )
+    device = db.device if isinstance(db, torch.Tensor) else resolve_device()
+    windows = batch_windows(db, FIXED_WINDOW_LANES, STREAM_JB, device)
+    return sw_windows(profile_to_torch(prof, go, device), windows, go, ge)
+
+
+def sw_window(profile, db, go: int, ge: int) -> torch.Tensor:
+    """One ``(Lb, win)`` window through :func:`sw_windows_engine`
+    (``sw_pallas``); ``Lb`` of any length, padded with '*'."""
+    if db.ndim != 2:
+        raise ValueError(f"db must be one (Lb, win) window, got {tuple(db.shape)}")
+    return sw_windows_engine(profile, db[None], go, ge)
 
 
 def _wavefront(

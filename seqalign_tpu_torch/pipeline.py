@@ -12,13 +12,13 @@ of the scores; parsing, packing and the host-to-device copy stay outside
 it, the same boundary as the JAX package's and the reference's.
 
 The device comes from ``SEQALIGN_PLATFORM`` (``cuda``, the default, or
-``cpu``). With no GPU, ``cuda`` is an error, never a silent run on the CPU.
+``cpu``; ``device.resolve_device``). With no GPU, ``cuda`` is an error,
+never a silent run on the CPU.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import os
 import sys
 import time
 from typing import Callable, Iterable, Sequence
@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from .convert import profile_stripes, profile_to_torch, stream_pack_to_torch
+from .device import resolve_device
 from .host import (
     EncodedDatabase, ScoringModel, SeqRecord, StreamPack, encode,
     lattice_round_up, pack_batch, pack_streams, parse_file_cached, read_fasta,
@@ -35,6 +36,7 @@ from .host import (
 from .ops import swa_cuda
 from .ops.swa_cuda import (
     STREAM_JB, supported_scoring, sw_stream, sw_stream_multi, sw_stream_striped,
+    sw_windows_engine,
 )
 from .ops.swa_torch import make_profile, sw_scan, sw_wavefront
 
@@ -84,29 +86,16 @@ class SearchResult:
     total_entries: int
 
 
-def resolve_device(platform: str | None = None) -> torch.device:
-    """The device named by ``platform`` or ``SEQALIGN_PLATFORM``."""
-    plat = platform or os.environ.get("SEQALIGN_PLATFORM") or "cuda"
-    if plat == "cpu":
-        return torch.device("cpu")
-    if plat != "cuda":
-        raise ValueError(
-            f"SEQALIGN_PLATFORM={plat!r}: expected 'cpu' or 'cuda'"
-        )
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available (SEQALIGN_PLATFORM=cuda is the "
-            "default); set SEQALIGN_PLATFORM=cpu to run on the CPU"
-        )
-    return torch.device("cuda")
-
-
 def get_engine(name: str) -> Callable:
     """Resolve a lane-batch engine name to fn(profile, db, go, ge) -> scores.
 
-    The stream engine is not a lane-batch engine: ``search_database`` runs
-    it through ``_stream_search``.
+    ``windows`` is the fixed-batch kernel (K4, ``sw_windows_engine``), the
+    JAX package's ``pallas`` lane-batch engine; like there, no search route
+    runs it. The stream engine is not a lane-batch engine:
+    ``search_database`` runs it through ``_stream_search``.
     """
+    if name == "windows":
+        return sw_windows_engine
     if name == "wavefront":
         return sw_wavefront
     if name == "scan":
@@ -146,8 +135,7 @@ def search_database(
 
     profile = make_profile(scoring.table, query_idx)
     go, ge = scoring.gap_open_total, scoring.gap_extend
-    lengths = db.lengths
-    order = np.argsort(-lengths, kind="stable") if sort else np.arange(n)
+    order = np.argsort(-db.lengths, kind="stable") if sort else np.arange(n)
 
     if eng == "stream":
         if not supported_scoring(profile, go, ge):
@@ -156,20 +144,29 @@ def search_database(
         else:
             return _stream_search(profile, db, go, ge, order, lanes, dev)
 
-    win = lanes or BATCH_LANES
     engine_fn = get_engine(eng)
     prof_dev = torch.from_numpy(profile).to(dev)
     kernel_time = 0.0
-    for start in range(0, n, win):
-        ids = order[start : start + win]
-        lb_pad = lattice_round_up(int(lengths[ids].max(initial=1)))
-        batch = torch.from_numpy(pack_batch(db, ids, win, lb_pad)).to(dev)
+    for ids, batch in lane_batches(db, order, lanes or BATCH_LANES):
+        batch = torch.from_numpy(batch).to(dev)
         _sync(dev)
         t0 = time.perf_counter()
         out = engine_fn(prof_dev, batch, go, ge).cpu()
         kernel_time += time.perf_counter() - t0
         scores[ids] = out.numpy()[: len(ids)]
     return scores, kernel_time
+
+
+def lane_batches(
+    db: EncodedDatabase, order: np.ndarray, lanes: int
+) -> Iterable[tuple[np.ndarray, np.ndarray]]:
+    """``(record ids, (Lb, lanes) int8 batch)`` of each lane batch of a
+    lane-batch engine: the records of ``order``, ``lanes`` at a time, each
+    batch '*'-padded to ``lattice_round_up`` of its longest record."""
+    for start in range(0, db.n, lanes):
+        ids = order[start : start + lanes]
+        lb_pad = lattice_round_up(int(db.lengths[ids].max(initial=1)))
+        yield ids, pack_batch(db, ids, lanes, lb_pad)
 
 
 def _note_wavefront() -> None:

@@ -6,8 +6,10 @@ builds ``csrc/*.cu`` as ``ops/_build.py`` does and prints, for each kernel
 function: the registers and spills ptxas reports (``-Xptxas -v``), its
 number of SASS instructions (``cuobjdump -sass``), and its innermost DP
 loop (the row loop): the instructions of the loop body, the DP cells one
-iteration computes (one ``LDS``, the profile gather ``P'[i][c]``, each)
-and the integer ALU instructions per cell. With ``--against DIR`` it builds
+iteration computes (one ``LDS``, the profile gather ``P'[i][c]``, each; a
+loop without a gather, K5's, computes ``CELLS_PER_ITERATION``) and the
+integer ALU instructions per cell. A template kernel's instances are keyed
+apart by their arguments (``sw_windows_kernel<false, true>``). With ``--against DIR`` it builds
 ``DIR/seqalign_tpu_torch/csrc/*.cu`` (another checkout, for example the
 parent commit) the same way and says, kernel by kernel, whether both builds
 compiled to the same SASS, instruction for instruction.
@@ -25,9 +27,16 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+from .convert import ROW_ALIGN
 from .ops import _build
+from .ops.swa_cuda import STREAM_JB
 
-KERNELS = ("sw_stream_kernel", "sw_stream_multi_kernel", "sw_stream_striped_kernel")
+KERNELS = ("sw_stream_kernel", "sw_stream_multi_kernel", "sw_stream_striped_kernel",
+           "sw_windows_kernel")
+# Cells of one iteration of the row loop: kRowUnroll (= ROW_ALIGN) rows x JB
+# (= STREAM_JB) positions of csrc/sw_stream.cu. Where the loop gathers the
+# profile it holds one LDS per cell, and the count of LDS must equal this.
+CELLS_PER_ITERATION = ROW_ALIGN * STREAM_JB
 # Opcodes that are not integer ALU work: memory, control, conversion.
 _NOT_ALU = ("LD", "ST", "BRA", "BAR", "NOP", "EXIT", "RET", "CALL", "BSYNC",
             "BSSY", "S2R", "CS2R", "MEMBAR", "ULD", "UST", "WARPSYNC", "DEPBAR")
@@ -35,6 +44,21 @@ _NOT_ALU = ("LD", "ST", "BRA", "BAR", "NOP", "EXIT", "RET", "CALL", "BSYNC",
 _INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.+?)\s*;")
 _LABEL = re.compile(r"^\s*(\.L_x_\d+):")
 _TARGET = re.compile(r"`?\((\.L_x_\d+)\)|\b0x([0-9a-f]+)\b")
+_BOOL_ARGS = re.compile(r"I((?:Lb[01]E)+)E")
+
+
+def kernel_key(mangled: str) -> str | None:
+    """The kernel of ``KERNELS`` a mangled name belongs to, with its bool
+    template arguments (``sw_stream_striped_kernel<true, false>``); None for
+    another function."""
+    short = next((k for k in sorted(KERNELS, key=len, reverse=True) if k in mangled), None)
+    if short is None:
+        return None
+    m = _BOOL_ARGS.match(mangled[mangled.index(short) + len(short):])
+    if not m:
+        return short
+    args = ", ".join("true" if a == "1" else "false" for a in re.findall(r"Lb([01])E", m.group(1)))
+    return f"{short}<{args}>"
 
 
 def _tool(name: str) -> str:
@@ -103,12 +127,13 @@ def opcode(instr: str) -> str:
 
 def inner_loop(instrs) -> dict | None:
     """The innermost DP loop, the shortest backward branch whose body holds
-    DP work (``VIADDMNMX``, the E and F updates): its size, its cells (one
-    ``LDS`` each, the profile gather) and integer ALU instructions per
-    cell."""
+    DP work (``VIADDMNMX``, the E and F updates): its size, its cells and
+    integer ALU instructions per cell. The cells are its ``LDS`` (the
+    profile gather), one each; only a kernel with no DP loop that gathers
+    (K5) takes a loop without ``LDS``, of ``CELLS_PER_ITERATION`` cells."""
     at = {lab: i for i, (_, _, lab) in enumerate(instrs) if lab}
     at.update({addr: i for i, (addr, _, _) in enumerate(instrs)})
-    best = None
+    loops = []
     for k, (_, ins, _) in enumerate(instrs):
         if opcode(ins).split(".")[0] != "BRA":
             continue
@@ -119,16 +144,19 @@ def inner_loop(instrs) -> dict | None:
         if start > k:
             continue
         body = [opcode(x) for _, x, _ in instrs[start : k + 1]]
-        cells = sum(op.split(".")[0] == "LDS" for op in body)
-        dp = any(op.startswith("VIADDMNMX") for op in body)
-        if dp and cells and (best is None or len(body) < best["instructions"]):
-            hist = collections.Counter(op.split(".")[0] for op in body)
-            alu = sum(n for op, n in hist.items() if not op.startswith(_NOT_ALU))
-            best = {"instructions": len(body), "cells": cells,
-                    "alu_per_cell": alu / cells,
-                    "instructions_per_cell": len(body) / cells,
-                    "opcodes": dict(hist.most_common())}
-    return best
+        if not any(op.startswith("VIADDMNMX") for op in body):
+            continue
+        hist = collections.Counter(op.split(".")[0] for op in body)
+        cells = hist["LDS"] or CELLS_PER_ITERATION
+        alu = sum(n for op, n in hist.items() if not op.startswith(_NOT_ALU))
+        loops.append({"instructions": len(body), "cells": cells,
+                      "cells_from": "LDS" if hist["LDS"] else "CELLS_PER_ITERATION",
+                      "alu_per_cell": alu / cells,
+                      "instructions_per_cell": len(body) / cells,
+                      "opcodes": dict(hist.most_common())})
+    # A loop that gathers beats any that does not; then the shortest.
+    return min(loops, key=lambda lp: (lp["cells_from"] != "LDS", lp["instructions"]),
+               default=None)
 
 
 def report(lib: Path, ptxas: str) -> dict:
@@ -136,10 +164,9 @@ def report(lib: Path, ptxas: str) -> dict:
     usage = ptxas_usage(ptxas)
     out = {}
     for name, instrs in sass_functions(lib).items():
-        short = next((k for k in sorted(KERNELS, key=len, reverse=True) if k in name), None)
-        if short is None:
+        key = kernel_key(name)
+        if key is None:
             continue
-        key = short + (name[name.index(short) + len(short):][:24] if "striped" in short else "")
         out[key] = {
             "mangled": name,
             "ptxas": next((v for k, v in usage.items() if k == name), None),

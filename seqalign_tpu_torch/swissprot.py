@@ -7,7 +7,7 @@ the same stream.
 
     python -m seqalign_tpu_torch.swissprot [--lq 17,144,512,1536,2000]
         [--stripe-rows 256,512,768] [--windows 132,264,396,528,1056]
-        [--nq N] [--out FILE.json]
+        [--nq N] [--fixed] [--out FILE.json]
 
 times each layer of a search over it on the GPU, PAM250, gaps -2/-1: the
 FASTA parse, ``pack_streams``, the host-to-device copy, the kernel (CUDA
@@ -29,6 +29,14 @@ multi-query kernel (CUDA events, every launch of the batch), the fetch and
 scatter, the whole ``search_database_multi`` call and the device's busy
 share; beside them, the single-query kernel looped over the N queries on
 the same streams.
+
+With ``--fixed`` it times the fixed-batch kernel (K4) and its constant-S
+mode (K5) instead: the database, length-sorted, cut into the lane batches
+of ``pipeline.lane_batches`` at each width of ``FIXED_LANES``, every batch one
+launch on device-resident windows, for each query length of ``--lq``; K4
+and K5 in turns (K4, K5, K5, K4), and K1 over the pipeline's streams at the
+same query length beside them. K5/K4 is the share of K4's time that the DP
+loop takes without the profile gather.
 """
 
 from __future__ import annotations
@@ -53,6 +61,10 @@ AA_FREQS = np.array([
 AA_FREQS = AA_FREQS / AA_FREQS.sum()
 N_ENTRIES = 565_247
 QUERY_LEN = 144
+# The lane-batch widths at which the fixed-batch kernel (K4) is measured:
+# the JAX package's TPU lane batch, a middle width, and 66 windows of 1,024
+# lanes (one wave of 2 CTAs x 256 threads on each of an H100's 132 SMs).
+FIXED_LANES = (4096, 16384, 67584)
 
 
 def swissprot_db(seed: int = 42):
@@ -154,6 +166,83 @@ def _busy(fn):
     return wall, busy_us / 1e3, top
 
 
+def fixed_profiles(query, lqs, dev) -> dict[int, torch.Tensor]:
+    """The biased PAM250 profile of ``query`` at its own length, and of a
+    random query at each other length of ``lqs``, keyed by length."""
+    from .convert import profile_to_torch
+    from .ops.swa_torch import make_profile
+
+    sc = pam250()
+    return {lq: profile_to_torch(make_profile(
+        sc.table, query if lq == len(query) else random_query(lq, lq)),
+        sc.gap_open_total, dev) for lq in lqs}
+
+
+def stream_k1_ms(db, profs) -> dict[int, float]:
+    """CUDA-event ms of K1 over the pipeline's streams of the whole
+    database, for each profile of ``profs``."""
+    from . import pipeline
+    from .convert import stream_pack_to_torch
+    from .host import pack_streams
+    from .ops.swa_cuda import STREAM_JB, sw_stream
+
+    dev = torch.device("cuda")
+    sc = pam250()
+    order = np.argsort(-db.lengths, kind="stable")
+    win = pipeline.WINDOW_LANES
+    nw = pipeline.choose_windows(db.lengths[order], win, None, pipeline.resident_lanes(dev))
+    pack = pack_streams(db, order, nw, win=win, jb=STREAM_JB, grain=pipeline.STREAM_GRAIN)
+    streams, fs = stream_pack_to_torch(pack, dev)
+    kw = dict(nslots=len(pack.slot_ids), jb=STREAM_JB)
+    return {lq: cuda_ms(lambda: sw_stream(p, streams, fs, sc.gap_open_total,
+                                          sc.gap_extend, **kw), 2)
+            for lq, p in profs.items()}
+
+
+def fixed_breakdown(db, profs, k1_ms, say) -> list[dict]:
+    """K4 and K5 over the fixed lane batches at each width of FIXED_LANES
+    and each profile of ``profs`` (keyed by query length), in turns (K4,
+    K5, K5, K4), beside ``k1_ms``, K1's time at each length."""
+    from . import pipeline
+    from .convert import batch_windows
+    from .ops.swa_cuda import FIXED_WINDOW_LANES, STREAM_JB, sw_windows
+
+    dev = torch.device("cuda")
+    sc = pam250()
+    go, ge = sc.gap_open_total, sc.gap_extend
+    residues = int(db.offsets[-1])
+    order = np.argsort(-db.lengths, kind="stable")
+    out = []
+    for lanes in FIXED_LANES:
+        t0 = time.perf_counter()
+        batches = list(pipeline.lane_batches(db, order, lanes))
+        pack_s = time.perf_counter() - t0
+        wins = [batch_windows(b, FIXED_WINDOW_LANES, STREAM_JB, dev) for _, b in batches]
+        cells_per_row = sum(w.numel() for w in wins)
+        tag = f"[fixed B={lanes}]"
+        say(f"{tag} {len(batches)} batches, Lb {wins[0].shape[1]}..{wins[-1].shape[1]}, "
+            f"padded/real cells {cells_per_row / residues}, pack {pack_s} s")
+        for lq, p in profs.items():
+            turns = {False: [], True: []}
+            for const_s in (False, True, True, False):
+                turns[const_s].append(cuda_ms(lambda: [
+                    sw_windows(p, w, go, ge, const_s=const_s) for w in wins], 1))
+            k4, k5 = min(turns[False]), min(turns[True])
+            row = {"lanes": lanes, "lq": lq, "batches": len(batches),
+                   "k4_ms": turns[False], "k5_ms": turns[True], "k5_over_k4": k5 / k4,
+                   "k1_ms": k1_ms[lq], "k4_over_k1": k4 / k1_ms[lq],
+                   "gcups_real": lq * residues / k4 / 1e6,
+                   "gcups_batch_cells": p.shape[0] * cells_per_row / k4 / 1e6,
+                   "padded_over_real": cells_per_row / residues}
+            out.append(row)
+            say(f"{tag} lq={lq}: K4 {turns[False]} ms ({row['gcups_real']} GCUPS over "
+                f"real residues, {row['gcups_batch_cells']} over the batches' cells), "
+                f"K5 {turns[True]} ms, K5/K4 {row['k5_over_k4']}; K1 {k1_ms[lq]} ms, "
+                f"K4/K1 {row['k4_over_k1']}")
+        del wins
+    return out
+
+
 def multi_breakdown(db, nq: int, lq: int, say) -> dict:
     """Where a multi-query search of nq queries of lq residues spends its
     time, and the single-query kernel looped over the same queries."""
@@ -251,6 +340,8 @@ def main(argv=None) -> int:
     ap.add_argument("--windows", default="132,264,396,528,1056")
     ap.add_argument("--nq", type=int, default=0,
                     help="time the multi-query search of this many queries")
+    ap.add_argument("--fixed", action="store_true",
+                    help="time the fixed-batch kernel (K4) and K5 instead")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -272,6 +363,11 @@ def main(argv=None) -> int:
     residues = int(db.offsets[-1])
     if args.nq:
         result["multi"] = [multi_breakdown(db, args.nq, lq, say) for lq in lqs]
+        _write(args.out, result)
+        return 0
+    if args.fixed:
+        profs = fixed_profiles(query, lqs, dev)
+        result["fixed"] = fixed_breakdown(db, profs, stream_k1_ms(db, profs), say)
         _write(args.out, result)
         return 0
     build = Path(__file__).resolve().parent.parent / "build"

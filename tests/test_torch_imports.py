@@ -83,3 +83,23 @@ def test_only_host_module_imports_jax_package(path):
     mods = list(_imported_modules(path))
     assert not [m for m in mods if m == "jax" or m.startswith("jax.")]
     assert not [m for m in mods if m == "seqalign_tpu" or m.startswith("seqalign_tpu.")]
+
+
+@pytest.mark.parametrize(
+    "path",
+    sorted((ROOT / "seqalign_tpu_torch" / "ops").glob("*.py")),
+    ids=lambda p: p.name,
+)
+def test_ops_layer_does_not_import_the_pipeline(path):
+    """The kernel wrappers sit below the pipeline: no module of ``ops``
+    imports it, at module level or inside a function (the device a host
+    array goes to comes from ``seqalign_tpu_torch.device``)."""
+    import ast
+
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] + [a.name for a in node.names]
+            assert "pipeline" not in names and not (node.module or "").endswith(
+                ".pipeline"), f"{path.name}:{node.lineno} imports the pipeline"
+        elif isinstance(node, ast.Import):
+            assert not [a.name for a in node.names if a.name.endswith("pipeline")]

@@ -202,3 +202,29 @@ def test_sass_inner_loop_counts_cells():
     loop = sass.inner_loop(funcs["_ZN12_GLOBAL__N_116sw_stream_kernelEv"])
     assert (loop["instructions"], loop["cells"]) == (5, 2)
     assert loop["alu_per_cell"] == 1.0  # VIADDMNMX and VIMNMX3 over 2 cells
+    assert loop["cells_from"] == "LDS"
+
+    # K5's loop gathers nothing: its cells are the loop's unroll, rows x
+    # positions per iteration; a shorter gatherless loop loses to one that
+    # gathers where both exist.
+    k5 = "\n".join([
+        "\t\tFunction : _ZN12_GLOBAL__N_117sw_windows_kernelILb0ELb1EEEvPKi",
+        "        /*0000*/                   S2R R0, SR_TID.X ;",
+        "        /*0010*/                   VIADDMNMX R5, R5, R3, R4, !PT ;",
+        "        /*0020*/                   VIADD R6, R5, 0x7 ;",
+        "        /*0030*/                   VIMNMX3.RELU R6, R5, R4, R6 ;",
+        "        /*0040*/               @P0 BRA 0x10 ;",
+        "        /*0050*/                   EXIT ;",
+    ])
+    name = "_ZN12_GLOBAL__N_117sw_windows_kernelILb0ELb1EEEvPKi"
+    loop = sass.inner_loop(sass.sass_functions(None, k5)[name])
+    assert (loop["instructions"], loop["cells"]) == (4, sass.CELLS_PER_ITERATION)
+    assert loop["cells_from"] == "CELLS_PER_ITERATION"
+    assert loop["alu_per_cell"] == 3 / sass.CELLS_PER_ITERATION
+    both = sass.sass_functions(None, text + "\n" + k5.split("\n", 1)[1].replace(
+        "0x10", "0x100").replace("/*00", "/*01"))
+    loop = sass.inner_loop(both["_ZN12_GLOBAL__N_116sw_stream_kernelEv"])
+    assert (loop["instructions"], loop["cells"]) == (5, 2)
+    assert sass.kernel_key(name) == "sw_windows_kernel<false, true>"
+    assert sass.kernel_key("_ZN12_GLOBAL__N_116sw_stream_kernelEv") == "sw_stream_kernel"
+    assert sass.kernel_key("_Z3foov") is None
