@@ -6,10 +6,15 @@
 Phases, each printing its own lines; any failure exits nonzero:
 
 1. device: the card's name, its power limit (nvidia-smi), torch, CUDA, nvcc;
-2. build: compile csrc/*.cu (one source, every kernel) with nvcc for
-   sm_90a into build/, and read the inner DP loop of each kernel's SASS
-   (integer instructions per cell, for the bound): K1, K3, K2, the
-   fixed-batch kernel K4 and its constant-S mode K5 (a loop without LDS);
+2. build: compile csrc/*.cu (sw_stream.cu: K1, K3, K4, K5; sw_striped.cu:
+   K2; isa_probe.cu: the issue-rate probe), one nvcc each in parallel, for
+   sm_90a into build/; read each kernel's registers and local memory (no
+   spills) and the inner DP loop of its SASS (integer instructions per
+   cell, for the bound): K1, K3, K2 (a step of R rows), the fixed-batch
+   kernel K4 and its constant-S mode K5 (a loop without LDS); then measure
+   the card's issue rate of VIADDMNMX, VIMNMX3, IADD3, IMNMX, IMAD, LDS and
+   SHFL, alone and in pairs (seqalign_tpu_torch.probe), and the bound those
+   rates give each kernel;
 3. kernel: the single-query stream kernel (K1) against its plain PyTorch
    version on the card, int32-exact (torch.equal), over scoring systems,
    segment layouts, window widths and query lengths up to MAX_QUERY_ROWS;
@@ -19,7 +24,10 @@ Phases, each printing its own lines; any failure exits nonzero:
    then the row-striped kernel (K2), pass by pass (output slots and the
    boundary row) and as a whole search, at 1537 to 4096 query rows and at
    35,000 against a small database, over the same scoring systems, a
-   partial final stripe, a tail segment and empty windows;
+   partial final stripe, 32 R + 1 rows, a last pass where most threads
+   have no rows, passes whose last row sits inside a thread, a full pass
+   of every R built, segments of 16 positions with empty lanes, a tail
+   segment and empty windows;
    then the fixed-batch kernel (K4) and its constant-S mode (K5) against
    their plain versions, over the six scoring systems, windows of 256 and
    1,024 lanes, 1 to 8 windows, lq = 1 to MAX_QUERY_ROWS, 3-D profiles of
@@ -42,8 +50,9 @@ Phases, each printing its own lines; any failure exits nonzero:
    pipeline.search_database; the counters prove it ran K2 (stripes x chunks
    passes) and nothing else; every score equals K2's plain version on the
    card, pass by pass, and 4,096 records (the 256 longest among them)
-   equal the wavefront engine; K2 is timed per pass and whole, and K1 and
-   K2 side by side at lq=1536;
+   equal the wavefront engine; the search's device-memory peak; K2 is
+   timed per pass and whole, with its rows per thread and registers, and
+   K1 and K2 side by side at lq=512 and 1536;
 7. fixed-batch path: the same database and 144-residue query, length-
    sorted and cut into pipeline.lane_batches of 4,096, 16,384 and 67,584
    lanes, one call of pipeline.get_engine("windows") each; the counters
@@ -59,8 +68,9 @@ Phases, each printing its own lines; any failure exits nonzero:
 
 The line before the last is a JSON object describing the kernels (route,
 source, launches on their path, max error, times, the card's bound for the
-same work); the last line is {"ok": true, "device": {...}}. Without a CUDA
-device the script exits 1 before printing either.
+same work, and that bound at the measured issue rates); the last line is
+{"ok": true, "device": {...}}. Without a CUDA device the script exits 1
+before printing either.
 """
 
 from __future__ import annotations
@@ -85,18 +95,24 @@ def fail(msg: str):
 # its bytes over the device memory rate and its integer instructions over
 # the int32 issue rate. Both from the published peaks: 3.35 TB/s, and
 # 67 TFLOP/s float32 = 132 SMs x 128 lanes x 2 (FMA) x 1.98 GHz, of which an
-# SM issues int32 work on 64 lanes: 16.75 T instructions/s.
+# SM issues int32 work on 64 lanes of a pipe: 16.75 T instructions/s. IMAD
+# issues on the FMA pipe beside the ALU pipe that takes the other integer
+# instructions (the probe of phase 2 measures the pair at twice the rate
+# of either), so the instructions counted are the busier pipe's
+# (sass.inner_loop's pipe_per_cell).
 HBM_BYTES_PER_S = 3.35e12
-INT32_PER_S = 67e12 / 2 / 2
 
 
 def bound(nbytes: int, cells: int, alu_per_cell: float) -> tuple[float, str]:
     """(bound_ms, bound_by) for ``nbytes`` read or written once and
-    ``cells`` DP cells of ``alu_per_cell`` integer instructions each.
+    ``cells`` DP cells of ``alu_per_cell`` integer instructions each on the
+    busier pipe.
     ``cells`` counts the work the kernel's contract asks for: for the stream
     kernels real query rows times real database residues (the packer's
     padding is not part of it), for the fixed-batch kernel query rows times
     every batch's Lb x lanes (the fixed batch is its input)."""
+    from seqalign_tpu_torch.probe import INT32_PER_S
+
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = cells * alu_per_cell / INT32_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else "operations"
@@ -159,21 +175,24 @@ def phase_device(torch):
     return name, smi
 
 
-# The SASS instance each kernel's bound reads: K2's that runs most passes
-# (a boundary in and out), K4's and K5's single-query ones.
+# The SASS instance each kernel's bound reads: K4's and K5's single-query
+# ones. K2's bound weighs the instances its passes launch (phase 6).
 BOUND_INSTANCES = {
     "sw_stream_kernel": "sw_stream",
     "sw_stream_multi_kernel": "sw_stream_multi",
-    "sw_stream_striped_kernel<true, true>": "sw_stream_striped",
     "sw_windows_kernel<false, false>": "sw_windows",
     "sw_windows_kernel<false, true>": "sw_windows_const_s",
 }
 
 
 def phase_build():
-    """Build the kernels; return each kernel's integer ALU instructions per
-    DP cell, counted in the inner loop of its SASS."""
-    from seqalign_tpu_torch import sass
+    """Build the kernels; return the inner DP loop of every instance's SASS
+    (``sass.inner_loop``: integer instructions per cell on the busier pipe,
+    ``pipe_per_cell``, and its opcodes), the registers of every instance
+    (``cuobjdump -res-usage``), and the factor by which the issue rates
+    measured on this card (``seqalign_tpu_torch.probe``) stretch each
+    instance's bound."""
+    from seqalign_tpu_torch import probe, sass
     from seqalign_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -181,31 +200,48 @@ def phase_build():
     _build.load()
     print(f"[build] {path.relative_to(ROOT)} in "
           f"{time.perf_counter() - t0} s", flush=True)
-    alu = {}
+    usage = {sass.kernel_key(m): u for m, u in sass.resource_usage(path).items()
+             if sass.kernel_key(m)}
+    loops = {}
     for mangled, instrs in sass.sass_functions(path).items():
-        loop = sass.inner_loop(instrs)
         key = sass.kernel_key(mangled)
         if key is None:
             continue
+        loop = sass.inner_loop(instrs)
         if loop is None:
             fail(f"no DP loop found in the SASS of {mangled}")
-        print(f"[build] SASS {key}: {len(instrs)} instructions; inner loop "
+        res = usage.get(key, {})
+        print(f"[build] SASS {key}: {res.get('REG')} registers, {res.get('LOCAL')} B "
+              f"local memory; {len(instrs)} instructions; inner loop "
               f"{loop['instructions']} instructions for {loop['cells']} cells "
-              f"(from {loop['cells_from']}), {loop['alu_per_cell']} integer ALU "
-              f"per cell", flush=True)
+              f"(from {loop['cells_from']}), {loop['alu_per_cell']} integer per "
+              f"cell, {loop['imad_per_cell']} of them IMAD (FMA pipe), "
+              f"{loop['pipe_per_cell']} on the busier pipe; {loop['opcodes']}",
+              flush=True)
+        if res.get("LOCAL", 0):
+            fail(f"{key}: {res['LOCAL']} B of local memory (spills)")
         # Only K5 (constant S) has a DP loop without the profile gather; a
-        # gather's LDS count must be the unroll K5's cells are taken from.
+        # gather's LDS count must be the loop's cells: the stream body's
+        # unroll, which K5's cells are taken from, or K2's R rows a step.
         const_s = key.startswith("sw_windows_kernel<") and key.endswith("true>")
         if const_s != (loop["cells_from"] != "LDS"):
             fail(f"{key}: the DP loop {'has' if const_s else 'lacks'} a profile gather")
-        if not const_s and loop["cells"] != sass.CELLS_PER_ITERATION:
+        if not const_s and loop["cells"] != sass.expected_cells(key):
             fail(f"{key}: {loop['cells']} LDS per loop iteration, not "
-                 f"CELLS_PER_ITERATION={sass.CELLS_PER_ITERATION}")
-        if key in BOUND_INSTANCES:
-            alu[BOUND_INSTANCES[key]] = loop["alu_per_cell"]
-    if sorted(alu) != sorted(BOUND_INSTANCES.values()):
-        fail(f"SASS of the kernels not all found: {sorted(alu)}")
-    return alu
+                 f"{sass.expected_cells(key)}")
+        loops[key] = loop
+    if not set(BOUND_INSTANCES) <= set(loops):
+        fail(f"SASS of the kernels not all found: {sorted(loops)}")
+
+    rates = probe.rates()
+    for name, r in rates.items():
+        print(f"[probe] {name} (SASS {r['opcode']}): {r['per_s'] / 1e12} T/s, "
+              f"{r['over_data_sheet']} of the data sheet's {probe.INT32_PER_S / 1e12} T/s; "
+              f"loop {r['loop_opcodes']}", flush=True)
+    factor = {key: probe.bound_factor(lp["opcodes"], rates) for key, lp in loops.items()}
+    print(f"[probe] each kernel's bound at the measured rates over the data "
+          f"sheet's: {factor}", flush=True)
+    return loops, usage, factor
 
 
 class Checker:
@@ -331,7 +367,8 @@ def stream_case(name, lq, n, lo, hi, nw, win, seed, encoded=None, order=None,
     """A stream pack as the pipeline makes it (jb=STREAM_JB, grain=
     STREAM_GRAIN) and the kernel's arguments for it, on the card. A tuple
     ``lq`` gives one query of each length and a 3-D profile (K3);
-    ``striped`` gives the profile as K2's stripes of STRIPE_ROWS rows."""
+    ``striped`` gives the profile as K2's stripes of STRIPE_ROWS rows, or of
+    ``striped`` rows where it is a number."""
     from seqalign_tpu_torch.convert import (
         profile_stripes, profile_to_torch, stream_pack_to_torch,
     )
@@ -358,7 +395,8 @@ def stream_case(name, lq, n, lo, hi, nw, win, seed, encoded=None, order=None,
     pack = pack_streams(db, order, nw, win=win, jb=jb, grain=grain)
     go, ge = sc.gap_open_total, sc.gap_extend
     if striped:
-        prof = profile_stripes(profile, go, STRIPE_ROWS, "cuda")
+        rows = STRIPE_ROWS if striped is True else striped
+        prof = profile_stripes(profile, go, rows, "cuda")
     else:
         prof = profile_to_torch(profile, go, "cuda")
     streams, fs = stream_pack_to_torch(pack, "cuda")
@@ -447,22 +485,46 @@ def phase_kernel_multi(chk: Checker):
 
 def phase_kernel_striped(chk: Checker):
     from seqalign_tpu_torch.host import encode
+    from seqalign_tpu_torch.ops.swa_cuda import (
+        STRIPE_ROWS, STRIPE_ROWS_PER_THREAD_BUILT, STRIPE_TEAM, stripe_rows_per_thread,
+    )
 
+    sr = STRIPE_ROWS
     cases = [
-        # name, lq, n, lo, hi, nw, win, seed
-        # (at STRIPE_ROWS = 768)
-        ("BLOSUM45", 1537, 1500, 1, 200, 4, 256, 41),  # a 1-row last stripe
-        ("BLOSUM62", 2000, 1200, 1, 300, 3, 256, 42),  # 768 x 2 + 464
-        ("PAM250", 4096, 800, 1, 150, 3, 256, 43),  # 768 x 5 + 256
-        ("match/mismatch", 3072, 1000, 1, 100, 2, 256, 44),  # 4 whole stripes
-        ("random", 2000, 800, 1, 120, 2, 256, 45),
-        ("go==ge", 1600, 600, 1, 80, 2, 256, 46),
-        ("BLOSUM62", 2000, 2048, 1, 64, 2, 1024, 47),
-        ("PAM250", 35_000, 300, 1, 60, 2, 256, 48),  # 46 passes
+        # name, lq, n, lo, hi, nw, win, seed, stripe rows
+        ("BLOSUM45", 1537, 1500, 1, 200, 4, 256, 41, sr),
+        ("BLOSUM62", 2000, 1200, 1, 300, 3, 256, 42, sr),  # a partial last pass
+        ("PAM250", 4096, 800, 1, 150, 3, 256, 43, sr),
+        ("match/mismatch", 3072, 1000, 1, 100, 2, 256, 44, sr),
+        ("random", 2000, 800, 1, 120, 2, 256, 45, sr),
+        ("go==ge", 1600, 600, 1, 80, 2, 256, 46, sr),
+        ("BLOSUM62", 2000, 2048, 1, 64, 2, 1024, 47, sr),
+        ("PAM250", 35_000, 300, 1, 60, 2, 256, 48, sr),
+        # 32 R + 1 rows: a last pass of 4 rows, one thread with rows.
+        ("BLOSUM62", sr + 1, 900, 1, 120, 2, 256, 51, sr),
+        # A last pass of 100 rows: 13 threads with rows, 19 without.
+        ("PAM250", sr + 100, 900, 1, 120, 2, 256, 52, sr),
+        # Passes of 300 rows, not a multiple of R = 16: the boundary row
+        # sits inside the last thread (the kPartial instances).
+        ("BLOSUM45", 700, 900, 1, 120, 2, 256, 53, 300),
     ]
-    for name, lq, n, lo, hi, nw, win, seed in cases:
-        _, args = stream_case(name, lq, n, lo, hi, nw, win, seed, striped=True)
-        chk.compare_striped(f"{name} lq={lq}", *args)
+    # Every R built, a full pass each (two passes: a boundary out, then in).
+    cases += [("PAM250", 2 * STRIPE_TEAM * r, 900, 1, 150, 2, 256, 54 + r, STRIPE_TEAM * r)
+              for r in STRIPE_ROWS_PER_THREAD_BUILT]
+    for name, lq, n, lo, hi, nw, win, seed, rows in cases:
+        _, args = stream_case(name, lq, n, lo, hi, nw, win, seed, striped=rows)
+        stripes = args[0]
+        r = [stripe_rows_per_thread(st.shape[0]) for st in stripes]
+        chk.compare_striped(f"{name} lq={lq} R={'/'.join(map(str, sorted(set(r))))}", *args)
+
+    # Segments of 16 positions (records of 1..16 residues), shorter than the
+    # warp's 32-position skew; 8 x 256 + 77 records leave 179 lanes of the
+    # last lane group empty, and most records end in '*' padding.
+    pack, args = stream_case("BLOSUM62", sr + 37, 8 * 256 + 77, 1, 17, 2, 256, 90,
+                             striped=True)
+    if pack.streams.shape[1] != 16 * (pack.fs[:, :, 0] > 0).sum(axis=0).max() + 16:
+        fail("the 16-position case has a segment longer than one block")
+    chk.compare_striped("segments of 16 positions, empty lanes", *args)
 
     rng = np.random.default_rng(49)
     enc = [encode(random_protein(rng, 40)) for _ in range(256)]
@@ -828,10 +890,14 @@ def wavefront_sample(torch, sc, query, db, groups):
     return np.concatenate(outs)
 
 
-def phase_striped_path(torch, chk: Checker, smi: str, db, alu, lq=2000):
+def phase_striped_path(torch, chk: Checker, smi: str, db, loops, usage, factor,
+                       lq=2000):
     """A long query through pipeline.search_database on the card: K2 alone,
     every score held against K2's plain version and a sample against the
-    wavefront engine; K2 timed per pass and whole; K1 and K2 at lq=1536."""
+    wavefront engine; the search's device-memory peak; K2 timed per pass
+    and whole, with its rows per thread and the registers of the instances
+    its passes launch, whose SASS loops, weighed by their passes' rows, give
+    its bound; K1 and K2 side by side at lq=512 and 1536."""
     from seqalign_tpu_torch import pipeline
     from seqalign_tpu_torch.convert import (
         profile_stripes, profile_to_torch, stream_pack_to_torch,
@@ -850,11 +916,18 @@ def phase_striped_path(torch, chk: Checker, smi: str, db, alu, lq=2000):
     reset_counts(swa_cuda)
     runs = []
     for _ in range(2):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         scores, kernel_s = pipeline.search_database(query, db, sc, device="cuda")
         runs.append((kernel_s, time.perf_counter() - t0))
+        peak = torch.cuda.max_memory_allocated() - base
     counts = read_counts(swa_cuda)
     print(f"{tag} launches: {counts}", flush=True)
+    print(f"{tag} device memory: peak {peak} B above the {base} B held before "
+          "the search (streams, fs, boundaries, bests; K2 allocates no "
+          "rolling-row scratch)", flush=True)
     order = np.argsort(-db.lengths, kind="stable")
     chunks = [(c, *stream_pack_to_torch(p, dev), len(p.slot_ids)) for c, p in
               pipeline.stream_chunks(db, order, None, dev, pipeline.striped_chunk_residues())]
@@ -907,42 +980,70 @@ def phase_striped_path(torch, chk: Checker, smi: str, db, alu, lq=2000):
     _, streams, fs, nslots = chunks[0]
     pass_ms = striped_pass_ms(stripes, streams, fs, go, ge, nslots, 2)
     io_bytes = sum(nbytes(s, f) + ns * s.shape[2] * 4 for _, s, f, ns in chunks)
-    bound_ms, bound_by = bound(io_bytes + nbytes(*stripes), cells,
-                               alu["sw_stream_striped"])
+    # Each pass's instance (launch_rows' choice); K2's instructions per cell
+    # are its instances' loops, each weighed by its pass's rows.
+    keys = [swa_cuda.stripe_kernel_instance(st.shape[0], p > 0, p < len(stripes) - 1)
+            for p, st in enumerate(stripes)]
+    if not set(keys) <= set(loops):
+        fail(f"{tag} no SASS loop for the instances the passes launch: {keys}")
+    rows = [st.shape[0] for st in stripes]
+    ops = [n * loops[key]["pipe_per_cell"] for n, key in zip(rows, keys)]
+    bound_ms, bound_by = bound(io_bytes + nbytes(*stripes), cells, sum(ops) / sum(rows))
+    k2_factor = sum(o * factor[key] for o, key in zip(ops, keys)) / sum(ops)
+    r_pass = [swa_cuda.stripe_rows_per_thread(n) for n in rows]
+    regs = {key: usage.get(key, {}).get("REG") for key in keys}
     shape = (f"{len(stripes)} stripes of {stripes[0].shape[0]} rows "
-             f"(last {stripes[-1].shape[0]}), {len(chunks)} chunk(s), nw="
+             f"(last {stripes[-1].shape[0]}), R={'/'.join(map(str, r_pass))} rows per "
+             f"thread, {len(chunks)} chunk(s), nw="
              f"{'/'.join(str(s.shape[0]) for _, s, _, _ in chunks)} L="
              f"{'/'.join(str(s.shape[1]) for _, s, _, _ in chunks)} win={streams.shape[2]}")
     print(f"{tag} {shape}: K2 {whole_ms} ms ({cells / whole_ms / 1e6} GCUPS) per "
           f"search, per pass {pass_ms} ms, plain version {plain_ms} ms, bound "
-          f"{bound_ms} ms by {bound_by} | {smi}", flush=True)
-
-    # K1 and K2 side by side at K1's row limit (lq=1536), in turns, on the
-    # same streams.
-    edge = swa_cuda.MAX_QUERY_ROWS
-    q_edge = make_profile(sc.table, random_query(edge, 1536))
-    p1 = profile_to_torch(q_edge, go, dev)
-    s1 = profile_stripes(q_edge, go, swa_cuda.STRIPE_ROWS, dev)
-    at1536 = {"lq": edge, "k1_ms": [], "k2_ms": []}
-    for _ in range(2):
-        at1536["k1_ms"].append(cuda_ms(torch, lambda: swa_cuda.sw_stream(
-            p1, streams, fs, go, ge, **kw[0]), 2))
-        at1536["k2_ms"].append(cuda_ms(torch, lambda: swa_cuda.sw_stream_striped(
-            s1, streams, fs, go, ge, **kw[0]), 2))
-    if not torch.equal(swa_cuda.sw_stream(p1, streams, fs, go, ge, **kw[0]),
-                       swa_cuda.sw_stream_striped(s1, streams, fs, go, ge, **kw[0])):
-        fail(f"{tag} K1 and K2 disagree at lq={edge}")
-    print(f"{tag} lq={edge} on the same streams, in turns: K1 {at1536['k1_ms']} ms, "
-          f"K2 ({len(s1)} stripes) {at1536['k2_ms']} ms; scores equal | {smi}",
+          f"{bound_ms} ms by {bound_by} (busier pipe per cell "
+          f"{[loops[key]['pipe_per_cell'] for key in keys]} over the passes); rows "
+          f"per thread {r_pass}, registers of the passes' instances {regs} | {smi}",
           flush=True)
+
+    # K1 and K2 side by side at lq=512 and at K1's row limit (1536), in
+    # turns, on the same streams: a query of one stripe runs as one K2 pass
+    # that writes its boundary.
+    side = {}
+    for lq_k in (512, swa_cuda.MAX_QUERY_ROWS):
+        q_k = make_profile(sc.table, random_query(lq_k, lq_k))
+        p1 = profile_to_torch(q_k, go, dev)
+        s1 = profile_stripes(q_k, go, swa_cuda.STRIPE_ROWS, dev)
+        scratch = (torch.empty((2, *streams.shape), dtype=torch.int32, device=dev)
+                   if len(s1) == 1 else None)
+
+        def k2():
+            if scratch is None:
+                return swa_cuda.sw_stream_striped(s1, streams, fs, go, ge, **kw[0])
+            return swa_cuda.sw_stream_striped_pass(
+                s1[0], streams, fs, go, ge, bnd_out=scratch, **kw[0])[0]
+
+        row = {"lq": lq_k, "k2_passes": len(s1), "k1_ms": [], "k2_ms": []}
+        for _ in range(2):
+            row["k1_ms"].append(cuda_ms(torch, lambda: swa_cuda.sw_stream(
+                p1, streams, fs, go, ge, **kw[0]), 2))
+            row["k2_ms"].append(cuda_ms(torch, k2, 2))
+        if not torch.equal(swa_cuda.sw_stream(p1, streams, fs, go, ge, **kw[0]), k2()):
+            fail(f"{tag} K1 and K2 disagree at lq={lq_k}")
+        print(f"{tag} lq={lq_k} on the same streams, in turns: K1 {row['k1_ms']} ms, "
+              f"K2 ({len(s1)} passes) {row['k2_ms']} ms; scores equal | {smi}",
+              flush=True)
+        side[lq_k] = row
     return {
         "launches": counts["sw_stream_striped_pass"],
         "ms": whole_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
+        "factor": k2_factor,
         "pass_ms": pass_ms,
-        "at_lq1536": at1536,
+        "rows_per_thread": r_pass,
+        "registers": regs,
+        "memory_peak_bytes": peak,
+        "k1_beside_k2": side,
         "shape": f"long-query path, {db.n} records, lq={lq}, {shape}",
         "main_path_kernel_s": runs[-1][0],
         "main_path_gcups": cells / runs[-1][0] / 1e9,
@@ -1133,7 +1234,8 @@ def main() -> int:
               file=sys.stderr)
         return 1
     name, smi = phase_device(torch)
-    alu = phase_build()
+    loops, usage, factor = phase_build()
+    alu = {n: loops[key]["pipe_per_cell"] for key, n in BOUND_INSTANCES.items()}
     chk = Checker(torch)
     phase_kernel(chk)
     phase_kernel_multi(chk)
@@ -1149,7 +1251,7 @@ def main() -> int:
     main_path, k1_pack, k1_scores = phase_main_path(torch, chk, smi, query, db, alu)
     multi8 = phase_multi_path(torch, chk, smi, db, k1_pack, 8, 17, 100, True, alu)
     multi64 = phase_multi_path(torch, chk, smi, db, k1_pack, 64, 144, 200, False, alu)
-    long_path = phase_striped_path(torch, chk, smi, db, alu)
+    long_path = phase_striped_path(torch, chk, smi, db, loops, usage, factor)
     del k1_pack
     from seqalign_tpu_torch.swissprot import random_query
 
@@ -1196,7 +1298,7 @@ def main() -> int:
     }, {
         "name": "sw_stream_striped",
         "route": "cuda",
-        "source": "seqalign_tpu_torch/csrc/sw_stream.cu",
+        "source": "seqalign_tpu_torch/csrc/sw_striped.cu",
         "replaces": "seqalign_tpu/ops/swa_pallas.py:1067",
         "launches": long_path["launches"],
         "max_abs_err": chk.max_abs_err["sw_stream_striped"],
@@ -1205,8 +1307,8 @@ def main() -> int:
         "bound_ms": long_path["bound_ms"],
         "bound_by": long_path["bound_by"],
         "library_ms": None,
-        "pass_ms": long_path["pass_ms"],
-        "at_lq1536": long_path["at_lq1536"],
+        **{k: long_path[k] for k in ("pass_ms", "rows_per_thread", "registers",
+                                      "memory_peak_bytes", "k1_beside_k2")},
         "shape": long_path["shape"],
         "main_path_kernel_s": long_path["main_path_kernel_s"],
         "main_path_gcups": long_path["main_path_gcups"],
@@ -1223,6 +1325,13 @@ def main() -> int:
         ("sw_windows", "seqalign_tpu/ops/swa_pallas.py:526"),
         ("sw_windows_const_s", "seqalign_tpu/ops/swa_pallas.py:360"),
     )]
+    # The bound at the issue rates measured on this card, beside the data
+    # sheet's (bound_ms, which the ranking of kernels keeps).
+    kfactor = {n: factor[key] for key, n in BOUND_INSTANCES.items()}
+    kfactor["sw_stream_striped"] = long_path["factor"]
+    for k in kernels:
+        k["bound_ms_measured_rates"] = k["bound_ms"] * (
+            kfactor[k["name"]] if k["bound_by"] == "operations" else 1.0)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

@@ -1,14 +1,14 @@
-// Smith-Waterman scoring for Hopper, sm_90a: one query (K1), a batch of
-// queries (K3) or one row stripe of a long query (K2) against segmented
-// window streams, and one query or a batch against fixed lane batches (K4),
-// with a constant substitution score for timing the DP loop alone (K5).
+// Smith-Waterman scoring for Hopper, sm_90a: one query (K1) or a batch of
+// queries (K3) against segmented window streams, and one query or a batch
+// against fixed lane batches (K4), with a constant substitution score for
+// timing the DP loop alone (K5). The row stripes of a long query (K2) have
+// a kernel of their own, in sw_striped.cu.
 //
 // Replaces the TPU kernel seqalign_tpu/ops/swa_pallas.py:_kernel_stream
 // + _run_block, called through sw_pallas_stream with a 2-D profile (K1) or
-// a 3-D one (K3), and _kernel_stream_striped + _run_block(bnd=...), called
-// through _stream_striped_pass (K2): the same G-form affine-gap recurrence
-// over the same inputs (biased profile P' = P - go, NW window streams,
-// segment table fs), with the same per-segment outputs, bit for bit. And
+// a 3-D one (K3): the same G-form affine-gap recurrence over the same inputs
+// (biased profile P' = P - go, NW window streams, segment table fs), with
+// the same per-segment outputs, bit for bit. And
 // _kernel + _run_block, called through sw_pallas_windows (K4; K5 with
 // const_s=True): NW equal-length '*'-padded windows, one sequence per lane,
 // the DP state fresh only at position 0 and each lane's best stored once
@@ -42,10 +42,9 @@
 // JB = 16, the one block size built). That traffic holds the kernel below
 // the int32 ALU limit (a shared load and about seven add/max/DPX
 // instructions per cell, near 2 T cells/s on 132 SMs): on an H100, a JB = 8
-// build ran 1.35-1.9x slower than JB = 16. A later kernel keeps stripes of query rows in
-// registers and passes only a stripe's boundary row through device memory,
-// which removes the row traffic and lets one thread work on several cells
-// at once.
+// build ran 1.35-1.9x slower than JB = 16. K2 (sw_striped.cu) keeps a
+// pass's query rows in registers and passes only the pass's boundary row
+// through device memory.
 //
 // Fixed batches (K4). The same body with no segment table (kFixed): a
 // window is one sequence per lane, so the rows are fresh only at block 0
@@ -59,20 +58,6 @@
 // to shared memory and none is requested. The rolling (Gg, E) rows stay:
 // they are the DP's own state. What is left is the DP loop without its
 // gather, for timing only.
-//
-// Row stripes (K2). A query longer than one launch's shared profile runs
-// as one launch per stripe of rows, the K1 body with a boundary: with kIn
-// the block's left chain (lgg, lf) starts from the previous stripe's last
-// row, (Gg, F) at each position, read from bnd_in in place of (go, 0), and
-// the row-0 diagonal is that boundary's Gg one position back, kept in a
-// register from the previous block (go where a segment starts: the
-// boundary at a segment start already belongs to the new sequence, so it
-// is read, never reset). With kOut the last row's (Gg, F) are stored to
-// bnd_out after the block's rows. Both are laid out [Gg|F][w][pos][lane]
-// like the streams, so a warp's accesses are coalesced; they cost 16 B per
-// position per pass, 16 / stripe rows B per cell (0.02 at 768) against the
-// rolling rows' 1 B. Each pass writes its own (nslots, win) bests; the
-// wrapper max-merges them with one elementwise max per pass.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -87,11 +72,9 @@ constexpr int JB = 16;  // positions per block (swa_cuda.STREAM_JB)
 // The S = P'[i][c] of K5: a constant on every row and position.
 constexpr int kConstScore = 7;
 
-// The body of all kernels; kMulti takes the query from blockIdx.z, kIn
-// reads row -1 from bnd_in, kOut writes the last row to bnd_out, kFixed
+// The body of all kernels; kMulti takes the query from blockIdx.z, kFixed
 // scores fixed windows (no fs; one best per lane), kConstS uses S = 7.
-template <bool kMulti, bool kIn = false, bool kOut = false,
-          bool kFixed = false, bool kConstS = false>
+template <bool kMulti, bool kFixed = false, bool kConstS = false>
 __device__ __forceinline__ void stream_body(
     const int32_t* __restrict__ prof,    // ([nq,] lqp, 32) biased profile
     const int8_t* __restrict__ streams,  // (nw, L, win) chars 0..31
@@ -99,9 +82,7 @@ __device__ __forceinline__ void stream_body(
     int32_t* __restrict__ out,           // (nslots, [nq,] win) bests
     int32_t* __restrict__ row_gg,        // ([nq,] nw, lqp, win) scratch
     int32_t* __restrict__ row_e,         // ([nq,] nw, lqp, win) scratch
-    int lqp, int len, int win, int nw, int go, int ge,
-    const int32_t* __restrict__ bnd_in = nullptr,  // (2, nw, L, win)
-    int32_t* __restrict__ bnd_out = nullptr) {     // (2, nw, L, win)
+    int lqp, int len, int win, int nw, int go, int ge) {
   const int q = kMulti ? (int)blockIdx.z : 0;
   const int nq = kMulti ? (int)gridDim.z : 1;
   extern __shared__ int32_t sprof[];
@@ -125,13 +106,9 @@ __device__ __forceinline__ void stream_body(
   const size_t slot_stride = (size_t)nq * win;
   const int8_t* col = streams + (size_t)w * len * win + lane;
   const int nblocks = len / JB;
-  // The boundary's Gg plane at this window and lane; F is one plane on.
-  const size_t bnd_col = (size_t)w * len * win + lane;
-  const size_t bnd_plane = (size_t)nw * len * win;
 
   int best = 0;
   bool fresh = true;  // the rows hold the boundary (Gg = go, E = 0)
-  int bprev = go;     // kIn: bnd_in's Gg at the previous block's last position
   for (int blk = 0; blk < nblocks; ++blk) {
     if constexpr (!kFixed) {
       const int slot = fs[((size_t)blk * nw + w) * 2];
@@ -148,28 +125,14 @@ __device__ __forceinline__ void stream_body(
       // Read the char unsigned and mask it: never a negative index.
       c[t] = (int)(uint8_t)col[(size_t)(blk * JB + t) * win] & (kAlpha - 1);
     }
-    // Query row -1 is the boundary: Gg = go, F = 0 at every position; for
-    // a later stripe, the previous stripe's last row.
+    // Query row -1 is the boundary: Gg = go, F = 0 at every position.
     int lgg[JB], lf[JB];
-    if constexpr (kIn) {
-      const int32_t* b = bnd_in + bnd_col + (size_t)blk * JB * win;
 #pragma unroll
-      for (int t = 0; t < JB; ++t) {
-        lgg[t] = b[(size_t)t * win];
-        lf[t] = b[bnd_plane + (size_t)t * win];
-      }
-    } else {
-#pragma unroll
-      for (int t = 0; t < JB; ++t) {
-        lgg[t] = go;
-        lf[t] = 0;
-      }
+    for (int t = 0; t < JB; ++t) {
+      lgg[t] = go;
+      lf[t] = 0;
     }
     int dt = go;  // Gg(i-1, block start - 1), the t = 0 diagonal
-    if constexpr (kIn) {
-      if (!fresh) dt = bprev;
-      bprev = lgg[JB - 1];
-    }
 #pragma unroll 4  // kRowUnroll
     for (int i = 0; i < lqp; ++i) {
       const int32_t* prow = sprof + i * kAlpha;
@@ -192,14 +155,6 @@ __device__ __forceinline__ void stream_body(
       dt = t0n;
       gg_row[(size_t)i * win] = gg_prev;
       e_row[(size_t)i * win] = e_prev;
-    }
-    if constexpr (kOut) {
-      int32_t* b = bnd_out + bnd_col + (size_t)blk * JB * win;
-#pragma unroll
-      for (int t = 0; t < JB; ++t) {
-        b[(size_t)t * win] = lgg[t];
-        b[bnd_plane + (size_t)t * win] = lf[t];
-      }
     }
     fresh = false;
   }
@@ -231,36 +186,6 @@ __global__ void __launch_bounds__(kThreads) sw_stream_multi_kernel(
                     nw, go, ge);
 }
 
-// K2: one row stripe of one query; grid (lane blocks, nw).
-template <bool kIn, bool kOut>
-__global__ void __launch_bounds__(kThreads) sw_stream_striped_kernel(
-    const int32_t* __restrict__ prof, const int8_t* __restrict__ streams,
-    const int32_t* __restrict__ fs, int32_t* __restrict__ out,
-    int32_t* __restrict__ row_gg, int32_t* __restrict__ row_e,
-    const int32_t* __restrict__ bnd_in, int32_t* __restrict__ bnd_out,
-    int lqp, int len, int win, int nw, int go, int ge) {
-  stream_body<false, kIn, kOut>(prof, streams, fs, out, row_gg, row_e, lqp,
-                                len, win, nw, go, ge, bnd_in, bnd_out);
-}
-
-template <bool kIn, bool kOut>
-int launch_striped(const void* prof, const void* streams, const void* fs,
-                   void* out, void* row_gg, void* row_e, const void* bnd_in,
-                   void* bnd_out, int lqp, int len, int win, int nw, int go,
-                   int ge, cudaStream_t stream) {
-  const size_t smem = (size_t)lqp * kAlpha * sizeof(int32_t);
-  cudaError_t err = cudaFuncSetAttribute(
-      sw_stream_striped_kernel<kIn, kOut>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((win + kThreads - 1) / kThreads, nw);
-  sw_stream_striped_kernel<kIn, kOut><<<grid, kThreads, smem, stream>>>(
-      (const int32_t*)prof, (const int8_t*)streams, (const int32_t*)fs,
-      (int32_t*)out, (int32_t*)row_gg, (int32_t*)row_e,
-      (const int32_t*)bnd_in, (int32_t*)bnd_out, lqp, len, win, nw, go, ge);
-  return (int)cudaGetLastError();
-}
-
 // K4 (K5 with kConstS): nq queries (kMulti) against nw fixed windows;
 // grid (lane blocks, nw[, nq]).
 template <bool kMulti, bool kConstS>
@@ -269,7 +194,7 @@ __global__ void __launch_bounds__(kThreads) sw_windows_kernel(
     int32_t* __restrict__ out, int32_t* __restrict__ row_gg,
     int32_t* __restrict__ row_e, int lqp, int len, int win, int nw, int go,
     int ge) {
-  stream_body<kMulti, false, false, true, kConstS>(
+  stream_body<kMulti, true, kConstS>(
       prof, db, nullptr, out, row_gg, row_e, lqp, len, win, nw, go, ge);
 }
 
@@ -341,35 +266,6 @@ int sw_stream_multi_launch(const void* prof, const void* streams,
       (int32_t*)out, (int32_t*)row_gg, (int32_t*)row_e, lqp, len, win, nw,
       go, ge);
   return (int)cudaGetLastError();
-}
-
-// Launch one K2 pass on `stream`; same contract as sw_stream_launch, plus
-// bnd_in (the previous stripe's last row, NULL for the first stripe) and
-// bnd_out (this stripe's last row, NULL for the last), each (2, nw, L, win).
-// A pass with neither is a one-stripe query, K1's work: refused.
-int sw_stream_striped_launch(const void* prof, const void* streams,
-                             const void* fs, void* out, void* row_gg,
-                             void* row_e, const void* bnd_in, void* bnd_out,
-                             int lqp, int len, int win, int nw, int jb,
-                             int go, int ge, void* stream) {
-  if (lqp % kRowUnroll || win <= 0 || nw <= 0 || nw > 65535 || len <= 0 ||
-      jb != JB || len % JB || (!bnd_in && !bnd_out)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  cudaStream_t s = (cudaStream_t)stream;
-  if (bnd_in && bnd_out) {
-    return launch_striped<true, true>(prof, streams, fs, out, row_gg, row_e,
-                                      bnd_in, bnd_out, lqp, len, win, nw, go,
-                                      ge, s);
-  }
-  if (bnd_in) {
-    return launch_striped<true, false>(prof, streams, fs, out, row_gg, row_e,
-                                       bnd_in, bnd_out, lqp, len, win, nw, go,
-                                       ge, s);
-  }
-  return launch_striped<false, true>(prof, streams, fs, out, row_gg, row_e,
-                                     bnd_in, bnd_out, lqp, len, win, nw, go,
-                                     ge, s);
 }
 
 // Launch K4 (const_s = 0) or K5 (const_s = 1) on `stream`: prof ([nq,]

@@ -50,8 +50,9 @@ it (``sw_pallas_multi``: an unbiased profile and an ``(Lb, B)`` batch),
 :func:`sw_window` its one-window form (``sw_pallas``).
 
 On a CUDA tensor each wrapper launches its kernel in ``csrc/sw_stream.cu``
-or raises; on a CPU tensor it runs its plain version
-(:func:`sw_stream_reference`, :func:`sw_stream_multi_reference`,
+(K2's in ``csrc/sw_striped.cu``: a warp per lane, the pass's rows in
+registers, no rolling-row scratch) or raises; on a CPU tensor it runs its
+plain version (:func:`sw_stream_reference`, :func:`sw_stream_multi_reference`,
 :func:`sw_stream_striped_pass_reference`, :func:`sw_windows_reference`).
 """
 
@@ -69,11 +70,20 @@ from ..device import resolve_device
 # kernel (K2, sw_stream_striped), whose launches take STRIPE_ROWS rows each.
 MAX_QUERY_ROWS = 1536
 
-# Rows per pass of the striped kernel (a multiple of convert.ROW_ALIGN):
-# 96 KiB of shared profile, which leaves room for the 2 CTAs per SM that
-# the registers allow. On an H100 at lq=2000, 768 ran 0.3% faster than 512
-# and 1.3% faster than 256; 1024 (1 CTA per SM) 1.7x slower (PERF.md).
-STRIPE_ROWS = 768
+# The striped kernel (K2, csrc/sw_striped.cu) scores a lane with one warp
+# of STRIPE_TEAM threads, thread k holding R rows of the pass in registers;
+# it is built for each R of STRIPE_ROWS_PER_THREAD_BUILT, and a pass runs
+# the smallest that holds its rows (stripe_rows_per_thread).
+STRIPE_TEAM = 32
+STRIPE_ROWS_PER_THREAD_BUILT = (8, 16, 24, 32)
+# R of a full pass, and its rows (a multiple of convert.ROW_ALIGN). On an
+# H100 at lq=2000, R = 32 ran 1.07x faster than 24, 1.20x than 16 and 1.48x
+# than 8 (PERF.md).
+STRIPE_ROWS_PER_THREAD = 32
+STRIPE_ROWS = STRIPE_TEAM * STRIPE_ROWS_PER_THREAD
+# The K2 kernel packs a step's fs slot from bit 11 of a signed int32
+# segment word (kSlotShift), so a slot must stay below 2^20.
+STRIPE_MAX_SLOTS = 1 << 20
 
 # Positions per kernel block, chained through registers per sweep over the
 # query rows; the one block size the CUDA kernel is built for (the plain
@@ -262,6 +272,31 @@ def _check_bnd(name, bnd, streams):
         raise ValueError(f"{name} is not contiguous")
 
 
+def stripe_rows_per_thread(rows: int) -> int:
+    """R of the K2 instance a pass of ``rows`` rows launches: the smallest
+    of ``STRIPE_ROWS_PER_THREAD_BUILT`` whose team holds them."""
+    for r in STRIPE_ROWS_PER_THREAD_BUILT:
+        if STRIPE_TEAM * r >= rows:
+            return r
+    raise ValueError(
+        f"a K2 pass of {rows} rows exceeds the {STRIPE_TEAM} x "
+        f"{STRIPE_ROWS_PER_THREAD_BUILT[-1]} rows its kernel holds"
+    )
+
+
+def stripe_kernel_instance(rows: int, bnd_in: bool, bnd_out: bool,
+                           rows_per_thread: int | None = None) -> str:
+    """The template instance of ``csrc/sw_striped.cu`` that a pass of
+    ``rows`` rows launches (``launch_rows``' choice), keyed as ``sass.
+    kernel_key`` keys it: ``sw_stream_striped_kernel<R, kIn, kOut,
+    kPartial>``, kPartial where the pass writes a last row that sits inside
+    a thread."""
+    r = rows_per_thread or stripe_rows_per_thread(rows)
+    flags = (bnd_in, bnd_out, bnd_out and rows % r != 0)
+    return (f"sw_stream_striped_kernel<{r}, "
+            + ", ".join("true" if f else "false" for f in flags) + ">")
+
+
 def sw_stream_striped_pass(
     profile_biased: torch.Tensor,
     streams: torch.Tensor,
@@ -273,14 +308,18 @@ def sw_stream_striped_pass(
     jb: int,
     bnd_in: torch.Tensor | None = None,
     bnd_out: torch.Tensor | None = None,
+    rows_per_thread: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """One row stripe of a long query against the streams, in one launch
     (one pass of K2).
 
     Args:
       profile_biased: ``(rows, 32)`` int32 biased stripe
-        (``convert.profile_stripes``), as :func:`sw_stream` takes it.
-      streams, fs, go, ge, nslots, jb: as :func:`sw_stream`.
+        (``convert.profile_stripes``), as :func:`sw_stream` takes it; the
+        CUDA kernel takes at most ``STRIPE_TEAM`` x the largest of
+        ``STRIPE_ROWS_PER_THREAD_BUILT`` rows (1024) in a pass.
+      streams, fs, go, ge, jb: as :func:`sw_stream`.
+      nslots: as :func:`sw_stream`, below ``STRIPE_MAX_SLOTS``.
       bnd_in: ``(2, NW, L, win)`` int32 ``(Gg, F)`` of the previous
         stripe's last row, or None for the first stripe (row -1 is then the
         boundary Gg = go, F = 0).
@@ -288,6 +327,9 @@ def sw_stream_striped_pass(
         its own last row's ``(Gg, F)``, or None for the last stripe. At
         least one of ``bnd_in`` and ``bnd_out`` is given: a pass with
         neither is a one-stripe query, :func:`sw_stream`'s work.
+      rows_per_thread: R of the kernel instance to launch, one of
+        ``STRIPE_ROWS_PER_THREAD_BUILT`` whose team holds the rows; None
+        for :func:`stripe_rows_per_thread`'s. The plain version has no R.
 
     Returns:
       ``((nslots, win)`` int32 per-segment bests over this stripe's rows,
@@ -301,14 +343,29 @@ def sw_stream_striped_pass(
             "a pass with no boundary in or out is a one-stripe query: "
             "use sw_stream (K1)"
         )
+    if nslots >= STRIPE_MAX_SLOTS:
+        raise ValueError(
+            f"nslots={nslots}: the K2 kernel's segment word holds slots below "
+            f"{STRIPE_MAX_SLOTS}"
+        )
+    rows = profile_biased.shape[0]
+    if rows_per_thread is not None and (
+            rows_per_thread not in STRIPE_ROWS_PER_THREAD_BUILT
+            or STRIPE_TEAM * rows_per_thread < rows):
+        raise ValueError(
+            f"rows_per_thread={rows_per_thread}: K2 is built for "
+            f"{STRIPE_ROWS_PER_THREAD_BUILT}, and a team must hold {rows} rows"
+        )
     if streams.device.type == "cpu":
         return sw_stream_striped_pass_reference(
             profile_biased, streams, fs, go, ge, nslots=nslots, jb=jb,
             bnd_in=bnd_in, bnd_out=bnd_out,
         )
+    if rows == 0:
+        raise ValueError("a K2 pass needs at least one row")
     out = _launch(
         "sw_stream_striped", profile_biased, streams, fs, go, ge, nslots, jb,
-        bnd=(bnd_in, bnd_out),
+        bnd=(bnd_in, bnd_out), rows_per_thread=rows_per_thread,
     )
     sw_stream_striped_pass.launches += 1
     return out, bnd_out
@@ -370,11 +427,14 @@ def _striped(pass_fn, stripes, streams, fs, go, ge, nslots, jb) -> torch.Tensor:
     return best
 
 
-def _launch(name, prof, streams, fs, go, ge, nslots, jb, bnd=()) -> torch.Tensor:
+def _launch(name, prof, streams, fs, go, ge, nslots, jb, bnd=None,
+            rows_per_thread=None) -> torch.Tensor:
     """Launch the CUDA kernel ``name`` (``sw_stream``: a 2-D profile,
-    ``sw_stream_multi``: a 3-D one, ``sw_stream_striped``: a 2-D stripe and
-    its boundary tensors ``bnd``, None for none) on checked tensors; raise
-    on another device or block size, and on a refused launch."""
+    ``sw_stream_multi``: a 3-D one, both with the rolling rows; or
+    ``sw_stream_striped``: a 2-D stripe and its boundary tensors ``bnd =
+    (bnd_in, bnd_out)``, None for none, no scratch, at ``rows_per_thread``
+    or the smallest R that holds the stripe) on checked tensors; raise on
+    another device or block size, and on a refused launch."""
     if streams.device.type != "cuda":
         raise ValueError(f"no stream kernel for device {streams.device}")
     if jb != STREAM_JB:
@@ -384,13 +444,16 @@ def _launch(name, prof, streams, fs, go, ge, nslots, jb, bnd=()) -> torch.Tensor
     lqp = prof.shape[-2]
     dev = streams.device
     out = torch.zeros((nslots, *prof.shape[:-2], win), dtype=torch.int32, device=dev)
-    rows = _rows(nq, nw, lqp, win, dev)
     dims = (lqp, length, win, nw) + ((nq,) if prof.ndim == 3 else ())
+    if bnd is None:
+        rows = _rows(nq, nw, lqp, win, dev)
+        state, team = (rows[0].data_ptr(), rows[1].data_ptr()), ()
+    else:
+        state = tuple(None if t is None else t.data_ptr() for t in bnd)
+        team = (rows_per_thread or stripe_rows_per_thread(lqp),)
     _call(
         name, dev, prof.data_ptr(), streams.data_ptr(), fs.data_ptr(),
-        out.data_ptr(), rows[0].data_ptr(), rows[1].data_ptr(),
-        *(None if t is None else t.data_ptr() for t in bnd),
-        *dims, jb, int(go), int(ge),
+        out.data_ptr(), *state, *dims, jb, int(go), int(ge), *team,
     )
     return out
 

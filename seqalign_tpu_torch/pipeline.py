@@ -54,7 +54,8 @@ BATCH_LANES = 512
 # its output (choose_query_block); sets the queries per launch.
 MULTI_SCRATCH_BYTES = 8 << 30
 # Device memory one chunk of a striped (long-query) search may take for its
-# two boundary arrays, 16 B per stream cell (Gg and F, in and out). Chunks
+# two boundary arrays, 16 B per stream cell (Gg and F, in and out): the only
+# scratch the striped kernel keeps, its DP rows living in registers. Chunks
 # are cut before packing, by real residues at half this many cells, which
 # leaves room for the streams' padding; the Swiss-Prot-scale database
 # (205 M residues, 3.5 GB of boundaries) stays one chunk.

@@ -5,11 +5,18 @@
 builds ``csrc/*.cu`` as ``ops/_build.py`` does and prints, for each kernel
 function: the registers and spills ptxas reports (``-Xptxas -v``), its
 number of SASS instructions (``cuobjdump -sass``), and its innermost DP
-loop (the row loop): the instructions of the loop body, the DP cells one
-iteration computes (one ``LDS``, the profile gather ``P'[i][c]``, each; a
-loop without a gather, K5's, computes ``CELLS_PER_ITERATION``) and the
-integer ALU instructions per cell. A template kernel's instances are keyed
-apart by their arguments (``sw_windows_kernel<false, true>``). With ``--against DIR`` it builds
+loop (the stream body's row loop; K2's step loop, R rows at two
+positions): the instructions of the loop body, the DP cells one iteration
+computes (one ``LDS``, the profile gather ``P'[i][c]``, each; a loop
+without a gather, K5's, computes ``CELLS_PER_ITERATION``) and the integer
+ALU instructions per cell; of those, the ``IMAD`` family issues on the FMA
+pipe beside the ALU pipe that takes the rest (``seqalign_tpu_torch.probe``
+measures the two side by side), so ``pipe_per_cell`` counts the busier
+pipe's. K2's shuffles (``SHFL``) are not ALU work: the probe runs them
+beside ``VIADDMNMX`` at twice the rate of either, and beside ``LDS`` at
+the rate of one, so they take the shared-memory path with ``LDS``. A template kernel's instances
+are keyed apart by their arguments (``sw_windows_kernel<false, true>``,
+``sw_stream_striped_kernel<16, true, true, false>``). With ``--against DIR`` it builds
 ``DIR/seqalign_tpu_torch/csrc/*.cu`` (another checkout, for example the
 parent commit) the same way and says, kernel by kernel, whether both builds
 compiled to the same SASS, instruction for instruction.
@@ -35,30 +42,67 @@ KERNELS = ("sw_stream_kernel", "sw_stream_multi_kernel", "sw_stream_striped_kern
            "sw_windows_kernel")
 # Cells of one iteration of the row loop: kRowUnroll (= ROW_ALIGN) rows x JB
 # (= STREAM_JB) positions of csrc/sw_stream.cu. Where the loop gathers the
-# profile it holds one LDS per cell, and the count of LDS must equal this.
+# profile it holds one LDS per cell, and the count of LDS must equal this
+# (expected_cells; K2's step loop holds 2 R).
 CELLS_PER_ITERATION = ROW_ALIGN * STREAM_JB
-# Opcodes that are not integer ALU work: memory, control, conversion.
-_NOT_ALU = ("LD", "ST", "BRA", "BAR", "NOP", "EXIT", "RET", "CALL", "BSYNC",
-            "BSSY", "S2R", "CS2R", "MEMBAR", "ULD", "UST", "WARPSYNC", "DEPBAR")
+# Positions one step of K2 (csrc/sw_striped.cu) covers, R rows each.
+STRIPED_POSITIONS_PER_STEP = 2
+# Opcodes that are not integer ALU work: memory (SHFL shares LDS's path),
+# control, conversion.
+_NOT_ALU = ("LD", "ST", "SHFL", "BRA", "BAR", "NOP", "EXIT", "RET", "CALL",
+            "BSYNC", "BSSY", "S2R", "CS2R", "MEMBAR", "ULD", "UST", "WARPSYNC",
+            "DEPBAR")
 
 _INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.+?)\s*;")
 _LABEL = re.compile(r"^\s*(\.L_x_\d+):")
 _TARGET = re.compile(r"`?\((\.L_x_\d+)\)|\b0x([0-9a-f]+)\b")
-_BOOL_ARGS = re.compile(r"I((?:Lb[01]E)+)E")
+_TEMPLATE_ARGS = re.compile(r"I((?:L[bi]\d+E)+)E")
 
 
 def kernel_key(mangled: str) -> str | None:
-    """The kernel of ``KERNELS`` a mangled name belongs to, with its bool
-    template arguments (``sw_stream_striped_kernel<true, false>``); None for
-    another function."""
+    """The kernel of ``KERNELS`` a mangled name belongs to, with its bool and
+    int template arguments (``sw_stream_striped_kernel<16, true, true,
+    false>``); None for another function."""
     short = next((k for k in sorted(KERNELS, key=len, reverse=True) if k in mangled), None)
     if short is None:
         return None
-    m = _BOOL_ARGS.match(mangled[mangled.index(short) + len(short):])
+    m = _TEMPLATE_ARGS.match(mangled[mangled.index(short) + len(short):])
     if not m:
         return short
-    args = ", ".join("true" if a == "1" else "false" for a in re.findall(r"Lb([01])E", m.group(1)))
+    args = ", ".join(
+        v if t == "i" else ("true" if v == "1" else "false")
+        for t, v in re.findall(r"L([bi])(\d+)E", m.group(1))
+    )
     return f"{short}<{args}>"
+
+
+def expected_cells(key: str) -> int:
+    """The ``LDS`` (cells) one iteration of a gathering kernel's DP loop
+    holds: ``STRIPED_POSITIONS_PER_STEP`` x R (K2's first template argument)
+    for K2's step loop; ``CELLS_PER_ITERATION`` for the stream body's row
+    loop."""
+    if key.startswith("sw_stream_striped_kernel<"):
+        return STRIPED_POSITIONS_PER_STEP * int(key.split("<", 1)[1].split(",", 1)[0])
+    return CELLS_PER_ITERATION
+
+
+def resource_usage(lib: Path, text: str | None = None) -> dict[str, dict[str, int]]:
+    """Function (mangled) -> the resources ``cuobjdump -res-usage`` reports
+    (``REG``, ``STACK``, ``SHARED``, ``LOCAL``, ...); ``LOCAL`` 0 means no
+    local memory, so no spills."""
+    if text is None:
+        text = subprocess.run([_tool("cuobjdump"), "-res-usage", str(lib)],
+                              capture_output=True, text=True, check=True).stdout
+    usage, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function (\S+?):?\s*$", line)
+        if m:
+            cur = m.group(1)
+            continue
+        if cur and "REG:" in line:
+            usage[cur] = {k: int(v) for k, v in re.findall(r"([A-Z]+(?:\[\d+\])?):(\d+)", line)}
+            cur = None
+    return usage
 
 
 def _tool(name: str) -> str:
@@ -125,15 +169,12 @@ def opcode(instr: str) -> str:
     return tok[0] if tok else ""
 
 
-def inner_loop(instrs) -> dict | None:
-    """The innermost DP loop, the shortest backward branch whose body holds
-    DP work (``VIADDMNMX``, the E and F updates): its size, its cells and
-    integer ALU instructions per cell. The cells are its ``LDS`` (the
-    profile gather), one each; only a kernel with no DP loop that gathers
-    (K5) takes a loop without ``LDS``, of ``CELLS_PER_ITERATION`` cells."""
+def loop_bodies(instrs) -> list[list[str]]:
+    """The opcodes of each loop of a function: from a backward branch's
+    target to the branch."""
     at = {lab: i for i, (_, _, lab) in enumerate(instrs) if lab}
     at.update({addr: i for i, (addr, _, _) in enumerate(instrs)})
-    loops = []
+    bodies = []
     for k, (_, ins, _) in enumerate(instrs):
         if opcode(ins).split(".")[0] != "BRA":
             continue
@@ -141,9 +182,19 @@ def inner_loop(instrs) -> dict | None:
         if not m:
             continue
         start = at.get(m.group(1) if m.group(1) else int(m.group(2), 16), k + 1)
-        if start > k:
-            continue
-        body = [opcode(x) for _, x, _ in instrs[start : k + 1]]
+        if start <= k:
+            bodies.append([opcode(x) for _, x, _ in instrs[start : k + 1]])
+    return bodies
+
+
+def inner_loop(instrs) -> dict | None:
+    """The innermost DP loop, the shortest backward branch whose body holds
+    DP work (``VIADDMNMX``, the E and F updates): its size, its cells and
+    integer ALU instructions per cell. The cells are its ``LDS`` (the
+    profile gather), one each; only a kernel with no DP loop that gathers
+    (K5) takes a loop without ``LDS``, of ``CELLS_PER_ITERATION`` cells."""
+    loops = []
+    for body in loop_bodies(instrs):
         if not any(op.startswith("VIADDMNMX") for op in body):
             continue
         hist = collections.Counter(op.split(".")[0] for op in body)
@@ -152,6 +203,8 @@ def inner_loop(instrs) -> dict | None:
         loops.append({"instructions": len(body), "cells": cells,
                       "cells_from": "LDS" if hist["LDS"] else "CELLS_PER_ITERATION",
                       "alu_per_cell": alu / cells,
+                      "imad_per_cell": hist["IMAD"] / cells,
+                      "pipe_per_cell": max(alu - hist["IMAD"], hist["IMAD"]) / cells,
                       "instructions_per_cell": len(body) / cells,
                       "opcodes": dict(hist.most_common())})
     # A loop that gathers beats any that does not; then the shortest.

@@ -16,11 +16,15 @@ device's busy share under ``torch.profiler``. It then times the kernel at
 each query length of ``--lq`` (the pipeline's own window count) and, with
 the 144-residue query, at each window count of ``--windows``. A query
 longer than ``MAX_QUERY_ROWS`` runs the row-striped kernel (K2) at each
-stripe height of ``--stripe-rows`` (default ``STRIPE_ROWS``): the number of
-passes, each pass's time and the whole search's, then three
-``search_database`` calls at that length. Every line printed names the card
-and its power limit; ``--out`` gets the same as JSON. The FASTA is written
-to and parsed from ``build/`` of the checkout.
+stripe height of ``--stripe-rows`` (default ``STRIPE_ROWS``; a height of 32
+R rows runs K2's instance of R rows per thread, so 256,512,768,1024 sweeps
+R over 8, 16, 24 and 32): the number of passes, R and the registers of
+the instances the passes launch, each pass's time and the whole search's;
+then, at ``STRIPE_ROWS``, the last pass at each R built that holds its
+rows, K2 over streams of each window count of ``--windows``, and three
+``search_database`` calls at that length. Every line printed names
+the card and its power limit; ``--out`` gets the same as JSON. The FASTA is
+written to and parsed from ``build/`` of the checkout.
 
 With ``--nq N`` it times the multi-query search instead, for a batch of N
 random queries of each length of ``--lq`` (``--nq 8 --lq 17`` is
@@ -139,6 +143,38 @@ def striped_pass_ms(stripes, streams, fs, go, ge, nslots, reps) -> list[float]:
                   bnd_in=bnd[(p - 1) % 2] if p else None,
                   bnd_out=bnd[p % 2] if p < len(stripes) - 1 else None)
         out.append(cuda_ms(lambda: sw_stream_striped_pass(st, streams, fs, go, ge, **kw), reps))
+    return out
+
+
+def last_pass_ms(stripes, streams, fs, go, ge, nslots, reps) -> dict[int, float]:
+    """CUDA-event ms of the last of two or more K2 passes at each R of
+    ``STRIPE_ROWS_PER_THREAD_BUILT`` whose team holds its rows, reading the
+    boundary the passes before it wrote; the bests must not depend on R."""
+    from .ops.swa_cuda import (
+        STREAM_JB, STRIPE_ROWS_PER_THREAD_BUILT, STRIPE_TEAM, sw_stream_striped_pass,
+    )
+
+    bnd = torch.empty((2, 2, *streams.shape), dtype=torch.int32, device=streams.device)
+    kw = dict(nslots=nslots, jb=STREAM_JB)
+    for p, st in enumerate(stripes[:-1]):
+        sw_stream_striped_pass(st, streams, fs, go, ge,
+                               bnd_in=bnd[(p - 1) % 2] if p else None,
+                               bnd_out=bnd[p % 2], **kw)
+    last, bnd_in = stripes[-1], bnd[(len(stripes) - 2) % 2]
+    out, want = {}, None
+    for r in STRIPE_ROWS_PER_THREAD_BUILT:
+        if STRIPE_TEAM * r < last.shape[0]:
+            continue
+
+        def run():
+            return sw_stream_striped_pass(last, streams, fs, go, ge, bnd_in=bnd_in,
+                                          rows_per_thread=r, **kw)[0]
+
+        got = run()
+        want = got if want is None else want
+        if not torch.equal(got, want):
+            raise SystemExit(f"swissprot: the last K2 pass at R={r} differs")
+        out[r] = cuda_ms(run, reps)
     return out
 
 
@@ -325,11 +361,13 @@ def multi_breakdown(db, nq: int, lq: int, say) -> dict:
 
 
 def main(argv=None) -> int:
-    from . import pipeline
+    from . import pipeline, sass
     from .convert import profile_stripes, profile_to_torch, stream_pack_to_torch
     from .host import pack_streams, parse_file_cached
+    from .ops import _build
     from .ops.swa_cuda import (
-        MAX_QUERY_ROWS, STREAM_JB, STRIPE_ROWS, sw_stream, sw_stream_striped,
+        MAX_QUERY_ROWS, STREAM_JB, STRIPE_ROWS, stripe_kernel_instance,
+        stripe_rows_per_thread, sw_stream, sw_stream_striped,
     )
     from .ops.swa_torch import make_profile
 
@@ -353,7 +391,8 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     sc = pam250()
     go, ge = sc.gap_open_total, sc.gap_extend
-    result = {"card": smi, "steps_s": {}, "lq": [], "windows": [], "long_search": []}
+    result = {"card": smi, "steps_s": {}, "lq": [], "windows": [], "long_search": [],
+              "long_windows": [], "last_pass": []}
     steps = result["steps_s"]
 
     def say(msg):
@@ -436,17 +475,45 @@ def main(argv=None) -> int:
             # as the database stays one striped chunk.
             if residues > pipeline.striped_chunk_residues():
                 raise SystemExit("swissprot: the striped search takes several chunks")
+            usage = {sass.kernel_key(m): u for m, u in
+                     sass.resource_usage(_build.build()).items()}
             for sr in stripe_rows:
                 stripes = profile_stripes(make_profile(sc.table, q), go, sr, dev)
+                r = stripe_rows_per_thread(sr)
+                regs = {}
+                for p, st in enumerate(stripes):
+                    key = stripe_kernel_instance(st.shape[0], p > 0, p < len(stripes) - 1)
+                    regs[key] = usage.get(key, {}).get("REG")
                 ms = cuda_ms(lambda: sw_stream_striped(stripes, streams, fs, go, ge, **kw), 3)
                 pass_ms = striped_pass_ms(stripes, streams, fs, go, ge, kw["nslots"], 2)
                 gcups = lq * residues / ms / 1e6
                 result["lq"].append({
-                    "lq": lq, "stripe_rows": sr, "passes": len(stripes), "ms": ms,
+                    "lq": lq, "stripe_rows": sr, "rows_per_thread": r,
+                    "registers": regs, "passes": len(stripes), "ms": ms,
                     "pass_ms": pass_ms, "gcups": gcups, "shape": shape,
                     "padded_over_real": padded})
-                say(f"[lq] lq={lq} {shape}: K2, {len(stripes)} passes of {sr} rows: "
-                    f"{ms} ms = {gcups} GCUPS over real residues; per pass {pass_ms} ms")
+                say(f"[lq] lq={lq} {shape}: K2, {len(stripes)} passes of {sr} rows "
+                    f"(R={r}; registers {regs}): {ms} ms = {gcups} GCUPS over real "
+                    f"residues; per pass {pass_ms} ms")
+            stripes = profile_stripes(make_profile(sc.table, q), go, STRIPE_ROWS, dev)
+            if len(stripes) > 1:
+                rows = stripes[-1].shape[0]
+                ms = last_pass_ms(stripes, streams, fs, go, ge, kw["nslots"], 3)
+                result["last_pass"].append({"lq": lq, "rows": rows, "ms_by_r": ms})
+                say(f"[last pass] lq={lq}: the last of {len(stripes)} passes, {rows} rows, at "
+                    f"R = {list(ms)}: {list(ms.values())} ms")
+            for w in windows:
+                pw = pack_streams(db, order, w, win=win, jb=STREAM_JB,
+                                  grain=pipeline.STREAM_GRAIN)
+                s_w, fs_w = stream_pack_to_torch(pw, dev)
+                kw_w = dict(nslots=len(pw.slot_ids), jb=STREAM_JB)
+                ms = cuda_ms(lambda: sw_stream_striped(stripes, s_w, fs_w, go, ge, **kw_w), 2)
+                pad_w = pw.padded_cells_per_query_row / residues
+                result["long_windows"].append({"lq": lq, "nw": w, "L": s_w.shape[1],
+                                               "ms": ms, "padded_over_real": pad_w})
+                say(f"[windows] lq={lq} nw={w} L={s_w.shape[1]}: K2 at {STRIPE_ROWS} rows "
+                    f"{ms} ms = {lq * residues / ms / 1e6} GCUPS (padded/real cells {pad_w})")
+                del s_w, fs_w
             for _ in range(3):
                 (_, kernel_s), wall = _seconds(
                     lambda: pipeline.search_database(q, db, sc, device=dev))

@@ -228,3 +228,40 @@ def test_sass_inner_loop_counts_cells():
     assert sass.kernel_key(name) == "sw_windows_kernel<false, true>"
     assert sass.kernel_key("_ZN12_GLOBAL__N_116sw_stream_kernelEv") == "sw_stream_kernel"
     assert sass.kernel_key("_Z3foov") is None
+
+
+@pytest.mark.parametrize("fails", [None, "sw_striped.cu"])
+def test_build_compiles_each_source_then_links(fails, monkeypatch, tmp_path):
+    """Every csrc/*.cu compiles on its own (nvcc -c, all started before any
+    is waited for), then one nvcc links the objects; a failed compile
+    raises with its output, and no object is left behind."""
+    bin_dir = tmp_path / "bin"
+    bin_dir.mkdir()
+    log = tmp_path / "nvcc.log"
+    nvcc = bin_dir / "nvcc"
+    nvcc.write_text(
+        "#!/bin/sh\n"
+        f'echo "$*" >> {log}\n'
+        f'case "$*" in *{fails or "@none@"}*) echo "bad source" >&2; exit 3;; esac\n'
+        'while [ "$#" -gt 0 ]; do [ "$1" = -o ] && : > "$2"; shift; done\n'
+    )
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("PATH", str(bin_dir))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    out = tmp_path / "build"
+    srcs = sorted(p.name for p in _build._CSRC.glob("*.cu"))
+    assert "sw_striped.cu" in srcs and "sw_stream.cu" in srcs
+    if fails:
+        with pytest.raises(RuntimeError, match="bad source"):
+            _build.build(out)
+        assert not list(out.glob("*.so"))
+    else:
+        lib = _build.build(out)
+        assert lib.exists() and lib.suffix == ".so"
+        calls = log.read_text().splitlines()
+        compiles = [c for c in calls if " -c " in f" {c} "]
+        assert sorted(c.split()[-1].rsplit("/", 1)[-1] for c in compiles) == srcs
+        assert all("-shared" not in c.split() for c in compiles)
+        link = calls[-1].split()
+        assert "-shared" in link and sum(a.endswith(".o") for a in link) == len(srcs)
+    assert not list(out.glob("*.o"))

@@ -149,10 +149,12 @@ def test_profile_stripes():
     assert all(s.dtype == torch.int32 for s in stripes)
     # At the port's own limits a query one row over K1's limit keeps whole
     # stripes and one short last stripe.
-    long = np.zeros((swa_cuda.MAX_QUERY_ROWS + 1, 32), np.int32)
+    n = swa_cuda.MAX_QUERY_ROWS + 1
+    long = np.zeros((n, 32), np.int32)
     rows = [s.shape[0] for s in profile_stripes(long, go, swa_cuda.STRIPE_ROWS, "cpu")]
-    assert rows == [swa_cuda.STRIPE_ROWS] * (
-        swa_cuda.MAX_QUERY_ROWS // swa_cuda.STRIPE_ROWS) + [ROW_ALIGN]
+    rest = n % swa_cuda.STRIPE_ROWS
+    assert rest and rows == [swa_cuda.STRIPE_ROWS] * (n // swa_cuda.STRIPE_ROWS) + [
+        -(-rest // ROW_ALIGN) * ROW_ALIGN]
     with pytest.raises(ValueError):
         profile_stripes(prof, go, ROW_ALIGN + 2, "cpu")
     with pytest.raises(ValueError):
@@ -347,3 +349,210 @@ def test_mixed_batch_pads_no_profile_to_a_long_query(gap_open, shrunk, monkeypat
     assert built and max(built) <= swa_cuda.MAX_QUERY_ROWS
     want, _ = jax_pipeline.search_database_multi(queries, db, sc, engine="wavefront")
     np.testing.assert_array_equal(got, want)
+
+
+# The warp-per-lane kernel: its rows per pass, and the inputs chip_smoke
+# runs on the card (segments of 16 positions, a partial last pass).
+
+
+@pytest.mark.parametrize("rows,r", [(1, 8), (256, 8), (257, 16), (600, 24), (1024, 32)])
+def test_stripe_rows_is_a_team_of_rows_per_thread(rows, r):
+    """STRIPE_ROWS is 32 threads x the rows per thread of a full pass, a
+    multiple of ROW_ALIGN; a pass runs the smallest instance that holds it."""
+    assert swa_cuda.STRIPE_TEAM == 32
+    assert swa_cuda.STRIPE_ROWS == swa_cuda.STRIPE_TEAM * swa_cuda.STRIPE_ROWS_PER_THREAD
+    assert swa_cuda.STRIPE_ROWS % ROW_ALIGN == 0
+    assert swa_cuda.STRIPE_ROWS_PER_THREAD in swa_cuda.STRIPE_ROWS_PER_THREAD_BUILT
+    assert all(k % ROW_ALIGN == 0 for k in swa_cuda.STRIPE_ROWS_PER_THREAD_BUILT)
+    assert swa_cuda.stripe_rows_per_thread(rows) == r
+    assert swa_cuda.stripe_rows_per_thread(swa_cuda.STRIPE_ROWS) == swa_cuda.STRIPE_ROWS_PER_THREAD
+    with pytest.raises(ValueError, match="1025 rows"):
+        swa_cuda.stripe_rows_per_thread(1025)
+
+
+@pytest.mark.parametrize("rows,bnd_in,bnd_out,r,key", [
+    (1024, False, True, None, "<32, false, true, false>"),
+    (976, True, False, None, "<32, true, false, false>"),
+    (976, True, True, None, "<32, true, true, true>"),
+    (300, False, True, None, "<16, false, true, true>"),
+    (576, True, False, 32, "<32, true, false, false>"),
+    (580, True, True, 32, "<32, true, true, true>"),
+])
+def test_stripe_kernel_instance(rows, bnd_in, bnd_out, r, key):
+    """The instance a pass launches, keyed as sass.kernel_key keys it: R
+    the smallest that holds the rows unless given, kPartial only where the
+    pass writes a last row that sits inside a thread."""
+    got = swa_cuda.stripe_kernel_instance(rows, bnd_in, bnd_out, r)
+    assert got == "sw_stream_striped_kernel" + key
+
+
+def test_striped_pass_refuses_slots_the_segment_word_cannot_hold():
+    """The kernel packs a slot from bit kSlotShift of a signed int32 word:
+    STRIPE_MAX_SLOTS is the first slot that would set bit 31, and the pass
+    refuses nslots from there on, on any device."""
+    import re
+    from pathlib import Path
+
+    src = (Path(swa_cuda.__file__).resolve().parent.parent / "csrc" / "sw_striped.cu").read_text()
+    shift = int(re.search(r"kSlotShift = (\d+);", src).group(1))
+    assert (swa_cuda.STRIPE_MAX_SLOTS - 1) << shift < 2**31 <= swa_cuda.STRIPE_MAX_SLOTS << shift
+    stripes, streams, fs, go, ge, kw = _small_case(96)
+    bnd = torch.zeros((2, *streams.shape), dtype=torch.int32)
+    for nslots in (swa_cuda.STRIPE_MAX_SLOTS, swa_cuda.STRIPE_MAX_SLOTS + 1):
+        with pytest.raises(ValueError, match="segment word"):
+            sw_stream_striped_pass(stripes[0], streams, fs, go, ge, bnd_out=bnd,
+                                   nslots=nslots, jb=kw["jb"])
+
+
+@pytest.mark.parametrize("r,ok", [(8, False), (12, False), (32, True), (None, True)])
+def test_striped_pass_rows_per_thread(r, ok):
+    """A pass takes the R of a built instance whose team holds its rows; on
+    a CPU tensor the plain version runs whatever R is asked."""
+    _, streams, fs, go, ge, kw = _small_case(400)
+    q = make_scoring("BLOSUM45").query_indices(random_protein(np.random.default_rng(4), 300))
+    st = profile_stripes(make_profile(make_scoring("BLOSUM45").table, q), go, 300, "cpu")[0]
+    bnd = torch.zeros((2, *streams.shape), dtype=torch.int32)
+    if not ok:
+        with pytest.raises(ValueError, match="rows_per_thread"):
+            sw_stream_striped_pass(st, streams, fs, go, ge, bnd_out=bnd,
+                                   rows_per_thread=r, **kw)
+        return
+    out, _ = sw_stream_striped_pass(st, streams, fs, go, ge, bnd_out=bnd,
+                                    rows_per_thread=r, **kw)
+    ref, _ = sw_stream_striped_pass_reference(st, streams, fs, go, ge,
+                                              bnd_out=bnd.clone(), **kw)
+    assert torch.equal(out, ref)
+
+
+def _short_records(rng, n):
+    """Records of 1..16 residues: with blocks and grain of 16 every segment
+    is one block, 16 positions, shorter than the kernel's 32-thread skew."""
+    return random_records(rng, n, 1, 17)
+
+
+@pytest.mark.parametrize("scoring,lq", [("BLOSUM62", SR + 5), ("PAM250", 2 * SR - 4)])
+def test_sixteen_position_segments_match_jax_striped(scoring, lq):
+    """The plain driver against sw_pallas_stream_striped in interpret mode
+    on streams whose segments are all 16 positions long, a query length
+    that is not a multiple of the stripe, and 128 x 3 + 37 records (empty
+    lanes in the last lane group)."""
+    sc = make_scoring(scoring)
+    rng = np.random.default_rng(120 + lq)
+    q = sc.query_indices(random_protein(rng, lq))
+    nw, jb = 2, 16
+    db = pipeline._db_from_encoded(_short_records(rng, WIN * 3 + 37))
+    pack = pack_streams(db, np.argsort(-db.lengths, kind="stable"), nw, win=WIN,
+                        jb=jb, grain=16)
+    starts = (pack.fs[:, :, 0] > 0).sum(axis=0)
+    assert pack.streams.shape[1] == jb * (starts.max() + 1)  # one block a segment
+    nslots = len(pack.slot_ids)
+    prof = make_profile(sc.table, q)
+    go, ge = sc.gap_open_total, sc.gap_extend
+    want = np.asarray(sw_pallas_stream_striped(
+        prof, pack.streams, pack.fs, go, ge, nslots=nslots, sl=1, nw=nw,
+        jb=jb, ui=4, stripe_rows=SR, interpret=True,
+    ))
+    streams, fs = stream_pack_to_torch(pack, "cpu")
+    stripes = profile_stripes(prof, go, SR, "cpu")
+    assert lq % SR and len(stripes) == -(-lq // SR)
+    got = sw_stream_striped_reference(stripes, streams, fs, go, ge, nslots=nslots, jb=jb)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_sixteen_position_segments_long_query_search(shrunk):
+    """The same inputs through the long-query search (16-position segments,
+    lq not a multiple of STRIPE_ROWS): equal to the JAX package's search."""
+    sc = make_scoring("BLOSUM62")
+    rng = np.random.default_rng(130)
+    lq = 3 * SR + 5
+    q = sc.query_indices(random_protein(rng, lq))
+    db = pipeline._db_from_encoded(_short_records(rng, 3 * pipeline.WINDOW_LANES + 77))
+    calls = sw_stream_striped_pass_reference.calls
+    got, _ = pipeline.search_database(q, db, sc)
+    assert sw_stream_striped_pass_reference.calls == calls + -(-lq // SR)
+    want, _ = jax_pipeline.search_database(q, db, sc, engine="wavefront")
+    np.testing.assert_array_equal(got, want)
+
+
+def test_sass_keys_and_cells_of_the_striped_kernel():
+    """K2's instances are keyed by R and their flags; the cells of its step
+    loop are R, one LDS a row; cuobjdump's resource report parses."""
+    from seqalign_tpu_torch import sass
+
+    name = "_ZN12_GLOBAL__N_124sw_stream_striped_kernelILi32ELb1ELb1ELb0EEEvPKiPKaS3_Pi"
+    key = sass.kernel_key(name)
+    assert key == "sw_stream_striped_kernel<32, true, true, false>"
+    assert sass.expected_cells(key) == 32 * sass.STRIPED_POSITIONS_PER_STEP
+    assert sass.expected_cells("sw_stream_kernel") == sass.CELLS_PER_ITERATION
+    text = "\n".join([
+        "Resource usage:",
+        " Common:",
+        "  GLOBAL:0",
+        f" Function {name}:",
+        "  REG:96 STACK:0 SHARED:0 LOCAL:0 CONSTANT[0]:600 TEXTURE:0 SURFACE:0 SAMPLER:0",
+        " Function _Z3foov:",
+        "  REG:8 STACK:16 SHARED:0 LOCAL:24 CONSTANT[0]:352",
+    ])
+    usage = sass.resource_usage(None, text)
+    assert usage[name]["REG"] == 96 and usage[name]["LOCAL"] == 0
+    assert usage["_Z3foov"] == {"REG": 8, "STACK": 16, "SHARED": 0, "LOCAL": 24,
+                                "CONSTANT[0]": 352}
+
+
+def test_sass_counts_the_busier_integer_pipe():
+    """IMAD issues on the FMA pipe beside the ALU pipe: a loop's bound
+    counts the busier one, and the probe's factor compares the measured
+    rates with the data sheet's on the same two pipes."""
+    from seqalign_tpu_torch import probe, sass
+
+    text = "\n".join([
+        "\t\tFunction : _ZN12_GLOBAL__N_116sw_stream_kernelEv",
+        "        /*0000*/                   LDS R4, [R3] ;",
+        "        /*0010*/                   IMAD.IADD R7, R4, 0x1, R6 ;",
+        "        /*0020*/                   VIADDMNMX R5, R5, R3, R4, !PT ;",
+        "        /*0030*/                   LDS R6, [R3+0x80] ;",
+        "        /*0040*/                   IMAD.MOV.U32 R8, RZ, RZ, R6 ;",
+        "        /*0050*/                   VIMNMX3.RELU R6, R5, R4, R6 ;",
+        "        /*0060*/                   VIADD R9, R6, 0x1 ;",
+        "        /*0070*/               @P0 BRA 0x0 ;",
+    ])
+    loop = sass.inner_loop(sass.sass_functions(None, text)["_ZN12_GLOBAL__N_116sw_stream_kernelEv"])
+    assert loop["cells"] == 2 and loop["alu_per_cell"] == 2.5
+    assert loop["imad_per_cell"] == 1.0 and loop["pipe_per_cell"] == 1.5
+    rate = probe.INT32_PER_S
+    measured = {name: {"per_s": rate, "opcode": op} for name, op in (
+        ("VIADDMNMX", "VIADDMNMX"), ("VIMNMX3", "VIMNMX3"), ("IADD3", "IADD3"),
+        ("IMNMX", "VIMNMX"), ("LDS", "LDS"), ("IMAD", "IMAD"))}
+    measured["IMAD+VIADDMNMX"] = {"per_s": 2 * rate, "opcode": "IMAD"}
+    assert probe.bound_factor(loop["opcodes"], measured) == pytest.approx(1.0)
+    measured["VIADDMNMX"]["per_s"] = rate / 4  # one of 3 ALU-pipe ops 4x slower
+    assert probe.bound_factor(loop["opcodes"], measured) == pytest.approx(2.0)
+
+
+def test_sass_counts_shuffles_off_the_alu_pipe():
+    """K2's SHFLs take the shared-memory path with LDS (the probe runs SHFL
+    beside VIADDMNMX at twice the rate of either): a loop's ALU count and
+    its busier pipe leave them out, and so does the probe's factor, however
+    slow SHFL is measured."""
+    from seqalign_tpu_torch import probe, sass
+
+    text = "\n".join([
+        "\t\tFunction : _ZN12_GLOBAL__N_124sw_stream_striped_kernelILi1ELb1ELb0ELb0EEEvv",
+        "        /*0000*/                   SHFL.UP PT, R2, R9, 0x1, RZ ;",
+        "        /*0010*/                   LDS R4, [R3] ;",
+        "        /*0020*/                   VIADDMNMX R5, R5, R3, R4, !PT ;",
+        "        /*0030*/                   SHFL.IDX PT, R6, R8, R7, 0x1f ;",
+        "        /*0040*/                   LDS R6, [R3+0x80] ;",
+        "        /*0050*/                   VIMNMX3.RELU R6, R5, R4, R6 ;",
+        "        /*0060*/               @P0 BRA 0x0 ;",
+    ])
+    loop = sass.inner_loop(sass.sass_functions(None, text)[
+        "_ZN12_GLOBAL__N_124sw_stream_striped_kernelILi1ELb1ELb0ELb0EEEvv"])
+    assert loop["cells"] == 2 and loop["opcodes"]["SHFL"] == 2
+    assert loop["alu_per_cell"] == 1.0 and loop["pipe_per_cell"] == 1.0
+    rate = probe.INT32_PER_S
+    measured = {name: {"per_s": rate, "opcode": op} for name, op in (
+        ("VIADDMNMX", "VIADDMNMX"), ("VIMNMX3", "VIMNMX3"), ("IADD3", "IADD3"),
+        ("IMNMX", "VIMNMX"), ("LDS", "LDS"), ("IMAD", "IMAD"), ("SHFL", "SHFL"))}
+    measured["SHFL"]["per_s"] = rate / 100
+    assert probe.bound_factor(loop["opcodes"], measured) == pytest.approx(1.0)
