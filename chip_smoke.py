@@ -1,26 +1,31 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch + CUDA port (seqalign_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--against DIR]
 
 Phases, each printing its own lines; any failure exits nonzero:
 
 1. device: the card's name, its power limit (nvidia-smi), torch, CUDA, nvcc;
-2. build: compile csrc/*.cu (sw_stream.cu: K1, K3, K4, K5; sw_striped.cu:
-   K2; isa_probe.cu: the issue-rate probe), one nvcc each in parallel, for
-   sm_90a into build/; read each kernel's registers and local memory (no
-   spills) and the inner DP loop of its SASS (integer instructions per
-   cell, for the bound): K1, K3, K2 (a step of R rows), the fixed-batch
-   kernel K4 and its constant-S mode K5 (a loop without LDS); then measure
-   the card's issue rate of VIADDMNMX, VIMNMX3, IADD3, IMNMX, IMAD, LDS and
-   SHFL, alone and in pairs (seqalign_tpu_torch.probe), and the bound those
-   rates give each kernel;
+2. build: compile csrc/*.cu (sw_stream.cu and sw_stream_solo.cu: K1 and
+   K3, the one-pass team kernel of sw_stream.cuh, an instance per R built
+   and solo instances; sw_striped.cu: K2; both on the team step of
+   sw_team.cuh; sw_windows.cu: K4, K5; isa_probe.cu: the issue-rate probe), one nvcc each in parallel, for sm_90a into build/;
+   read every instance's registers and local memory (no spills) and the
+   inner DP loop of its SASS (integer instructions per cell, for the
+   bound): K1 and K3 (a step of R rows, one instance per R built), K2, the
+   fixed-batch kernel K4 and its constant-S mode K5 (a loop without LDS);
+   then measure the card's issue rate of VIADDMNMX, VIMNMX3, IADD3, IMNMX,
+   IMAD, LDS and SHFL, alone and in pairs (seqalign_tpu_torch.probe), and
+   the bound those rates give each kernel;
 3. kernel: the single-query stream kernel (K1) against its plain PyTorch
-   version on the card, int32-exact (torch.equal), over scoring systems,
-   segment layouts, window widths and query lengths up to MAX_QUERY_ROWS;
-   then the multi-query kernel (K3) the same way, over 2 to 64 queries of
-   unequal lengths, an empty query, queries at MAX_QUERY_ROWS, a tail
-   segment and empty windows;
+   version on the card, int32-exact (torch.equal), at every (T, R) built
+   (teams of T threads of R rows), over scoring systems, segment layouts,
+   window widths (a window whose last CTA holds teams past its lanes), an
+   empty query and query lengths up to MAX_QUERY_ROWS, 16-position
+   segments (several in flight in one team) with empty lanes; then the
+   multi-query kernel (K3) the same way, over 2 to 64 queries of unequal
+   lengths, an empty query, queries at MAX_QUERY_ROWS, a tail segment,
+   empty windows and forced teams;
    then the row-striped kernel (K2), pass by pass (output slots and the
    boundary row) and as a whole search, at 1537 to 4096 query rows and at
    35,000 against a small database, over the same scoring systems, a
@@ -43,9 +48,11 @@ Phases, each printing its own lines; any failure exits nonzero:
 5. multi-query path: 8 queries of 17 residues (bench.py's multi-query
    point), then 64 of 144 (the north-star batch), against the same
    database through pipeline.search_database_multi; the counters prove it
-   ran K3 and neither K1 nor a plain version; every score equals K1 run
-   per query, and the 8-query batch equals K3's plain version on the same
-   card tensors; K3, the K1 loop and the plain version are timed;
+   ran K3, one launch per chunk and block (at 64 x 144 one block), and
+   neither K1 nor a plain version; every score equals K1 run per query,
+   and the 8-query batch equals K3's plain version on the same card
+   tensors; K3, the K1 loop and the plain version are timed, and the
+   search's device-memory peak read;
 6. long-query path: a 2000-residue query against the same database through
    pipeline.search_database; the counters prove it ran K2 (stripes x chunks
    passes) and nothing else; every score equals K2's plain version on the
@@ -64,7 +71,16 @@ Phases, each printing its own lines; any failure exits nonzero:
 8. CLI: the port's CLI with the stream kernels against the same CLI with
    --engine wavefront on a 3,000-record FASTA, for one query, an 8-record
    query file, a 2000-residue query and a 3-record file holding one;
-   identical but for Total Time.
+   identical but for Total Time; and --engine pallas (the stream kernels)
+   and --engine oracle (the NumPy oracle) on a 300-record FASTA, one query
+   and a 3-record file, identical to --engine wavefront.
+
+With ``--against DIR`` (another checkout, for example the parent commit
+unpacked under build/) it then times K1 and K3 in turns against that
+checkout's kernels, one process each, other, this, this, other
+(seqalign_tpu_torch.turns): K1 at lq=17, 144, 512, 1536, K3 at 8 x 17 and
+64 x 144, as each checkout's own pipeline launches them, with each search's
+device-memory peak.
 
 The line before the last is a JSON object describing the kernels (route,
 source, launches on their path, max error, times, the card's bound for the
@@ -176,10 +192,10 @@ def phase_device(torch):
 
 
 # The SASS instance each kernel's bound reads: K4's and K5's single-query
-# ones. K2's bound weighs the instances its passes launch (phase 6).
+# ones. K1's and K3's bounds read the instance of the (T, R) their launch
+# runs (swa_cuda.stream_kernel_instance, phases 4-5); K2's weighs the
+# instances its passes launch (phase 6).
 BOUND_INSTANCES = {
-    "sw_stream_kernel": "sw_stream",
-    "sw_stream_multi_kernel": "sw_stream_multi",
     "sw_windows_kernel<false, false>": "sw_windows",
     "sw_windows_kernel<false, true>": "sw_windows_const_s",
 }
@@ -221,8 +237,8 @@ def phase_build():
         if res.get("LOCAL", 0):
             fail(f"{key}: {res['LOCAL']} B of local memory (spills)")
         # Only K5 (constant S) has a DP loop without the profile gather; a
-        # gather's LDS count must be the loop's cells: the stream body's
-        # unroll, which K5's cells are taken from, or K2's R rows a step.
+        # gather's LDS count must be the loop's cells: K4's unroll, which
+        # K5's cells are taken from, or a team kernel's 2 R cells a step.
         const_s = key.startswith("sw_windows_kernel<") and key.endswith("true>")
         if const_s != (loop["cells_from"] != "LDS"):
             fail(f"{key}: the DP loop {'has' if const_s else 'lacks'} a profile gather")
@@ -230,7 +246,13 @@ def phase_build():
             fail(f"{key}: {loop['cells']} LDS per loop iteration, not "
                  f"{sass.expected_cells(key)}")
         loops[key] = loop
-    if not set(BOUND_INSTANCES) <= set(loops):
+    from seqalign_tpu_torch.ops.swa_cuda import (
+        STREAM_ROWS_PER_THREAD_BUILT, STREAM_SOLO_ROWS,
+    )
+
+    team = {f"sw_stream_kernel<{r}, false>" for r in STREAM_ROWS_PER_THREAD_BUILT}
+    team |= {f"sw_stream_kernel<{r}, true>" for r in STREAM_SOLO_ROWS}
+    if not (set(BOUND_INSTANCES) | team) <= set(loops):
         fail(f"SASS of the kernels not all found: {sorted(loops)}")
 
     rates = probe.rates()
@@ -254,14 +276,20 @@ class Checker:
                             "sw_stream_striped": 0, "sw_windows": 0,
                             "sw_windows_const_s": 0}
 
-    def compare(self, label, prof, streams, fs, go, ge, nslots, jb):
+    def compare(self, label, prof, streams, fs, go, ge, nslots, jb, team=None,
+                rows=None):
+        """K1 (K3 for a 3-D profile), scoring ``rows`` rows (all unless
+        given) at ``team`` or the chooser's (T, R), against its plain
+        version (every row)."""
         from seqalign_tpu_torch.ops import swa_cuda
 
         torch = self.torch
         name = "sw_stream_multi" if prof.ndim == 3 else "sw_stream"
         kernel = getattr(swa_cuda, name)
         plain = getattr(swa_cuda, name + "_reference")
-        k = kernel(prof, streams, fs, go, ge, nslots=nslots, jb=jb)
+        rows = prof.shape[-2] if rows is None else rows
+        team = team or swa_cuda.stream_team(rows)
+        k = kernel(prof, streams, fs, go, ge, nslots=nslots, jb=jb, team=team, rows=rows)
         torch.cuda.synchronize()
         r = plain(prof, streams, fs, go, ge, nslots=nslots, jb=jb)
         torch.cuda.synchronize()
@@ -270,8 +298,8 @@ class Checker:
         equal = torch.equal(k, r)
         nw, length, win = streams.shape
         queries = f"nq={prof.shape[0]} " if prof.ndim == 3 else ""
-        print(f"[kernel] {name} {label}: {queries}rows={prof.shape[-2]} nw={nw} "
-              f"L={length} win={win} jb={jb} slots={nslots} equal={equal} "
+        print(f"[kernel] {name} {label}: {queries}rows={rows}/{prof.shape[-2]} (T, R)={team} "
+              f"nw={nw} L={length} win={win} jb={jb} slots={nslots} equal={equal} "
               f"max_abs_err={err}", flush=True)
         if not equal:
             fail(f"{name} != plain version for {label}")
@@ -405,7 +433,17 @@ def stream_case(name, lq, n, lo, hi, nw, win, seed, encoded=None, order=None,
 
 def phase_kernel(chk: Checker):
     from seqalign_tpu_torch.host import encode
-    from seqalign_tpu_torch.ops.swa_cuda import MAX_QUERY_ROWS
+    from seqalign_tpu_torch.ops.swa_cuda import (
+        MAX_QUERY_ROWS, STREAM_ROWS_PER_THREAD_BUILT, STREAM_TEAMS, stream_team,
+    )
+
+    # Every (T, R) built: a team of T threads of R rows, the query three
+    # rows short of T R (the last thread's last rows are padding).
+    for r in STREAM_ROWS_PER_THREAD_BUILT:
+        for t in STREAM_TEAMS:
+            if t * r <= MAX_QUERY_ROWS:
+                _, args = stream_case("PAM250", t * r - 3, 600, 1, 60, 2, 256, 1000 + t * r)
+                chk.compare(f"T={t} R={r}", *args, team=(t, r))
 
     cases = [
         # name, lq, n, lo, hi, nw, win, seed
@@ -420,9 +458,32 @@ def phase_kernel(chk: Checker):
         ("PAM250", 144, 16384, 1, 64, 8, 1024, 9),
         ("BLOSUM62", MAX_QUERY_ROWS, 1200, 1, 64, 2, 1024, 10),
     ]
+    # The query's own rows, as the pipeline launches them: the profile's
+    # ROW_ALIGN padding skipped (17 of 20 rows, 145 of 148).
+    for name, lq, seed in (("BLOSUM62", 17, 17), ("PAM250", 145, 18)):
+        _, args = stream_case(name, lq, 1500, 1, 120, 4, 256, seed)
+        chk.compare(f"{name} lq={lq}, its rows", *args, rows=lq)
+    cases += [
+        # An empty query scores 0 everywhere.
+        ("BLOSUM62", 0, 600, 1, 40, 2, 256, 13),
+        # Windows of 100 lanes: the last CTA of a window holds teams past
+        # its lanes, which run on lane 0's stream and write nothing.
+        ("PAM250", 144, 900, 1, 17, 2, 100, 14),
+        ("BLOSUM62", 17, 900, 1, 60, 3, 100, 15),
+    ]
     for name, lq, n, lo, hi, nw, win, seed in cases:
         _, args = stream_case(name, lq, n, lo, hi, nw, win, seed)
-        chk.compare(f"{name} lq={lq}", *args)
+        chk.compare(f"{name} lq={lq} win={win}", *args)
+
+    # Segments of 16 positions (records of 1..16 residues), several in
+    # flight in one team; 8 x 256 + 77 records leave 179 lanes of the last
+    # lane group empty. At the chooser's team and at the widest one.
+    pack, args = stream_case("BLOSUM62", 144, 8 * 256 + 77, 1, 17, 2, 256, 16)
+    if pack.streams.shape[1] != 16 * (pack.fs[:, :, 0] > 0).sum(axis=0).max() + 16:
+        fail("the 16-position case has a segment longer than one block")
+    r0 = STREAM_ROWS_PER_THREAD_BUILT[0]
+    for team in (stream_team(144), (32, r0), (16, -(-144 // 16 // r0) * r0)):
+        chk.compare("segments of 16 positions, empty lanes", *args, team=team)
 
     # A segment that starts on the final block: the start flush and the
     # end flush fire in the same step (segments of 48 and 16 positions,
@@ -446,7 +507,7 @@ def phase_kernel(chk: Checker):
 
 def phase_kernel_multi(chk: Checker):
     from seqalign_tpu_torch.host import encode
-    from seqalign_tpu_torch.ops.swa_cuda import MAX_QUERY_ROWS
+    from seqalign_tpu_torch.ops.swa_cuda import MAX_QUERY_ROWS, STREAM_ROWS_PER_THREAD_BUILT
 
     lq8 = (17, 12, 5, 17, 30, 1, 8, 22)
     rng = np.random.default_rng(30)
@@ -481,6 +542,18 @@ def phase_kernel_multi(chk: Checker):
     if np.count_nonzero(pack.fs.any(axis=(0, 2))) != 2:
         fail("multi empty-window case does not leave windows empty")
     chk.compare("empty windows", *args)
+
+    # Forced teams: the query axis with teams of 2 and 32 threads, and
+    # 16-position segments with empty lanes.
+    _, args = stream_case("BLOSUM45", (60, 33, 0, 57), 1500, 1, 100, 4, 256, 33)
+    for team in ((2, 32), (32, STREAM_ROWS_PER_THREAD_BUILT[0])):
+        chk.compare("forced team", *args, team=team)
+    _, args = stream_case("PAM250", (144, 17), 8 * 256 + 77, 1, 17, 2, 256, 34)
+    chk.compare("segments of 16 positions, empty lanes", *args)
+    # 8 queries, the longest 17 rows, as the pipeline launches them: the
+    # profile's ROW_ALIGN padding skipped.
+    _, args = stream_case("PAM250", (17, 12, 5, 17, 3, 1, 16, 9), 2000, 1, 150, 5, 256, 35)
+    chk.compare("8 queries of up to 17 rows, their rows", *args, rows=17)
 
 
 def phase_kernel_striped(chk: Checker):
@@ -658,7 +731,7 @@ def read_counts(swa_cuda):
     }
 
 
-def phase_main_path(torch, chk: Checker, smi: str, query, db, alu):
+def phase_main_path(torch, chk: Checker, smi: str, query, db, loops, usage):
     from seqalign_tpu_torch import pipeline
     from seqalign_tpu_torch.convert import profile_to_torch, stream_pack_to_torch
     from seqalign_tpu_torch.host import pack_streams
@@ -702,9 +775,10 @@ def phase_main_path(torch, chk: Checker, smi: str, query, db, alu):
     go, ge = sc.gap_open_total, sc.gap_extend
     prof = profile_to_torch(make_profile(sc.table, query), go, "cuda")
     streams, fs = stream_pack_to_torch(pack, "cuda")
-    kw = dict(nslots=len(pack.slot_ids), jb=jb)
+    # The launch as the pipeline makes it: the query's own rows scored.
+    kw = dict(nslots=len(pack.slot_ids), jb=jb, rows=len(query))
     out = chk.compare(f"main path ({db.n} records)", prof, streams, fs, go, ge,
-                      kw["nslots"], jb)
+                      kw["nslots"], jb, rows=len(query))
     full = np.zeros(db.n, np.int32)
     full[order] = out.cpu().numpy().reshape(-1)[: db.n]
     if not np.array_equal(full, scores):
@@ -712,18 +786,20 @@ def phase_main_path(torch, chk: Checker, smi: str, query, db, alu):
     print(f"[main] all {db.n} records: main-path scores == plain version",
           flush=True)
     ms = cuda_ms(torch, lambda: swa_cuda.sw_stream(prof, streams, fs, go, ge, **kw), 5)
-    plain_ms = cuda_ms(
-        torch, lambda: swa_cuda.sw_stream_reference(prof, streams, fs, go, ge, **kw), 1
-    )
+    plain_ms = cuda_ms(torch, lambda: swa_cuda.sw_stream_reference(
+        prof, streams, fs, go, ge, nslots=kw["nslots"], jb=jb), 1)
+    team = swa_cuda.stream_team(len(query))
+    key = swa_cuda.stream_kernel_instance(len(query))
     shape = (f"nw={nw} L={streams.shape[1]} win={win} jb={jb} "
-             f"rows={prof.shape[0]} slots={kw['nslots']}")
+             f"rows={prof.shape[0]} slots={kw['nslots']} (T, R)={team}")
     out_bytes = kw["nslots"] * win * 4
     bound_ms, bound_by = bound(nbytes(prof, streams, fs) + out_bytes, cells,
-                               alu["sw_stream"])
+                               loops[key]["pipe_per_cell"])
     print(f"[main] main-path shape {shape}: kernel {ms} ms "
           f"({cells / ms / 1e6} GCUPS), plain version {plain_ms} ms "
           f"({cells / plain_ms / 1e6} GCUPS), bound {bound_ms} ms by {bound_by} "
-          f"| {smi}", flush=True)
+          f"({loops[key]['pipe_per_cell']} per cell, {key}, "
+          f"{usage.get(key, {}).get('REG')} registers) | {smi}", flush=True)
 
     # An independent formulation: the wavefront engine on the 128 longest
     # records and 128 others.
@@ -747,6 +823,8 @@ def phase_main_path(torch, chk: Checker, smi: str, query, db, alu):
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
+        "instance": key,
+        "registers": usage.get(key, {}).get("REG"),
         "shape": f"main path, {db.n} records, lq={QUERY_LEN}, {shape}",
         "main_path_kernel_s": runs[-1][0],
         "main_path_gcups": cells / runs[-1][0] / 1e9,
@@ -763,18 +841,19 @@ def k1_per_query(torch, queries, sc, db, k1_pack):
     order, streams, fs, nslots = k1_pack
     go, ge = sc.gap_open_total, sc.gap_extend
     profs = [profile_to_torch(make_profile(sc.table, q), go, "cuda") for q in queries]
-    kw = dict(nslots=nslots, jb=swa_cuda.STREAM_JB)
+    # As the pipeline launches K1: each query's own rows scored.
+    kws = [dict(nslots=nslots, jb=swa_cuda.STREAM_JB, rows=len(q)) for q in queries]
     scores = np.zeros((len(queries), db.n), np.int32)
-    for k, p in enumerate(profs):
+    for k, (p, kw) in enumerate(zip(profs, kws)):
         out = swa_cuda.sw_stream(p, streams, fs, go, ge, **kw)
         scores[k, order] = out.cpu().numpy().reshape(-1)[: db.n]
     ms = cuda_ms(torch, lambda: [swa_cuda.sw_stream(p, streams, fs, go, ge, **kw)
-                                 for p in profs], 1)
+                                 for p, kw in zip(profs, kws)], 1)
     return scores, ms
 
 
 def phase_multi_path(torch, chk: Checker, smi: str, db, k1_pack, nq, lq,
-                     seed, check_plain, alu):
+                     seed, check_plain, loops, usage):
     """One multi-query batch through pipeline.search_database_multi on the
     card, checked against K1 per query (and K3's plain version)."""
     from seqalign_tpu_torch import pipeline
@@ -791,13 +870,20 @@ def phase_multi_path(torch, chk: Checker, smi: str, db, k1_pack, nq, lq,
     reset_counts(swa_cuda)
     runs = []
     for _ in range(2):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         scores, kernel_s = pipeline.search_database_multi(queries, db, sc, device="cuda")
         runs.append((kernel_s, time.perf_counter() - t0))
+        peak = torch.cuda.max_memory_allocated() - base
     counts = read_counts(swa_cuda)
     print(f"{tag} launches: {counts}", flush=True)
     if counts["sw_stream_multi"] < 1 or sum(counts.values()) != counts["sw_stream_multi"]:
         fail(f"{tag} the multi-query path did not run through K3 alone")
+    print(f"{tag} device memory: peak {peak} B above the {base} B held before "
+          "the search (streams, fs, bests; K3 allocates no rolling-row scratch)",
+          flush=True)
     if scores.shape != (nq, db.n) or scores.dtype != np.int32 or scores.min() < 0:
         fail(f"{tag} scores have the wrong shape, type or sign")
     cells = nq * lq * residues
@@ -823,7 +909,7 @@ def phase_multi_path(torch, chk: Checker, smi: str, db, k1_pack, nq, lq,
     # The launches as the pipeline makes them, on card tensors made once.
     order = np.argsort(-db.lengths, kind="stable")
     blocks = pipeline.query_blocks(
-        pipeline.multi_profile(sc.table, queries), go, db.n, None, torch.device("cuda"))
+        pipeline.multi_profile(sc.table, queries), go, db.n, torch.device("cuda"))
     chunks = []
     for chunk, pack in pipeline.stream_chunks(db, order, None, torch.device("cuda")):
         streams, fs = stream_pack_to_torch(pack, "cuda")
@@ -831,20 +917,29 @@ def phase_multi_path(torch, chk: Checker, smi: str, db, k1_pack, nq, lq,
     jb = swa_cuda.STREAM_JB
 
     def k3_all():
-        return [swa_cuda.sw_stream_multi(b, s, f, go, ge, nslots=ns, jb=jb)
+        return [swa_cuda.sw_stream_multi(b, s, f, go, ge, nslots=ns, jb=jb, rows=lq)
                 for _, s, f, ns in chunks for b in blocks]
 
+    # One launch per chunk and block in each of the two searches: at 64 x
+    # 144 the 8 GiB budget holds the batch in one block.
+    if counts["sw_stream_multi"] != 2 * len(chunks) * len(blocks) or (
+            nq == 64 and len(blocks) != 1):
+        fail(f"{tag} {counts['sw_stream_multi']} K3 launches for {len(chunks)} chunk(s) "
+             f"and {len(blocks)} block(s) per search")
     k3_ms = cuda_ms(torch, k3_all, 3 if check_plain else 2)
+    team = swa_cuda.stream_team(lq)
+    key = swa_cuda.stream_kernel_instance(lq)
     shape = (f"{len(blocks)} block(s) of {blocks[0].shape[0]} queries x "
              f"{blocks[0].shape[1]} rows, {len(chunks)} chunk(s), nw="
-             f"{'/'.join(str(s.shape[0]) for _, s, _, _ in chunks)}")
+             f"{'/'.join(str(s.shape[0]) for _, s, _, _ in chunks)}, (T, R)={team}")
     # Each chunk's streams read once for all blocks; real query rows only.
     io_bytes = sum(nbytes(s, f) + ns * nq * s.shape[2] * 4 for _, s, f, ns in chunks)
     bound_ms, bound_by = bound(io_bytes + nbytes(*blocks), cells,
-                               alu["sw_stream_multi"])
+                               loops[key]["pipe_per_cell"])
     result = {
         "launches": counts["sw_stream_multi"], "ms": k3_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by,
+        "bound_ms": bound_ms, "bound_by": bound_by, "instance": key,
+        "registers": usage.get(key, {}).get("REG"), "memory_peak_bytes": peak,
         "k1_loop_ms": k1_loop_ms, "shape": f"{nq}x{lq} on {db.n} records: {shape}",
         "main_path_kernel_s": runs[-1][0],
         "main_path_gcups": cells / runs[-1][0] / 1e9,
@@ -853,7 +948,7 @@ def phase_multi_path(torch, chk: Checker, smi: str, db, k1_pack, nq, lq,
         full = np.zeros((nq, db.n), np.int32)
         for chunk, streams, fs, nslots in chunks:
             outs = [chk.compare(f"multi path {nq}x{lq} chunk of {len(chunk)}",
-                                b, streams, fs, go, ge, nslots, jb) for b in blocks]
+                                b, streams, fs, go, ge, nslots, jb, rows=lq) for b in blocks]
             out = torch.cat(outs, dim=1).cpu().numpy()
             full[:, chunk] = out.transpose(1, 0, 2).reshape(out.shape[1], -1)[:nq, : len(chunk)]
         if not np.array_equal(full, scores):
@@ -864,7 +959,8 @@ def phase_multi_path(torch, chk: Checker, smi: str, db, k1_pack, nq, lq,
             for _, s, f, ns in chunks for b in blocks], 1)
         result["scores"] = scores
     print(f"{tag} {shape}: K3 {k3_ms} ms ({cells / k3_ms / 1e6} GCUPS), bound "
-          f"{bound_ms} ms by {bound_by}, K1 looped "
+          f"{bound_ms} ms by {bound_by} ({loops[key]['pipe_per_cell']} per cell, {key}, "
+          f"{result['registers']} registers), K1 looped "
           f"over the {nq} queries {k1_loop_ms} ms ({cells / k1_loop_ms / 1e6} GCUPS)"
           + (f", K3's plain version {result['plain_ms']} ms" if check_plain else "")
           + f" | {smi}", flush=True)
@@ -1224,15 +1320,49 @@ def phase_cli():
                  "blocks")
         print(f"[cli] {qfile}: stream == wavefront on 3000 records, {queries} "
               "query blocks (Total Time dropped)", flush=True)
+    phase_cli_engines(out_dir, rng, env)
 
 
-def main() -> int:
+def phase_cli_engines(out_dir, rng, env):
+    """The JAX CLI's engine names: pallas (the stream kernels, no Note:) and
+    oracle (the NumPy oracle), against wavefront on a smaller FASTA."""
+    (out_dir / "db300.fa").write_text("".join(
+        f">s{i}\n{random_protein(rng, int(rng.integers(2, 100)))}\n" for i in range(300)))
+    (out_dir / "q60.fa").write_text(">q60\n" + random_protein(rng, 60) + "\n")
+    (out_dir / "q3.fa").write_text("".join(
+        f">t{k}\n{random_protein(rng, 20 + 30 * k)}\n" for k in range(3)))
+    for qfile in ("q60.fa", "q3.fa"):
+        outs = {}
+        for engine in ("wavefront", "pallas", "oracle"):
+            cmd = [sys.executable, "-m", "seqalign_tpu_torch.cli", "--files",
+                   str(out_dir / qfile), str(out_dir / "db300.fa"), "--engine", engine]
+            proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                                  text=True, timeout=600)
+            if proc.returncode != 0 or "Note:" in proc.stderr:
+                fail(f"CLI {qfile} --engine {engine}: rc={proc.returncode} "
+                     f"{proc.stderr[-2000:]}")
+            outs[engine] = [ln for ln in proc.stdout.splitlines()
+                            if not ln.startswith("Total Time:")]
+        if not outs["wavefront"] == outs["pallas"] == outs["oracle"]:
+            fail(f"CLI {qfile}: --engine pallas / oracle output != wavefront")
+        print(f"[cli] {qfile}: --engine pallas == oracle == wavefront on 300 "
+              "records (Total Time dropped)", flush=True)
+
+
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--against", default=None,
+                    help="another checkout whose K1 and K3 to time in turns")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs on a GPU",
               file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     name, smi = phase_device(torch)
     loops, usage, factor = phase_build()
     alu = {n: loops[key]["pipe_per_cell"] for key, n in BOUND_INSTANCES.items()}
@@ -1248,9 +1378,11 @@ def main() -> int:
     query, db = swissprot_db()
     print(f"[main] database: {db.n} records, {int(db.offsets[-1])} residues, "
           f"generated in {time.perf_counter() - t0} s", flush=True)
-    main_path, k1_pack, k1_scores = phase_main_path(torch, chk, smi, query, db, alu)
-    multi8 = phase_multi_path(torch, chk, smi, db, k1_pack, 8, 17, 100, True, alu)
-    multi64 = phase_multi_path(torch, chk, smi, db, k1_pack, 64, 144, 200, False, alu)
+    main_path, k1_pack, k1_scores = phase_main_path(torch, chk, smi, query, db, loops,
+                                                    usage)
+    multi8 = phase_multi_path(torch, chk, smi, db, k1_pack, 8, 17, 100, True, loops, usage)
+    multi64 = phase_multi_path(torch, chk, smi, db, k1_pack, 64, 144, 200, False, loops,
+                               usage)
     long_path = phase_striped_path(torch, chk, smi, db, loops, usage, factor)
     del k1_pack
     from seqalign_tpu_torch.swissprot import random_query
@@ -1259,10 +1391,17 @@ def main() -> int:
         torch, chk, smi, query, db, alu, (k1_scores, main_path["ms"]),
         (multi8.pop("scores"), [random_query(17, 100 + k) for k in range(8)]))
     phase_cli()
+    print(f"[main] every phase in {time.perf_counter() - t_start} s", flush=True)
+    turns = None
+    if args.against:
+        from seqalign_tpu_torch import turns as turns_mod
+
+        turns = turns_mod.run(Path(args.against).resolve(), 3,
+                              lambda msg: print(msg, flush=True))["cells"]
     kernels = [{
         "name": "sw_stream",
         "route": "cuda",
-        "source": "seqalign_tpu_torch/csrc/sw_stream.cu",
+        "source": "seqalign_tpu_torch/csrc/sw_stream.cuh",
         "replaces": "seqalign_tpu/ops/swa_pallas.py:559",
         "launches": main_path["launches"],
         "max_abs_err": chk.max_abs_err["sw_stream"],
@@ -1271,6 +1410,8 @@ def main() -> int:
         "bound_ms": main_path["bound_ms"],
         "bound_by": main_path["bound_by"],
         "library_ms": None,
+        "instance": main_path["instance"],
+        "registers": main_path["registers"],
         "shape": main_path["shape"],
         "main_path_kernel_s": main_path["main_path_kernel_s"],
         "main_path_gcups": main_path["main_path_gcups"],
@@ -1278,7 +1419,7 @@ def main() -> int:
     }, {
         "name": "sw_stream_multi",
         "route": "cuda",
-        "source": "seqalign_tpu_torch/csrc/sw_stream.cu",
+        "source": "seqalign_tpu_torch/csrc/sw_stream.cuh",
         "replaces": "seqalign_tpu/ops/swa_pallas.py:934",
         "launches": multi8["launches"],
         "max_abs_err": chk.max_abs_err["sw_stream_multi"],
@@ -1288,12 +1429,16 @@ def main() -> int:
         "bound_by": multi8["bound_by"],
         "library_ms": None,
         "k1_loop_ms": multi8["k1_loop_ms"],
+        "instance": multi8["instance"],
+        "registers": multi8["registers"],
+        "memory_peak_bytes": multi8["memory_peak_bytes"],
         "shape": multi8["shape"],
         "main_path_kernel_s": multi8["main_path_kernel_s"],
         "main_path_gcups": multi8["main_path_gcups"],
         "north_star": {k: multi64[k] for k in
                        ("launches", "ms", "bound_ms", "bound_by", "k1_loop_ms",
-                        "shape", "main_path_kernel_s", "main_path_gcups")},
+                        "instance", "registers", "memory_peak_bytes", "shape",
+                        "main_path_kernel_s", "main_path_gcups")},
         "card": smi,
     }, {
         "name": "sw_stream_striped",
@@ -1316,7 +1461,7 @@ def main() -> int:
     }] + [{
         "name": name,
         "route": "cuda",
-        "source": "seqalign_tpu_torch/csrc/sw_stream.cu",
+        "source": "seqalign_tpu_torch/csrc/sw_windows.cu",
         "replaces": replaces,
         "max_abs_err": chk.max_abs_err[name],
         "library_ms": None,
@@ -1328,10 +1473,15 @@ def main() -> int:
     # The bound at the issue rates measured on this card, beside the data
     # sheet's (bound_ms, which the ranking of kernels keeps).
     kfactor = {n: factor[key] for key, n in BOUND_INSTANCES.items()}
+    kfactor["sw_stream"] = factor[main_path["instance"]]
+    kfactor["sw_stream_multi"] = factor[multi8["instance"]]
     kfactor["sw_stream_striped"] = long_path["factor"]
     for k in kernels:
         k["bound_ms_measured_rates"] = k["bound_ms"] * (
             kfactor[k["name"]] if k["bound_by"] == "operations" else 1.0)
+    if turns is not None:
+        kernels[0]["in_turns"] = {c: v for c, v in turns.items() if c.startswith("K1")}
+        kernels[1]["in_turns"] = {c: v for c, v in turns.items() if c.startswith("K3")}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

@@ -46,7 +46,9 @@ USAGE = """usage: {prog} [OPTIONS] [seq1 seq2]
     --colour             Print with colour
 
   EXTENSIONS (seqalign_tpu_torch):
-    --engine <name>      stream | wavefront | scan  [default: stream]
+    --engine <name>      stream | pallas | wavefront | scan | oracle
+                         [default: stream; pallas is stream, the CUDA
+                         kernels; oracle the scalar NumPy oracle]
     --lanes <n>          lane-batch width override
     --no-sort            do not length-sort the database (assume pre-sorted)
     --topk <n>           print only the n best-scoring entries
@@ -279,8 +281,13 @@ def main(argv: list[str] | None = None) -> int:
     ):
         all_queries = True
 
-    from .pipeline import resolve_device, search_files
+    from .pipeline import ENGINES, resolve_device, search_files
 
+    if engine is not None and engine not in ENGINES:
+        return _usage_exit(
+            prog, scoring,
+            f"Unknown engine '{engine}': expected one of {', '.join(ENGINES)}",
+        )
     try:
         resolve_device()
     except (RuntimeError, ValueError) as e:

@@ -5,47 +5,29 @@
 // Replaces the TPU kernel seqalign_tpu/ops/swa_pallas.py:
 // _kernel_stream_striped + _run_block(bnd=...), called through
 // _stream_striped_pass and driven by sw_pallas_stream_striped: the G-form
-// affine-gap recurrence of sw_stream.cu over the same inputs (biased stripe
+// affine-gap recurrence of sw_stream.cuh over the same inputs (biased stripe
 // P' = P - go, NW window streams, segment table fs), with row -1 read from
 // the previous stripe's boundary, the stripe's last row written as the next
 // one's, and the same per-segment outputs, bit for bit.
 //
 // Layout of the work. A team of 32 threads (one warp) scores one lane of
-// one window; thread k holds the R consecutive rows k R .. k R + R - 1 of the
-// pass, and their Gg(i, j - 1) and E(i, j - 1) stay in its registers for the
-// whole stream. The lane's positions flow through the warp as a systolic
-// pipeline, two a step: at step s thread k computes positions j0 = 2 (s - k)
-// and j0 + 1 for its R rows, taking from thread k - 1 (__shfl_up_sync) row
-// k R - 1's (Gg, F) at both, the step's chars and segment word, and the
-// column's running max of G, and handing its own last row's to thread k + 1
-// at the next step. The two positions' F chains run side by side down the
-// rows, so one waits on the other's latency less. Thread 0 reads row -1
-// from bnd_in (Gg = go, F = 0 on the first pass); the last thread with rows
+// one window, thread k holding the R rows k R .. k R + R - 1 of the pass in
+// registers (the team step of sw_team.cuh). Thread 0 reads row -1 from
+// bnd_in (Gg = go, F = 0 on the first pass); the last thread with rows
 // writes bnd_out and keeps the segment's best. Chars, fs and bnd_in are
 // loaded 32 steps at a time, one step per thread, and passed to thread 0 by
 // __shfl_sync. One pass covers 32 R rows; a shorter pass gives the threads
 // past its last row P' = 0 rows, which never raise a best (H' <= G_diag
 // there), and they write nothing.
 //
-// Segments. fs can start a segment every 16 positions, so two or three
-// segments are in flight in one warp. Each thread resets at its own
-// position (Gg = go and E = 0 for its rows, its diagonal to go), never the
-// whole warp; row -1 is not reset (the boundary at a segment start already
-// belongs to the new sequence). The warp takes the reset out of its hot
-// loop, as a cold step, when any of its threads starts a segment. The best
-// travels with its position as the column max, and only the last thread
-// flushes it, to slot fs - 1, so each slot has one writer.
-//
-// Shared memory. The pass's P' sits char-major, thread k's row r of char c
-// at word (c R + r) 32 + k: the thread index picks the bank, so the
-// gather of a warp whose threads read different rows and chars has no
-// conflicts. 4 KiB x R per CTA.
+// Shared memory. The pass's P' as sw_team.cuh lays it out, thread k's
+// row r of char c at word (c R + r) 32 + k. 4 KiB x R per CTA.
 //
 // What bounds it on this card. No rolling rows go through device memory:
 // the only state kept there is the pass boundary, 16 B per position per pass
-// (16 / (32 R) B per cell), against the 1 B per cell of the stream body's
-// rows. A warp-per-lane grid gives 32 threads per lane, so at Swiss-Prot
-// scale (253 windows of 256 lanes) the card holds as many warps as
+// (16 / (32 R) B per cell), against the 1 B per cell of K4's rolling rows
+// (sw_windows.cu). A warp-per-lane grid gives 32 threads per lane, so at
+// Swiss-Prot scale (253 windows of 256 lanes) the card holds as many warps as
 // registers (2 R of state a thread) and the shared profile allow. What is
 // left is the integer work, about 5.5 instructions and one LDS per cell
 // plus the step's shuffles and bookkeeping over 2 R cells, on two pipes:
@@ -54,189 +36,17 @@
 // bound; the shuffles take the shared-memory path with the LDS, about 1.2
 // per cell at half the ALU pipe's rate, which is less.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sw_team.cuh"
 
 namespace {
 
-constexpr int kAlpha = 32;
-constexpr int kTeam = 32;   // threads per lane: one warp
-constexpr int kRowAlign = 4;  // convert.ROW_ALIGN: a pass's rows are a multiple
-constexpr int JB = 16;      // positions per fs block (swa_cuda.STREAM_JB)
-constexpr unsigned kFull = 0xffffffffu;
+constexpr int kTeam = kWarp;  // threads per lane: one warp
 
 // Lanes (warps) per CTA. The shared profile of 4 KiB x R leaves one or two
 // CTAs per SM from R = 24 up, so those CTAs take 16 warps.
 template <int R>
 __host__ __device__ constexpr int team_warps() {
   return R >= 24 ? 16 : 8;
-}
-
-// A step covers two positions, j0 = 2 (s - k) and j1 = j0 + 1: the F
-// chains of the two run side by side down a thread's rows. Segments start
-// on multiples of 16, so only j0 may start one and both positions always
-// belong to one segment. The segment word of a step: j0's char in bits
-// 0-4, bit 5 set where a segment starts at j0 (position 0 included), j1's
-// char in bits 6-10, the fs slot to flush in bits 11-30 (the wrapper keeps
-// slots below 2^20, so the word stays positive).
-constexpr int kFreshBit = 1 << 5;
-constexpr int kChar1Shift = 6;
-constexpr int kSlotShift = 11;
-
-// What a thread carries from one step to the next.
-template <int R>
-struct Team {
-  int gg[R], e[R];  // Gg(i, j0 - 1), E(i, j0 - 1) of this thread's rows
-  // What it hands thread k + 1: its last row's Gg and F at j0 and j1, the
-  // segment word and the column max over both, from the step before.
-  int o_gg0, o_f0, o_gg1, o_f1, o_word, o_cm;
-  int diag;  // Gg(k R - 1, j0 - 1)
-  int best;  // the last thread: the current segment's best
-};
-
-// What thread k takes in at a step: row k R - 1's Gg and F at j0 and j1,
-// the step's segment word and the column max so far.
-struct Input {
-  int gg0, f0, gg1, f1, word, cm;
-};
-
-// The constants of a thread's pass.
-struct Pass {
-  const int32_t* pk;  // its column of the shared profile
-  int32_t* out;       // (nslots, win) bests
-  int32_t* bo;        // bnd_out's Gg at (w, position 0, lane); F a plane on
-  size_t plane;
-  int k, last, rlast, len, win, lane, go, ge;
-  // 1, which the compiler cannot see: d * one + P' issues as an IMAD on
-  // the FMA pipe, off the ALU pipe that takes the max and add-max work.
-  int one;
-};
-
-// Row -1 and the segment word of thread 0's steps, one step per lane.
-struct Block {
-  int word, gg0, f0, gg1, f1;
-};
-
-// Thread k - 1's outputs of the step before; thread 0 takes row -1 and the
-// step's word from the block (step t of it), and starts the column max at
-// 0 (a pass's bests are over its own rows).
-template <bool kIn, int R>
-__device__ __forceinline__ Input receive(const Team<R>& st, const Pass& ps,
-                                         int t, const Block& b) {
-  Input in;
-  in.gg0 = __shfl_up_sync(kFull, st.o_gg0, 1);
-  in.f0 = __shfl_up_sync(kFull, st.o_f0, 1);
-  in.gg1 = __shfl_up_sync(kFull, st.o_gg1, 1);
-  in.f1 = __shfl_up_sync(kFull, st.o_f1, 1);
-  in.word = __shfl_up_sync(kFull, st.o_word, 1);
-  in.cm = __shfl_up_sync(kFull, st.o_cm, 1);
-  const int t_word = __shfl_sync(kFull, b.word, t);
-  int t_gg0 = ps.go, t_f0 = 0, t_gg1 = ps.go, t_f1 = 0;
-  if constexpr (kIn) {
-    t_gg0 = __shfl_sync(kFull, b.gg0, t);
-    t_f0 = __shfl_sync(kFull, b.f0, t);
-    t_gg1 = __shfl_sync(kFull, b.gg1, t);
-    t_f1 = __shfl_sync(kFull, b.f1, t);
-  }
-  if (ps.k == 0) {
-    in.gg0 = t_gg0;
-    in.f0 = t_f0;
-    in.gg1 = t_gg1;
-    in.f1 = t_f1;
-    in.word = t_word;
-    in.cm = 0;
-  }
-  return in;
-}
-
-// One step: this thread's R rows at j0 and at j1. kReset: some thread of
-// the warp starts a segment at this step (the rare, cold path).
-template <int R, bool kOut, bool kPartial, bool kReset>
-__device__ __forceinline__ void team_step(Team<R>& st, const Input& in,
-                                          const Pass& ps, int j0) {
-  int d0 = st.diag;  // Gg(i - 1, j0 - 1), the diagonal at j0
-  int d1 = in.gg0;   // Gg(i - 1, j0), the diagonal at j1
-  st.diag = in.gg1;
-  if constexpr (kReset) {
-    if (in.word & kFreshBit) {
-      // This thread's rows and its diagonal at j0 restart from the
-      // boundary; row -1 does not.
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        st.gg[r] = ps.go;
-        st.e[r] = 0;
-      }
-      d0 = ps.go;
-    }
-  }
-  const int32_t* p0 = ps.pk + (in.word & (kAlpha - 1)) * (R * kTeam);
-  const int32_t* p1 =
-      ps.pk + ((in.word >> kChar1Shift) & (kAlpha - 1)) * (R * kTeam);
-  int up_gg0 = in.gg0, up_f0 = in.f0;  // row i - 1 at j0
-  int up_gg1 = in.gg1, up_f1 = in.f1;  // row i - 1 at j1
-  int cm = in.cm;
-  int last_gg0 = 0, last_f0 = 0, last_gg1 = 0, last_f1 = 0;  // kPartial
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    // j0.
-    const int hp0 = d0 * ps.one + p0[r * kTeam];
-    const int e0 = __viaddmax_s32(st.e[r], ps.ge, st.gg[r]);
-    const int f0 = __viaddmax_s32(up_f0, ps.ge, up_gg0);
-    const int g0 = __vimax3_s32_relu(hp0, e0, f0);
-    const int gg0 = g0 + ps.go;
-    // j1, one cell behind on the E chain.
-    const int hp1 = d1 * ps.one + p1[r * kTeam];
-    const int e1 = __viaddmax_s32(e0, ps.ge, gg0);
-    const int f1 = __viaddmax_s32(up_f1, ps.ge, up_gg1);
-    const int g1 = __vimax3_s32_relu(hp1, e1, f1);
-    cm = __vimax3_s32(cm, g0, g1);
-    d0 = st.gg[r];  // Gg(i, j0 - 1), row i + 1's diagonal at j0
-    d1 = gg0;       // Gg(i, j0), its diagonal at j1
-    st.gg[r] = g1 + ps.go;
-    st.e[r] = e1;
-    up_gg0 = gg0;
-    up_f0 = f0;
-    up_gg1 = st.gg[r];
-    up_f1 = f1;
-    if constexpr (kPartial) {
-      // lqp is a multiple of kRowAlign, so the last row is one of these.
-      if (r % kRowAlign == kRowAlign - 1 && r == ps.rlast) {
-        last_gg0 = up_gg0;
-        last_f0 = f0;
-        last_gg1 = up_gg1;
-        last_f1 = f1;
-      }
-    }
-  }
-  if constexpr (!kPartial) {
-    last_gg0 = up_gg0;
-    last_f0 = up_f0;
-    last_gg1 = up_gg1;
-    last_f1 = up_f1;
-  }
-  st.o_gg0 = up_gg0;
-  st.o_f0 = up_f0;
-  st.o_gg1 = up_gg1;
-  st.o_f1 = up_f1;
-  st.o_word = in.word;
-  st.o_cm = cm;
-  // len is a multiple of 16, so j1 < len wherever j0 < len.
-  if (ps.k == ps.last && (unsigned)j0 < (unsigned)ps.len) {
-    const int slot = in.word >> kSlotShift;
-    if (slot > 0) {
-      // A new segment starts at j0: flush the finished one.
-      ps.out[(size_t)(slot - 1) * ps.win + ps.lane] = st.best;
-      st.best = 0;
-    }
-    st.best = max(st.best, cm);
-    if constexpr (kOut) {
-      int32_t* b = ps.bo + (size_t)j0 * ps.win;
-      b[0] = last_gg0;
-      b[ps.plane] = last_f0;
-      b[ps.win] = last_gg1;
-      b[ps.plane + ps.win] = last_f1;
-    }
-  }
 }
 
 // K2: one pass of 32 R rows; grid (lane groups of team_warps<R>(), nw).
@@ -318,13 +128,14 @@ __global__ void __launch_bounds__(team_warps<R>() * kTeam)
     while (true) {
 #pragma unroll 1
       for (; t < kTeam; ++t) {
-        const Input in = receive<kIn>(st, ps, t, b);
+        const Input in = receive<kIn, R, kTeam>(st, ps, t, b, kTeam);
         if (__any_sync(kFull, in.word & kFreshBit)) break;
         team_step<R, kOut, kPartial, false>(st, in, ps, 2 * (s0 + t - k));
       }
       if (t == kTeam) break;
-      team_step<R, kOut, kPartial, true>(st, receive<kIn>(st, ps, t, b), ps,
-                                         2 * (s0 + t - k));
+      team_step<R, kOut, kPartial, true>(
+          st, receive<kIn, R, kTeam>(st, ps, t, b, kTeam), ps,
+          2 * (s0 + t - k));
       ++t;
     }
   }

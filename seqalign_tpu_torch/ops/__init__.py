@@ -1,2 +1,2 @@
-"""The port's DP engines: plain PyTorch (swa_torch) and the CUDA kernel
-(swa_cuda)."""
+"""The port's DP engines: plain PyTorch (swa_torch), the CUDA kernels
+(swa_cuda) and the scalar NumPy oracle (oracle)."""

@@ -3,8 +3,9 @@
 ``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain C
 interface, loaded with ``ctypes``; no PyTorch headers are involved, so a
 build takes seconds. The sources compile in parallel, one ``nvcc -c`` each,
-and are then linked. The library's file name carries a hash of the sources
-and flags, so an edited source is rebuilt and an unchanged one is loaded
+and are then linked. The library's file name carries a hash of the sources,
+the headers they share (``csrc/*.cuh``) and the flags, so an edited source
+is rebuilt and an unchanged one is loaded
 from ``build/seqalign_tpu_torch/`` at the root of the checkout. A missing
 ``nvcc`` or a failed build raises ``RuntimeError``; nothing falls back.
 
@@ -56,7 +57,7 @@ def build(build_dir: Path = BUILD_DIR) -> Path:
     """
     srcs = _sources()
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in srcs:
+    for src in srcs + sorted(_CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     lib_path = Path(build_dir) / f"libseqalign_kernels_{h.hexdigest()[:16]}.so"
@@ -104,11 +105,7 @@ def load() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()))
         lib.sw_stream_launch.restype = ctypes.c_int
         lib.sw_stream_launch.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-        )
-        lib.sw_stream_multi_launch.restype = ctypes.c_int
-        lib.sw_stream_multi_launch.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
         )
         lib.sw_stream_striped_launch.restype = ctypes.c_int
         lib.sw_stream_striped_launch.argtypes = (

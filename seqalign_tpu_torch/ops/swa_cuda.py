@@ -49,11 +49,14 @@ nothing. :func:`sw_windows_engine` is the lane-batch engine interface over
 it (``sw_pallas_multi``: an unbiased profile and an ``(Lb, B)`` batch),
 :func:`sw_window` its one-window form (``sw_pallas``).
 
-On a CUDA tensor each wrapper launches its kernel in ``csrc/sw_stream.cu``
-(K2's in ``csrc/sw_striped.cu``: a warp per lane, the pass's rows in
-registers, no rolling-row scratch) or raises; on a CPU tensor it runs its
-plain version (:func:`sw_stream_reference`, :func:`sw_stream_multi_reference`,
-:func:`sw_stream_striped_pass_reference`, :func:`sw_windows_reference`).
+On a CUDA tensor each wrapper launches its kernel or raises: K1 and K3 the
+one-pass kernel of ``csrc/sw_stream.cuh`` (a team of T threads per lane, the
+query's rows in registers, no rolling-row scratch; :func:`stream_team`
+picks T and R), K2 ``csrc/sw_striped.cu`` (the same team step, a warp per
+lane, over row stripes), K4 and K5 ``csrc/sw_windows.cu``. On a CPU tensor
+it runs its plain version (:func:`sw_stream_reference`,
+:func:`sw_stream_multi_reference`, :func:`sw_stream_striped_pass_reference`,
+:func:`sw_windows_reference`).
 """
 
 from __future__ import annotations
@@ -64,11 +67,21 @@ import torch
 from ..convert import ROW_ALIGN, batch_windows, profile_to_torch
 from ..device import resolve_device
 
-# The port's query-row limit for one launch: the biased profile sits in one
-# block's shared memory as (rows, 32) int32, 1536 * 128 B = 192 KiB of the
-# 227 KiB a Hopper block may hold. Longer queries go to the row-striped
-# kernel (K2, sw_stream_striped), whose launches take STRIPE_ROWS rows each.
+# The port's query-row limit for one launch: a team of 32 threads holds 32 x
+# 48 rows, and its profile (4 KiB x R) 192 KiB of the 227 KiB a Hopper block
+# may hold. Longer queries go to the row-striped kernel (K2,
+# sw_stream_striped), whose launches take STRIPE_ROWS rows each.
 MAX_QUERY_ROWS = 1536
+
+# The one-pass kernel of K1 and K3 (csrc/sw_stream.cuh) scores a lane with
+# a team of T threads, T one of STREAM_TEAMS, thread k holding R rows of the
+# query in registers; it is built for each R of STREAM_ROWS_PER_THREAD_BUILT
+# (T is a launch argument), and a launch runs stream_team's (T, R). Teams of
+# one thread at the R of STREAM_SOLO_ROWS run a solo instance (no shuffles,
+# four steps of chars loaded at a time; csrc/sw_stream_solo.cu).
+STREAM_TEAMS = (1, 2, 4, 8, 16, 32)
+STREAM_ROWS_PER_THREAD_BUILT = (10, 12, 16, 18, 20, 24, 28, 32, 36, 40, 44, 48)
+STREAM_SOLO_ROWS = (10, 12, 16, 18, 20, 24)
 
 # The striped kernel (K2, csrc/sw_striped.cu) scores a lane with one warp
 # of STRIPE_TEAM threads, thread k holding R rows of the pass in registers;
@@ -81,9 +94,10 @@ STRIPE_ROWS_PER_THREAD_BUILT = (8, 16, 24, 32)
 # than 8 (PERF.md).
 STRIPE_ROWS_PER_THREAD = 32
 STRIPE_ROWS = STRIPE_TEAM * STRIPE_ROWS_PER_THREAD
-# The K2 kernel packs a step's fs slot from bit 11 of a signed int32
-# segment word (kSlotShift), so a slot must stay below 2^20.
-STRIPE_MAX_SLOTS = 1 << 20
+# The team kernels (K1, K3 and K2) pack a step's fs slot from bit 11 of a
+# signed int32 segment word (kSlotShift, csrc/sw_team.cuh), so a slot must
+# stay below 2^20.
+TEAM_MAX_SLOTS = 1 << 20
 
 # Positions per kernel block, chained through registers per sweep over the
 # query rows; the one block size the CUDA kernel is built for (the plain
@@ -155,6 +169,60 @@ def _check(profile_biased, streams, fs, go, ge, nslots, jb, *, multi=False):
             raise ValueError(f"fs names slots outside [0, {nslots}]")
 
 
+def _check_slots(nslots, kernel):
+    if nslots >= TEAM_MAX_SLOTS:
+        raise ValueError(
+            f"nslots={nslots}: the {kernel} kernel's segment word holds slots "
+            f"below {TEAM_MAX_SLOTS}"
+        )
+
+
+def stream_team(rows: int) -> tuple[int, int]:
+    """``(T, R)`` of the one-pass launch (K1, K3) for ``rows`` query rows:
+    the team of ``STREAM_TEAMS`` and the rows per thread of
+    ``STREAM_ROWS_PER_THREAD_BUILT`` that hold them with the fewest padded
+    rows ``T R``, and of those the smallest team (fewer shuffles and steps
+    of fill and drain per cell)."""
+    fits = [(t * r, t, r) for t in STREAM_TEAMS
+            for r in STREAM_ROWS_PER_THREAD_BUILT if t * r >= rows]
+    if not fits:
+        raise ValueError(
+            f"a query of {rows} rows exceeds the {STREAM_TEAMS[-1]} x "
+            f"{STREAM_ROWS_PER_THREAD_BUILT[-1]} rows the K1/K3 kernel holds"
+        )
+    _, t, r = min(fits)
+    return t, r
+
+
+def stream_kernel_instance(rows: int, team: tuple[int, int] | None = None) -> str:
+    """The template instance of ``csrc/sw_stream.cuh`` that a K1 or K3
+    launch over ``rows`` query rows runs (``team`` or :func:`stream_team`'s
+    choice), keyed as ``sass.kernel_key`` keys it: ``sw_stream_kernel<R,
+    kSolo>``, kSolo for a team of one thread at an R of
+    ``STREAM_SOLO_ROWS``."""
+    t, r = team or stream_team(rows)
+    solo = t == 1 and r in STREAM_SOLO_ROWS
+    return f"sw_stream_kernel<{r}, {'true' if solo else 'false'}>"
+
+
+def _stream_rows(profile_biased, rows, team) -> int:
+    """The rows a K1 or K3 launch scores (``rows``, or all ``lqp``),
+    checked with the forced ``team``."""
+    lqp = profile_biased.shape[-2]
+    rows = lqp if rows is None else rows
+    if not 0 <= rows <= lqp:
+        raise ValueError(f"rows={rows} outside the profile's [0, {lqp}] rows")
+    if team is None:
+        return rows
+    t, r = team
+    if t not in STREAM_TEAMS or r not in STREAM_ROWS_PER_THREAD_BUILT or t * r < rows:
+        raise ValueError(
+            f"team={team}: K1/K3 run teams of {STREAM_TEAMS} threads of "
+            f"{STREAM_ROWS_PER_THREAD_BUILT} rows, and a team must hold {rows} rows"
+        )
+    return rows
+
+
 def _check_rows_and_tensors(profile_biased, data, *others, go, ge):
     """The checks every kernel's inputs share: the profile's rows (a
     multiple of ``ROW_ALIGN``, at most ``MAX_QUERY_ROWS``), the database
@@ -193,6 +261,8 @@ def sw_stream(
     *,
     nslots: int,
     jb: int,
+    team: tuple[int, int] | None = None,
+    rows: int | None = None,
 ) -> torch.Tensor:
     """Score one query against segmented window streams in one launch.
 
@@ -203,19 +273,29 @@ def sw_stream(
       streams: ``(NW, L, win)`` int8 database streams, chars in 0..31.
       fs: ``(L//jb, NW, 2)`` int32 segment table (see module docstring).
       go, ge: total gap-open and gap-extend penalties, ``ge >= go``.
-      nslots: number of output slots.
+      nslots: number of output slots, below ``TEAM_MAX_SLOTS``.
       jb: positions per block; segment starts fall on block starts. The
         CUDA kernel takes only ``STREAM_JB``.
+      team: ``(T, R)`` of the kernel launch, one of ``STREAM_TEAMS`` and one
+        of ``STREAM_ROWS_PER_THREAD_BUILT`` whose team holds the rows; None
+        for :func:`stream_team`'s. The plain version has no team.
+      rows: the query rows to score, at most ``lqp`` (None: ``lqp``). The
+        profile's rows from ``rows`` on must be padding that never raises a
+        score (``P' <= -go``, as ``profile_to_torch`` and the pipeline's
+        ``multi_profile`` pad), which the kernel skips; the plain version
+        scores every row.
 
     Returns:
       ``(nslots, win)`` int32 per-segment best scores.
     """
     _check(profile_biased, streams, fs, go, ge, nslots, jb)
+    _check_slots(nslots, "K1")
+    rows = _stream_rows(profile_biased, rows, team)
     if streams.device.type == "cpu":
         return sw_stream_reference(
             profile_biased, streams, fs, go, ge, nslots=nslots, jb=jb
         )
-    out = _launch("sw_stream", profile_biased, streams, fs, go, ge, nslots, jb)
+    out = _launch_stream(profile_biased, streams, fs, go, ge, nslots, jb, team, rows)
     sw_stream.launches += 1
     return out
 
@@ -232,6 +312,8 @@ def sw_stream_multi(
     *,
     nslots: int,
     jb: int,
+    team: tuple[int, int] | None = None,
+    rows: int | None = None,
 ) -> torch.Tensor:
     """Score ``nq`` queries against the same segmented window streams in one
     launch (K3).
@@ -240,19 +322,20 @@ def sw_stream_multi(
       profile_biased: ``(nq, lqe, 32)`` int32 ``P - go`` (``convert.
         profile_to_torch`` of a 3-D profile), ``lqe`` a multiple of
         ``ROW_ALIGN`` and at most ``MAX_QUERY_ROWS``.
-      streams, fs, go, ge, nslots, jb: as :func:`sw_stream`.
+      streams, fs, go, ge, nslots, jb, team: as :func:`sw_stream`.
+      rows: as :func:`sw_stream`, for every query.
 
     Returns:
       ``(nslots, nq, win)`` int32 per-segment best scores of each query.
     """
     _check(profile_biased, streams, fs, go, ge, nslots, jb, multi=True)
+    _check_slots(nslots, "K3")
+    rows = _stream_rows(profile_biased, rows, team)
     if streams.device.type == "cpu":
         return sw_stream_multi_reference(
             profile_biased, streams, fs, go, ge, nslots=nslots, jb=jb
         )
-    out = _launch(
-        "sw_stream_multi", profile_biased, streams, fs, go, ge, nslots, jb
-    )
+    out = _launch_stream(profile_biased, streams, fs, go, ge, nslots, jb, team, rows)
     sw_stream_multi.launches += 1
     return out
 
@@ -319,7 +402,7 @@ def sw_stream_striped_pass(
         CUDA kernel takes at most ``STRIPE_TEAM`` x the largest of
         ``STRIPE_ROWS_PER_THREAD_BUILT`` rows (1024) in a pass.
       streams, fs, go, ge, jb: as :func:`sw_stream`.
-      nslots: as :func:`sw_stream`, below ``STRIPE_MAX_SLOTS``.
+      nslots: as :func:`sw_stream`.
       bnd_in: ``(2, NW, L, win)`` int32 ``(Gg, F)`` of the previous
         stripe's last row, or None for the first stripe (row -1 is then the
         boundary Gg = go, F = 0).
@@ -343,11 +426,7 @@ def sw_stream_striped_pass(
             "a pass with no boundary in or out is a one-stripe query: "
             "use sw_stream (K1)"
         )
-    if nslots >= STRIPE_MAX_SLOTS:
-        raise ValueError(
-            f"nslots={nslots}: the K2 kernel's segment word holds slots below "
-            f"{STRIPE_MAX_SLOTS}"
-        )
+    _check_slots(nslots, "K2")
     rows = profile_biased.shape[0]
     if rows_per_thread is not None and (
             rows_per_thread not in STRIPE_ROWS_PER_THREAD_BUILT
@@ -363,9 +442,13 @@ def sw_stream_striped_pass(
         )
     if rows == 0:
         raise ValueError("a K2 pass needs at least one row")
-    out = _launch(
-        "sw_stream_striped", profile_biased, streams, fs, go, ge, nslots, jb,
-        bnd=(bnd_in, bnd_out), rows_per_thread=rows_per_thread,
+    out, dims = _cuda_out(profile_biased, streams, nslots, jb)
+    _call(
+        "sw_stream_striped", streams.device, profile_biased.data_ptr(),
+        streams.data_ptr(), fs.data_ptr(), out.data_ptr(),
+        *(None if t is None else t.data_ptr() for t in (bnd_in, bnd_out)),
+        *dims, jb, int(go), int(ge),
+        rows_per_thread or stripe_rows_per_thread(rows),
     )
     sw_stream_striped_pass.launches += 1
     return out, bnd_out
@@ -427,40 +510,38 @@ def _striped(pass_fn, stripes, streams, fs, go, ge, nslots, jb) -> torch.Tensor:
     return best
 
 
-def _launch(name, prof, streams, fs, go, ge, nslots, jb, bnd=None,
-            rows_per_thread=None) -> torch.Tensor:
-    """Launch the CUDA kernel ``name`` (``sw_stream``: a 2-D profile,
-    ``sw_stream_multi``: a 3-D one, both with the rolling rows; or
-    ``sw_stream_striped``: a 2-D stripe and its boundary tensors ``bnd =
-    (bnd_in, bnd_out)``, None for none, no scratch, at ``rows_per_thread``
-    or the smallest R that holds the stripe) on checked tensors; raise on
-    another device or block size, and on a refused launch."""
+def _cuda_out(prof, streams, nslots, jb) -> tuple[torch.Tensor, tuple]:
+    """The zeroed ``(nslots, [nq,] win)`` output of a stream kernel launch on
+    checked tensors and the launch's ``(lqp, L, win, nw)``; raise on another
+    device or block size."""
     if streams.device.type != "cuda":
         raise ValueError(f"no stream kernel for device {streams.device}")
     if jb != STREAM_JB:
         raise ValueError(f"the CUDA kernel is built for jb={STREAM_JB}, got {jb=}")
     nw, length, win = streams.shape
+    out = torch.zeros((nslots, *prof.shape[:-2], win), dtype=torch.int32,
+                      device=streams.device)
+    return out, (prof.shape[-2], length, win, nw)
+
+
+def _launch_stream(prof, streams, fs, go, ge, nslots, jb, team, rows) -> torch.Tensor:
+    """Launch the one-pass kernel (K1 for a 2-D profile, K3 for a 3-D one)
+    over ``rows`` rows at ``team`` or :func:`stream_team`'s (T, R); no
+    scratch."""
+    out, (lqp, *dims) = _cuda_out(prof, streams, nslots, jb)
+    t, r = team or stream_team(rows)
     nq = prof.shape[0] if prof.ndim == 3 else 1
-    lqp = prof.shape[-2]
-    dev = streams.device
-    out = torch.zeros((nslots, *prof.shape[:-2], win), dtype=torch.int32, device=dev)
-    dims = (lqp, length, win, nw) + ((nq,) if prof.ndim == 3 else ())
-    if bnd is None:
-        rows = _rows(nq, nw, lqp, win, dev)
-        state, team = (rows[0].data_ptr(), rows[1].data_ptr()), ()
-    else:
-        state = tuple(None if t is None else t.data_ptr() for t in bnd)
-        team = (rows_per_thread or stripe_rows_per_thread(lqp),)
     _call(
-        name, dev, prof.data_ptr(), streams.data_ptr(), fs.data_ptr(),
-        out.data_ptr(), *state, *dims, jb, int(go), int(ge), *team,
+        "sw_stream", streams.device, prof.data_ptr(), streams.data_ptr(),
+        fs.data_ptr(), out.data_ptr(), lqp, rows, *dims, nq, jb, int(go), int(ge),
+        t, r,
     )
     return out
 
 
 def _rows(nq, nw, lqp, win, dev) -> torch.Tensor:
-    """The rolling (Gg, E) rows, ``[q][w][i][lane]``; the kernels write them
-    before they read them."""
+    """K4's and K5's rolling (Gg, E) rows, ``[q][w][i][lane]``; the kernels
+    write them before they read them."""
     return torch.empty((2, nq, nw, lqp, win), dtype=torch.int32, device=dev)
 
 

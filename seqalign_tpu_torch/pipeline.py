@@ -34,13 +34,16 @@ from .host import (
     read_first,
 )
 from .ops import swa_cuda
+from .ops.oracle import sw_score_batch
 from .ops.swa_cuda import (
     STREAM_JB, supported_scoring, sw_stream, sw_stream_multi, sw_stream_striped,
     sw_windows_engine,
 )
 from .ops.swa_torch import make_profile, sw_scan, sw_wavefront
 
-ENGINES = ("stream", "wavefront", "scan")
+# ``pallas`` is the JAX package's name for its kernel route: here the
+# stream engine. ``oracle`` is the scalar NumPy oracle, record by record.
+ENGINES = ("stream", "pallas", "wavefront", "scan", "oracle")
 
 # Lanes of one window stream: one 256-thread CTA of the kernel.
 WINDOW_LANES = 256
@@ -50,8 +53,9 @@ STREAM_GRAIN = 16  # segment-length rounding, a multiple of STREAM_JB
 MAX_STREAM_SLOTS = 4096
 # Lane-batch width of the wavefront and scan engines.
 BATCH_LANES = 512
-# Device memory one multi-query launch may take for its rolling rows and
-# its output (choose_query_block); sets the queries per launch.
+# Device memory one multi-query launch may take for its output
+# (choose_query_block); sets the queries per launch. The kernel keeps no DP
+# state in device memory.
 MULTI_SCRATCH_BYTES = 8 << 30
 # Device memory one chunk of a striped (long-query) search may take for its
 # two boundary arrays, 16 B per stream cell (Gg and F, in and out): the only
@@ -121,18 +125,26 @@ def search_database(
     """Score an encoded query against an EncodedDatabase.
 
     Returns (scores in database stream order (N,) int32, kernel seconds).
-    ``engine`` is one of ``ENGINES`` (default ``stream``); ``device``
-    defaults to :func:`resolve_device`.
+    ``engine`` is one of ``ENGINES`` (default ``stream``; ``pallas`` is
+    ``stream``); ``device`` defaults to :func:`resolve_device`. The
+    ``oracle`` engine scores each record with the NumPy oracle on the host,
+    timed as the JAX package times it.
     """
-    eng = engine or "stream"
-    if eng not in ENGINES:
-        raise KeyError(f"unknown engine {eng!r}; expected one of {ENGINES}")
+    eng = _engine(engine)
     dev = resolve_device() if device is None else torch.device(device)
 
     n = db.n
     scores = np.zeros(n, dtype=np.int32)
     if n == 0 or len(query_idx) == 0:
         return scores, 0.0
+
+    if eng == "oracle":
+        t0 = time.perf_counter()
+        scores = sw_score_batch(
+            query_idx, [db.record(i) for i in range(n)], scoring.table,
+            scoring.gap_open, scoring.gap_extend,
+        ).astype(np.int32)
+        return scores, time.perf_counter() - t0
 
     profile = make_profile(scoring.table, query_idx)
     go, ge = scoring.gap_open_total, scoring.gap_extend
@@ -156,6 +168,14 @@ def search_database(
         kernel_time += time.perf_counter() - t0
         scores[ids] = out.numpy()[: len(ids)]
     return scores, kernel_time
+
+
+def _engine(engine: str | None) -> str:
+    """The engine a search runs for ``engine`` (None: ``stream``)."""
+    eng = engine or "stream"
+    if eng not in ENGINES:
+        raise KeyError(f"unknown engine {eng!r}; expected one of {ENGINES}")
+    return "stream" if eng == "pallas" else eng
 
 
 def lane_batches(
@@ -196,13 +216,12 @@ def search_database_multi(
     same packed streams in one launch of the multi-query kernel each; a
     query over ``MAX_QUERY_ROWS`` rows is searched on its own through the
     striped kernel (:func:`search_database`), and the search says so. The
-    ``wavefront`` and ``scan`` engines, and a scoring system outside the
-    stream kernel's envelope (which says so and uses ``wavefront``), search
-    each query on its own through :func:`search_database`.
+    ``wavefront``, ``scan`` and ``oracle`` engines, and a scoring system
+    outside the stream kernel's envelope (which says so and uses
+    ``wavefront``), search each query on its own through
+    :func:`search_database`.
     """
-    eng = engine or "stream"
-    if eng not in ENGINES:
-        raise KeyError(f"unknown engine {eng!r}; expected one of {ENGINES}")
+    eng = _engine(engine)
     dev = resolve_device() if device is None else torch.device(device)
     nq = len(query_idxs)
     scores = np.zeros((nq, db.n), dtype=np.int32)
@@ -264,16 +283,15 @@ def multi_profile(table: np.ndarray, query_idxs: Sequence[np.ndarray]) -> np.nda
     return profiles
 
 
-def choose_query_block(nq: int, rows: int, nw_max: int, win: int) -> int:
+def choose_query_block(nq: int, nslots: int, win: int) -> int:
     """Queries per multi-query launch.
 
-    As many as fit ``MULTI_SCRATCH_BYTES``: per query, the kernel's rolling
-    rows (``2 x 4 B x rows x win`` per window, at most ``nw_max`` windows)
-    and its output (``4 B x win`` per slot, at most ``MAX_STREAM_SLOTS``);
-    then evened out so the blocks differ by at most one query and the last
-    block pads as few as it can.
+    As many as fit ``MULTI_SCRATCH_BYTES``: per query, the launch's output,
+    ``4 B x win`` per slot for ``nslots`` slots (the kernel keeps no DP
+    state in device memory); then evened out so the blocks differ by at
+    most one query and the last block pads as few as it can.
     """
-    per_query = 4 * win * (2 * rows * max(nw_max, 1) + MAX_STREAM_SLOTS)
+    per_query = 4 * win * max(nslots, 1)
     cap = max(1, MULTI_SCRATCH_BYTES // per_query)
     n_blocks = -(-nq // cap)
     return -(-nq // n_blocks)
@@ -314,25 +332,20 @@ def choose_windows(
 
 
 def query_blocks(
-    profile: np.ndarray, go: int, n: int, lanes: int | None,
-    device: torch.device,
+    profile: np.ndarray, go: int, n: int, device: torch.device,
 ) -> list[torch.Tensor]:
     """The blocks of queries a multi-query search over ``n`` records
     launches, one multi-query launch each per chunk.
 
     ``profile`` is ``(NQ, Lq, 32)``; each block is ``(nq_b, lqe, 32)``
-    biased, on ``device`` (:func:`choose_query_block`), the last one filled
-    up with zero profiles.
+    biased, on ``device`` (:func:`choose_query_block`, for the most slots a
+    chunk of ``n`` records takes), the last one filled up with zero
+    profiles.
     """
     prof = profile_to_torch(profile, go, "cpu")
     win = WINDOW_LANES
-    # choose_windows gives no more windows than a chunk has segments, nor
-    # than the lanes it is allowed.
-    nw_max = min(-(-n // win), MAX_STREAM_SLOTS)
-    cap = lanes or resident_lanes(device)
-    if cap:
-        nw_max = min(nw_max, max(1, cap // win))
-    nq_b = choose_query_block(prof.shape[0], prof.shape[1], nw_max, win)
+    nslots = min(-(-n // win), MAX_STREAM_SLOTS)
+    nq_b = choose_query_block(prof.shape[0], nslots, win)
     pad = prof.new_zeros((-prof.shape[0] % nq_b, *prof.shape[1:]))
     return [b.to(device) for b in torch.cat([prof, pad]).split(nq_b)]
 
@@ -407,13 +420,16 @@ def _stream_search(
     if multi:
         nq = profile.shape[0]
         scores = np.zeros((nq, n), dtype=np.int32)
-        blocks = query_blocks(profile, go, n, lanes, device)
+        blocks = query_blocks(profile, go, n, device)
     elif striped:
         scores = np.zeros(n, dtype=np.int32)
         stripes = profile_stripes(profile, go, swa_cuda.STRIPE_ROWS, device)
     else:
         scores = np.zeros(n, dtype=np.int32)
         prof_dev = profile_to_torch(profile, go, device)
+    # The query rows the stream kernels score: the ROW_ALIGN padding of the
+    # profile never raises a score, and the one-pass kernel skips it.
+    rows = profile.shape[-2]
     max_residues = striped_chunk_residues() if striped else None
     for chunk, pack in stream_chunks(db, order, lanes, device, max_residues):
         streams, fs = stream_pack_to_torch(pack, device)
@@ -422,13 +438,14 @@ def _stream_search(
         t0 = time.perf_counter()
         if multi:
             # Every block's launch is enqueued before the one fetch.
-            outs = [sw_stream_multi(b, streams, fs, go, ge, **kw) for b in blocks]
+            outs = [sw_stream_multi(b, streams, fs, go, ge, rows=rows, **kw)
+                    for b in blocks]
             out = torch.cat(outs, dim=1).cpu()
         elif striped:
             # Every stripe's launch is enqueued before the one fetch.
             out = sw_stream_striped(stripes, streams, fs, go, ge, **kw).cpu()
         else:
-            out = sw_stream(prof_dev, streams, fs, go, ge, **kw).cpu()
+            out = sw_stream(prof_dev, streams, fs, go, ge, rows=rows, **kw).cpu()
         kernel_time += time.perf_counter() - t0
         # Slot s holds chunk records [s*win, (s+1)*win): the flattened slots
         # are the chunk in packing order, the final group's padding lanes

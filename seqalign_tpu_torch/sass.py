@@ -5,18 +5,21 @@
 builds ``csrc/*.cu`` as ``ops/_build.py`` does and prints, for each kernel
 function: the registers and spills ptxas reports (``-Xptxas -v``), its
 number of SASS instructions (``cuobjdump -sass``), and its innermost DP
-loop (the stream body's row loop; K2's step loop, R rows at two
-positions): the instructions of the loop body, the DP cells one iteration
-computes (one ``LDS``, the profile gather ``P'[i][c]``, each; a loop
-without a gather, K5's, computes ``CELLS_PER_ITERATION``) and the integer
+loop (K4's row loop; the team kernels' step loop, R rows at two
+positions: K1 and K3's ``sw_stream_kernel<R>``, K2's
+``sw_stream_striped_kernel``): the instructions of the loop body, the DP
+cells one iteration computes (one ``LDS``, the profile gather
+``P'[i][c]``, each; a loop without a gather, K5's, computes
+``CELLS_PER_ITERATION``) and the integer
 ALU instructions per cell; of those, the ``IMAD`` family issues on the FMA
 pipe beside the ALU pipe that takes the rest (``seqalign_tpu_torch.probe``
 measures the two side by side), so ``pipe_per_cell`` counts the busier
-pipe's. K2's shuffles (``SHFL``) are not ALU work: the probe runs them
+pipe's. The team kernels' shuffles (``SHFL``) are not ALU work: the probe runs them
 beside ``VIADDMNMX`` at twice the rate of either, and beside ``LDS`` at
 the rate of one, so they take the shared-memory path with ``LDS``. A template kernel's instances
 are keyed apart by their arguments (``sw_windows_kernel<false, true>``,
-``sw_stream_striped_kernel<16, true, true, false>``). With ``--against DIR`` it builds
+``sw_stream_kernel<36>``, ``sw_stream_striped_kernel<16, true, true,
+false>``). With ``--against DIR`` it builds
 ``DIR/seqalign_tpu_torch/csrc/*.cu`` (another checkout, for example the
 parent commit) the same way and says, kernel by kernel, whether both builds
 compiled to the same SASS, instruction for instruction.
@@ -38,15 +41,17 @@ from .convert import ROW_ALIGN
 from .ops import _build
 from .ops.swa_cuda import STREAM_JB
 
-KERNELS = ("sw_stream_kernel", "sw_stream_multi_kernel", "sw_stream_striped_kernel",
-           "sw_windows_kernel")
-# Cells of one iteration of the row loop: kRowUnroll (= ROW_ALIGN) rows x JB
-# (= STREAM_JB) positions of csrc/sw_stream.cu. Where the loop gathers the
-# profile it holds one LDS per cell, and the count of LDS must equal this
-# (expected_cells; K2's step loop holds 2 R).
+KERNELS = ("sw_stream_kernel", "sw_stream_striped_kernel", "sw_windows_kernel")
+# Cells of one iteration of K4's row loop: kRowUnroll (= ROW_ALIGN) rows x
+# JB (= STREAM_JB) positions of csrc/sw_windows.cu. Where the loop gathers
+# the profile it holds one LDS per cell, and the count of LDS must equal
+# this (expected_cells; the team kernels' step loop holds 2 R).
 CELLS_PER_ITERATION = ROW_ALIGN * STREAM_JB
-# Positions one step of K2 (csrc/sw_striped.cu) covers, R rows each.
+# Positions one step of a team kernel (csrc/sw_team.cuh) covers, R rows
+# each.
 STRIPED_POSITIONS_PER_STEP = 2
+# The team kernels, whose first template argument is R.
+TEAM_KERNELS = ("sw_stream_kernel<", "sw_stream_striped_kernel<")
 # Opcodes that are not integer ALU work: memory (SHFL shares LDS's path),
 # control, conversion.
 _NOT_ALU = ("LD", "ST", "SHFL", "BRA", "BAR", "NOP", "EXIT", "RET", "CALL",
@@ -78,11 +83,11 @@ def kernel_key(mangled: str) -> str | None:
 
 def expected_cells(key: str) -> int:
     """The ``LDS`` (cells) one iteration of a gathering kernel's DP loop
-    holds: ``STRIPED_POSITIONS_PER_STEP`` x R (K2's first template argument)
-    for K2's step loop; ``CELLS_PER_ITERATION`` for the stream body's row
-    loop."""
-    if key.startswith("sw_stream_striped_kernel<"):
-        return STRIPED_POSITIONS_PER_STEP * int(key.split("<", 1)[1].split(",", 1)[0])
+    holds: ``STRIPED_POSITIONS_PER_STEP`` x R (the first template argument)
+    for a team kernel's step loop (K1, K3, K2); ``CELLS_PER_ITERATION`` for
+    K4's row loop."""
+    if key.startswith(TEAM_KERNELS):
+        return STRIPED_POSITIONS_PER_STEP * int(re.match(r"[^<]*<(\d+)", key).group(1))
     return CELLS_PER_ITERATION
 
 

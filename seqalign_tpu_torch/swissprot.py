@@ -231,7 +231,7 @@ def stream_k1_ms(db, profs) -> dict[int, float]:
     streams, fs = stream_pack_to_torch(pack, dev)
     kw = dict(nslots=len(pack.slot_ids), jb=STREAM_JB)
     return {lq: cuda_ms(lambda: sw_stream(p, streams, fs, sc.gap_open_total,
-                                          sc.gap_extend, **kw), 2)
+                                          sc.gap_extend, rows=lq, **kw), 2)
             for lq, p in profs.items()}
 
 
@@ -299,7 +299,7 @@ def multi_breakdown(db, nq: int, lq: int, say) -> dict:
     t0 = time.perf_counter()
     order = np.argsort(-db.lengths, kind="stable")
     blocks = pipeline.query_blocks(
-        pipeline.multi_profile(sc.table, queries), go, db.n, None, dev)
+        pipeline.multi_profile(sc.table, queries), go, db.n, dev)
     steps["sort_and_plan"] = time.perf_counter() - t0
     steps["pack"] = steps["h2d"] = steps["fetch_and_scatter"] = 0.0
     chunks = []
@@ -316,13 +316,13 @@ def multi_breakdown(db, nq: int, lq: int, say) -> dict:
         chunks.append((chunk, streams, fs, len(pack.slot_ids)))
 
     def k3_all():
-        return [sw_stream_multi(b, s, f, go, ge, nslots=ns, **kw)
+        return [sw_stream_multi(b, s, f, go, ge, nslots=ns, rows=lq, **kw)
                 for _, s, f, ns in chunks for b in blocks]
 
     steps["kernel"] = cuda_ms(k3_all, 3) / 1e3
     scores = np.zeros((nq, db.n), np.int32)
     for chunk, s, f, ns in chunks:
-        outs = [sw_stream_multi(b, s, f, go, ge, nslots=ns, **kw) for b in blocks]
+        outs = [sw_stream_multi(b, s, f, go, ge, nslots=ns, rows=lq, **kw) for b in blocks]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = torch.cat(outs, dim=1).cpu().numpy()
@@ -352,7 +352,7 @@ def multi_breakdown(db, nq: int, lq: int, say) -> dict:
     # K1 over the same queries and streams: what nq single-query searches
     # launch.
     profs = [profile_to_torch(make_profile(sc.table, q), go, dev) for q in queries]
-    k1_ms = cuda_ms(lambda: [sw_stream(p, s, f, go, ge, nslots=ns, **kw)
+    k1_ms = cuda_ms(lambda: [sw_stream(p, s, f, go, ge, nslots=ns, rows=lq, **kw)
                              for _, s, f, ns in chunks for p in profs], 3)
     say(f"{tag} K1 x {nq}: {k1_ms} ms = {cells / k1_ms / 1e6} GCUPS")
     return {"nq": nq, "lq": lq, "shape": shape, "steps_s": steps, "search": walls,
@@ -523,7 +523,7 @@ def main(argv=None) -> int:
                     f"{lq * residues / kernel_s / 1e9} GCUPS")
             continue
         pq = profile_to_torch(make_profile(sc.table, q), go, dev)
-        ms = cuda_ms(lambda: sw_stream(pq, streams, fs, go, ge, **kw), 3)
+        ms = cuda_ms(lambda: sw_stream(pq, streams, fs, go, ge, rows=lq, **kw), 3)
         gcups = lq * residues / ms / 1e6
         result["lq"].append({"lq": lq, "ms": ms, "gcups": gcups, "shape": shape,
                              "padded_over_real": padded})

@@ -1,0 +1,152 @@
+"""Time the stream kernels (K1, K3) of this checkout against another
+checkout's, in turns, on one card.
+
+    python -m seqalign_tpu_torch.turns --against DIR [--reps N] [--out FILE.json]
+
+``DIR`` is the root of another checkout of the repo (for example the parent
+commit, unpacked with ``git archive`` into ``build/parent``). A worker
+process runs four times, in the order other, this, this, other; each one
+imports ``seqalign_tpu_torch`` from its own checkout, builds that
+checkout's kernels and, on the Swiss-Prot-scale database
+(``swissprot.swissprot_db``, PAM250, gaps -2/-1), runs one search of each
+cell of ``CELLS`` through that checkout's pipeline: K1 at lq=17, 144, 512
+and 1536 (``search_database``), K3 at 8 x 17 and 64 x 144
+(``search_database_multi``). It records the kernel launches the search makes
+(the arguments the pipeline passes to ``sw_stream`` or ``sw_stream_multi``)
+and replays them ``--reps`` times under CUDA events: the kernels' time as
+each checkout's pipeline launches them, with its own windows, query blocks
+and kernel instances; and the search's device-memory peak above what was
+held before it. The scores of every run must be equal. Each line
+names the card and its power limit; ``--out`` gets the same as JSON.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+# (kernel, queries, query length, query seed): the main path's query (seed
+# None: swissprot_db's own), the multi-query cells as chip_smoke draws them.
+CELLS = (
+    ("K1", 1, 17, 17), ("K1", 1, 144, None), ("K1", 1, 512, 512),
+    ("K1", 1, 1536, 1536), ("K3", 8, 17, 100), ("K3", 64, 144, 200),
+)
+
+
+def _worker(root: str, reps: int) -> dict:
+    """One checkout's cells; imports its package from ``root``."""
+    sys.path[0] = root
+    import hashlib
+
+    import torch
+
+    from seqalign_tpu_torch import pipeline
+    from seqalign_tpu_torch.swissprot import (
+        card, pam250, random_query, swissprot_db,
+    )
+
+    def cuda_ms(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end)
+
+    query, db = swissprot_db()
+    sc = pam250()
+    out = {"root": root, "card": card(), "cells": {}}
+    for kernel, nq, lq, seed in CELLS:
+        name = "sw_stream_multi" if kernel == "K3" else "sw_stream"
+        fn = getattr(pipeline, name)
+        launches = []
+
+        def spy(*a, **kw):
+            launches.append((a, kw))
+            return fn(*a, **kw)
+
+        setattr(pipeline, name, spy)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            if kernel == "K3":
+                queries = [random_query(lq, seed + k) for k in range(nq)]
+                scores, _ = pipeline.search_database_multi(queries, db, sc, device="cuda")
+            else:
+                q = query if seed is None else random_query(lq, seed)
+                scores, _ = pipeline.search_database(q, db, sc, device="cuda")
+        finally:
+            setattr(pipeline, name, fn)
+        peak = torch.cuda.max_memory_allocated() - base
+        ms = [cuda_ms(lambda: [fn(*a, **kw) for a, kw in launches]) for _ in range(reps)]
+        out["cells"][f"{kernel} {nq}x{lq}"] = {
+            "launches": len(launches), "ms": ms, "memory_peak_bytes": peak,
+            "scores_sha256": hashlib.sha256(scores.tobytes()).hexdigest(),
+        }
+        del launches
+    return out
+
+
+def run(other: Path, reps: int = 3, say=print) -> dict:
+    """The four turns (other, this, this, other) and, per cell, each run's
+    fastest replay, both checkouts' launches and other / this."""
+    this = Path(__file__).resolve().parents[1]
+    runs = []
+    for root in (other, this, this, other):
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--worker", str(root),
+             "--reps", str(reps)],
+            cwd=root, capture_output=True, text=True, timeout=1200,
+        )
+        if proc.returncode:
+            raise SystemExit(f"turns: the worker in {root} failed:\n{proc.stderr[-3000:]}")
+        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        say(f"[turns] run {len(runs)}: {root} | {runs[-1]['card']}")
+    cells = {}
+    for cell in runs[0]["cells"]:
+        got = [r["cells"][cell] for r in runs]
+        if len({g["scores_sha256"] for g in got}) != 1:
+            raise SystemExit(f"turns: {cell}: the checkouts' scores differ")
+        other_ms = [min(got[0]["ms"]), min(got[3]["ms"])]
+        this_ms = [min(got[1]["ms"]), min(got[2]["ms"])]
+        cells[cell] = {
+            "other_ms": other_ms, "this_ms": this_ms,
+            "other_launches": got[0]["launches"], "this_launches": got[1]["launches"],
+            "other_memory_peak_bytes": got[0]["memory_peak_bytes"],
+            "this_memory_peak_bytes": got[1]["memory_peak_bytes"],
+            "other_over_this": sum(other_ms) / sum(this_ms),
+        }
+        say(f"[turns] {cell}: other {other_ms} ms ({got[0]['launches']} launches, "
+            f"peak {got[0]['memory_peak_bytes']} B), this {this_ms} ms "
+            f"({got[1]['launches']} launches, peak {got[1]['memory_peak_bytes']} B), "
+            f"other/this {cells[cell]['other_over_this']}; scores equal | {runs[0]['card']}")
+    return {"other": str(other), "card": runs[0]["card"], "cells": cells}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--against", help="the root of the other checkout")
+    ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--out", default=None)
+    ap.add_argument("--worker", default=None, help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.worker:
+        print(json.dumps(_worker(args.worker, args.reps)))
+        return 0
+    if not args.against:
+        ap.error("--against DIR is required")
+    result = run(Path(args.against).resolve(), args.reps,
+                 lambda msg: print(msg, flush=True))
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(result, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -239,6 +239,31 @@ def test_long_query_output_matches_jax(case, files, long_files, capsys):
         assert _drop_time(out) == _drop_time(jout)
 
 
+@pytest.mark.parametrize("query", ["q", "multi3"])
+@pytest.mark.parametrize("engine", ["oracle", "pallas"])
+def test_engine_names_of_the_jax_cli(engine, query, files, capsys):
+    """``--engine oracle`` and ``--engine pallas`` (the JAX CLI's names: the
+    NumPy oracle, and the kernel route, which the port runs as its stream
+    kernels) print what the JAX CLI prints under the same name, for one
+    query and for a multi-record query file, but for Total Time."""
+    args = ["--files", files[query], files["db"], "--substitution_matrix", "BLOSUM62",
+            "--engine", engine]
+    code, out, err = _run(cli.main, args, capsys)
+    jcode, jout, _ = _run(jax_cli.main, args, capsys)
+    assert code == jcode == 0
+    assert "Note:" not in err  # the port's kernel is the device route
+    assert "Entry #" in out and ("Query #2:" in out) == (query == "multi3")
+    assert _drop_time(out) == _drop_time(jout)
+
+
+def test_unknown_engine_exits_1(files, capsys):
+    code, out, err = _run(
+        cli.main, ["--files", files["q"], files["db"], "--engine", "tpu"], capsys
+    )
+    assert code == 1
+    assert "Error: Unknown engine 'tpu'" in err and "Entry #" not in out
+
+
 @pytest.mark.parametrize(
     "args",
     [[], ["--match", "x"], ["--files", "a"], ["--bogus"], ["--match", "-3"]],

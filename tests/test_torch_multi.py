@@ -168,12 +168,9 @@ def test_search_database_multi_matches_jax(scoring, lengths, budget_queries, mon
     queries = _queries(sc, rng, lengths)
     db = _db(rng, 1500)
     nq = len(queries)
-    rows = -(-max(lengths) // 4) * 4
     if budget_queries is not None:
-        # Room for budget_queries queries' rolling rows (at the most
-        # windows this database can take) and output.
-        nw_max = -(-db.n // pipeline.WINDOW_LANES)
-        per_query = 4 * pipeline.WINDOW_LANES * (2 * rows * nw_max + pipeline.MAX_STREAM_SLOTS)
+        # Room for budget_queries queries' output (the database's slots).
+        per_query = 4 * pipeline.WINDOW_LANES * -(-db.n // pipeline.WINDOW_LANES)
         monkeypatch.setattr(pipeline, "MULTI_SCRATCH_BYTES", budget_queries * per_query)
     nq_b = budget_queries or nq
     calls = sw_stream_multi_reference.calls
@@ -193,12 +190,33 @@ def test_search_database_multi_matches_jax(scoring, lengths, budget_queries, mon
 
 
 def test_choose_query_block():
-    # 64 queries of 144 rows at 1056 windows: 316 MB each, 27 fit 8 GiB;
-    # three blocks of 22 pad two queries instead of 17.
-    assert pipeline.choose_query_block(64, 144, 1056, 256) == 22
-    assert pipeline.choose_query_block(8, 20, 1056, 256) == 8
-    assert pipeline.choose_query_block(5, 2000, 10**6, 256) == 1
-    assert pipeline.choose_query_block(1, 4, 1, 256) == 1
+    # A query's output at Swiss-Prot scale (2,208 slots of 256 lanes) is
+    # 2.26 MB: 64 queries take one block of 8 GiB.
+    assert pipeline.choose_query_block(64, 2208, 256) == 64
+    assert pipeline.choose_query_block(8, 2208, 256) == 8
+    # 4,096 slots take 4 MiB a query: 2,048 fit, and 5,000 queries are
+    # three blocks of 1,667 (one query padded), not 2,048 + 2,048 + 904.
+    assert pipeline.choose_query_block(5000, pipeline.MAX_STREAM_SLOTS, 256) == 1667
+    assert pipeline.choose_query_block(1, 0, 256) == 1
+
+
+@pytest.mark.parametrize("budget_queries,blocks", [(None, 1), (22, 3), (30, 3), (1, 64)])
+def test_query_blocks_at_swissprot_scale(budget_queries, blocks, monkeypatch):
+    """64 queries of 144 residues over 565,247 records: the launch holds
+    only its output (2,208 slots of 256 lanes a query), so the 8 GiB budget
+    takes them in one block; a budget of fewer queries still cuts even
+    blocks, the last one filled up with zero profiles."""
+    n = 565_247
+    if budget_queries is not None:
+        per_query = 4 * pipeline.WINDOW_LANES * -(-n // pipeline.WINDOW_LANES)
+        monkeypatch.setattr(pipeline, "MULTI_SCRATCH_BYTES", budget_queries * per_query)
+    profile = np.ones((64, 144, 32), np.int32)
+    got = pipeline.query_blocks(profile, -3, n, torch.device("cpu"))
+    assert len(got) == blocks
+    assert {tuple(b.shape) for b in got} == {(-(-64 // blocks), 144, 32)}
+    stacked = torch.cat(got)
+    assert torch.equal(stacked[:64], torch.full((64, 144, 32), 4, dtype=torch.int32))
+    assert not stacked[64:].any()
 
 
 @pytest.mark.parametrize("engine", ["wavefront", "scan"])

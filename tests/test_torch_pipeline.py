@@ -119,6 +119,112 @@ def test_query_above_row_limit_raises_naming_k2(monkeypatch):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("scoring", ["BLOSUM62", "PAM250", "match_mismatch", "gapopen_2"])
+def test_oracle_engine_matches_jax_oracle(scoring):
+    """``engine="oracle"`` scores every record with the port's copy of the
+    NumPy oracle, as the JAX package's ``oracle`` engine does, including
+    --gapopen 2 (outside the kernels' G-form: the oracle takes any system)."""
+    sc = make_scoring("BLOSUM62" if scoring == "gapopen_2" else scoring)
+    if scoring == "gapopen_2":
+        sc.gap_open = 2
+    rng = np.random.default_rng(29)
+    q = sc.query_indices(random_protein(rng, 11))
+    db = _db(rng, 80)
+    calls = sw_stream_reference.calls
+    got, dt = pipeline.search_database(q, db, sc, engine="oracle")
+    assert sw_stream_reference.calls == calls  # no kernel, no plain version
+    want, _ = jax_pipeline.search_database(q, db, sc, engine="oracle")
+    assert got.dtype == np.int32 and got.shape == (db.n,) and dt > 0
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("multi", [False, True])
+def test_pallas_engine_is_the_stream_route(multi):
+    """``engine="pallas"``, the JAX package's name for its kernel route, runs
+    the port's stream kernels (their plain versions on the CPU): the same
+    scores as the default engine and as the JAX oracle."""
+    sc = make_scoring("PAM250")
+    rng = np.random.default_rng(30)
+    qs = [sc.query_indices(random_protein(rng, k)) for k in (9, 14)]
+    db = _db(rng, 700)
+    ref = swa_cuda.sw_stream_multi_reference if multi else sw_stream_reference
+    calls = ref.calls
+    if multi:
+        got, _ = pipeline.search_database_multi(qs, db, sc, engine="pallas")
+        want, _ = jax_pipeline.search_database_multi(qs, db, sc, engine="oracle")
+    else:
+        got, _ = pipeline.search_database(qs[0], db, sc, engine="pallas")
+        want, _ = jax_pipeline.search_database(qs[0], db, sc, engine="oracle")
+    assert ref.calls == calls + 1
+    np.testing.assert_array_equal(got, want)
+
+
+def test_oracle_engine_searches_each_query_of_a_batch():
+    sc = make_scoring("BLOSUM45")
+    rng = np.random.default_rng(31)
+    qs = [sc.query_indices(random_protein(rng, k)) for k in (6, 0, 10)]
+    db = _db(rng, 50)
+    calls = swa_cuda.sw_stream_multi_reference.calls
+    got, dt = pipeline.search_database_multi(qs, db, sc, engine="oracle")
+    assert swa_cuda.sw_stream_multi_reference.calls == calls and dt > 0
+    want, _ = jax_pipeline.search_database_multi(qs, db, sc, engine="oracle")
+    np.testing.assert_array_equal(got, want)
+    assert not got[1].any()
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_oracle_copy_matches_jax_oracle(seed):
+    """The port's ``ops/oracle.py`` is a copy of the JAX package's: the same
+    scores on random queries, records and gap penalties."""
+    from seqalign_tpu.ops import oracle as jax_oracle
+    from seqalign_tpu_torch.ops import oracle
+
+    rng = np.random.default_rng(40 + seed)
+    sc = make_scoring(["BLOSUM62", "random", "match_mismatch"][seed])
+    go, ge = int(rng.integers(-6, 1)), int(rng.integers(-3, 0))
+    q = sc.query_indices(random_protein(rng, int(rng.integers(1, 30))))
+    recs = random_records(rng, 25, 0, 40)
+    got = oracle.sw_score_batch(q, recs, sc.table, go, ge)
+    want = jax_oracle.sw_score_batch(q, recs, sc.table, go, ge)
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+    assert oracle.sw_score_single(q, recs[0], sc.table, go, ge) == want[0]
+
+
+@pytest.mark.parametrize("multi", [False, True])
+def test_stream_search_scores_only_the_query_rows(multi, monkeypatch):
+    """The pipeline launches K1 and K3 on the ROW_ALIGN-padded profile with
+    ``rows`` = the query's length (a batch's longest), so the one-pass
+    kernel skips the padding rows."""
+    sc = make_scoring("BLOSUM62")
+    rng = np.random.default_rng(33)
+    qs = [sc.query_indices(random_protein(rng, k)) for k in (17, 9)]
+    db = _db(rng, 300)
+    name = "sw_stream_multi" if multi else "sw_stream"
+    fn, seen = getattr(pipeline, name), []
+
+    def spy(prof, *a, **kw):
+        seen.append((prof.shape[-2], kw["rows"]))
+        return fn(prof, *a, **kw)
+
+    monkeypatch.setattr(pipeline, name, spy)
+    if multi:
+        got, _ = pipeline.search_database_multi(qs, db, sc)
+        want, _ = jax_pipeline.search_database_multi(qs, db, sc, engine="wavefront")
+    else:
+        got, _ = pipeline.search_database(qs[0], db, sc)
+        want, _ = jax_pipeline.search_database(qs[0], db, sc, engine="wavefront")
+    assert seen == [(20, 17)]
+    np.testing.assert_array_equal(got, want)
+
+
+def test_unknown_engine_raises():
+    sc = make_scoring("BLOSUM62")
+    rng = np.random.default_rng(32)
+    with pytest.raises(KeyError, match="unknown engine"):
+        pipeline.search_database(sc.query_indices("MKV"), _db(rng, 5), sc, engine="tpu")
+
+
 def test_no_gpu_is_an_error(monkeypatch):
     monkeypatch.delenv("SEQALIGN_PLATFORM")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -265,3 +265,163 @@ def test_build_compiles_each_source_then_links(fails, monkeypatch, tmp_path):
         link = calls[-1].split()
         assert "-shared" in link and sum(a.endswith(".o") for a in link) == len(srcs)
     assert not list(out.glob("*.o"))
+
+
+# The one-pass team kernel of K1 and K3 (csrc/sw_stream.cu): its host side.
+
+_LQP_BLOCKS = [(0, 52), (52, 200), (200, 400), (400, 800), (800, 1200), (1200, 1540)]
+
+
+@pytest.mark.parametrize("lo,hi", _LQP_BLOCKS)
+def test_stream_team_holds_every_query_length(lo, hi):
+    """For every row count up to MAX_QUERY_ROWS (the one-pass kernel needs
+    no ROW_ALIGN multiple) the chooser names a built (T, R) whose team holds
+    the rows, padding them by at most 1/6 or 3 rows, or to the smallest R
+    built."""
+    from seqalign_tpu_torch.ops import swa_cuda
+
+    for lqp in range(lo, min(hi, swa_cuda.MAX_QUERY_ROWS + 1)):
+        t, r = swa_cuda.stream_team(lqp)
+        assert t in swa_cuda.STREAM_TEAMS and r in swa_cuda.STREAM_ROWS_PER_THREAD_BUILT
+        assert lqp <= t * r <= max(lqp * 7 // 6, lqp + 3, min(swa_cuda.STREAM_ROWS_PER_THREAD_BUILT))
+        solo = "true" if t == 1 and r in swa_cuda.STREAM_SOLO_ROWS else "false"
+        assert swa_cuda.stream_kernel_instance(lqp) == f"sw_stream_kernel<{r}, {solo}>"
+
+
+@pytest.mark.parametrize("lqp,team", [
+    (0, (1, 10)), (20, (1, 20)), (144, (4, 36)), (512, (16, 32)), (1000, (32, 32)),
+    (1536, (32, 48)),
+])
+def test_stream_team_choices(lqp, team):
+    """The fewest padded rows, then the smallest team: lq=17 (20 rows) runs
+    one thread per lane, lq=144 four threads of 36 rows."""
+    from seqalign_tpu_torch.ops import swa_cuda
+
+    assert swa_cuda.stream_team(lqp) == team
+
+
+def test_stream_team_refuses_more_rows_than_a_warp_holds():
+    from seqalign_tpu_torch.ops import swa_cuda
+
+    with pytest.raises(ValueError, match="1540 rows"):
+        swa_cuda.stream_team(1540)
+
+
+def test_stream_rows_built_match_the_source():
+    """The R the chooser may name are the instances the C entry builds, the
+    solo ones those sw_stream_solo.cu builds; the widest team of the largest
+    R holds MAX_QUERY_ROWS, and its profile (4 KiB x R) fits a Hopper
+    block's 227 KiB of shared memory."""
+    import re
+    from pathlib import Path
+
+    from seqalign_tpu_torch.ops import swa_cuda
+
+    csrc = Path(swa_cuda.__file__).resolve().parent.parent / "csrc"
+    built = tuple(int(r) for r in re.findall(
+        r"SW_STREAM_ROWS\((\d+)\)\n", (csrc / "sw_stream.cu").read_text()))
+    solo = tuple(int(r) for r in re.findall(
+        r"SW_SOLO_ROWS\((\d+)\)\n", (csrc / "sw_stream_solo.cu").read_text()))
+    assert built == swa_cuda.STREAM_ROWS_PER_THREAD_BUILT
+    assert solo == swa_cuda.STREAM_SOLO_ROWS and set(solo) <= set(built)
+    assert swa_cuda.STREAM_TEAMS == tuple(2**k for k in range(6))
+    assert swa_cuda.MAX_QUERY_ROWS == swa_cuda.STREAM_TEAMS[-1] * max(built)
+    assert 4096 * max(built) <= 232_448
+
+
+@pytest.mark.parametrize("rows,team,key", [
+    (144, None, "<36, false>"), (20, None, "<20, true>"), (17, None, "<18, true>"),
+    (144, (8, 18), "<18, false>"), (40, None, "<40, false>"), (1536, None, "<48, false>"),
+])
+def test_stream_kernel_instance(rows, team, key):
+    """The instance a K1 or K3 launch runs, keyed as sass.kernel_key keys it."""
+    from seqalign_tpu_torch.ops import swa_cuda
+
+    assert swa_cuda.stream_kernel_instance(rows, team) == "sw_stream_kernel" + key
+
+
+def _team_case(rows=144, nq=None):
+    sc = make_scoring("PAM250")
+    rng = np.random.default_rng(15)
+    db = _db_from_encoded(random_records(rng, 300, 1, 10))
+    pack = pack_streams(db, np.argsort(-db.lengths, kind="stable"), 2, win=WIN, jb=JB, grain=8)
+    go, ge = sc.gap_open_total, sc.gap_extend
+    qs = [sc.query_indices(random_protein(rng, rows - 2)) for _ in range(nq or 1)]
+    if nq:
+        from seqalign_tpu_torch.pipeline import multi_profile
+
+        prof = profile_to_torch(multi_profile(sc.table, qs), go, "cpu")
+    else:
+        prof = profile_to_torch(make_profile(sc.table, qs[0]), go, "cpu")
+    streams, fs = stream_pack_to_torch(pack, "cpu")
+    return prof, streams, fs, go, ge, dict(nslots=len(pack.slot_ids), jb=JB)
+
+
+@pytest.mark.parametrize("multi", [False, True])
+@pytest.mark.parametrize("team", [(3, 48), (4, 13), (1, 20), (64, 24), (2, 36)])
+def test_stream_refuses_a_team_not_built_or_too_small(team, multi):
+    """A forced (T, R) must be a built instance whose team holds the rows
+    (144 here), on any device."""
+    prof, streams, fs, go, ge, kw = _team_case(nq=2 if multi else None)
+    fn = sw_stream_multi if multi else sw_stream
+    with pytest.raises(ValueError, match="team="):
+        fn(prof, streams, fs, go, ge, team=team, **kw)
+
+
+@pytest.mark.parametrize("multi", [False, True])
+def test_stream_forced_team_on_cpu_is_the_plain_version(multi):
+    from seqalign_tpu_torch.ops.swa_cuda import sw_stream_multi_reference
+
+    prof, streams, fs, go, ge, kw = _team_case(nq=3 if multi else None)
+    fn, ref = (sw_stream_multi, sw_stream_multi_reference) if multi else (
+        sw_stream, sw_stream_reference)
+    got = fn(prof, streams, fs, go, ge, team=(8, 18), **kw)
+    assert torch.equal(got, ref(prof, streams, fs, go, ge, **kw))
+
+
+@pytest.mark.parametrize("multi", [False, True])
+def test_stream_refuses_slots_the_segment_word_cannot_hold(multi):
+    """K1 and K3 share K2's segment word (csrc/sw_team.cuh): nslots from
+    TEAM_MAX_SLOTS on are refused, on any device."""
+    from seqalign_tpu_torch.ops import swa_cuda
+
+    prof, streams, fs, go, ge, kw = _team_case(rows=8, nq=2 if multi else None)
+    fn = sw_stream_multi if multi else sw_stream
+    for nslots in (swa_cuda.TEAM_MAX_SLOTS, swa_cuda.TEAM_MAX_SLOTS + 1):
+        with pytest.raises(ValueError, match="segment word"):
+            fn(prof, streams, fs, go, ge, nslots=nslots, jb=JB)
+
+
+@pytest.mark.parametrize("r,solo", [(10, 1), (20, 1), (20, 0), (36, 0), (48, 0)])
+def test_sass_keys_and_cells_of_the_stream_kernel(r, solo):
+    """The team kernel's instances are keyed by R and kSolo; its step loop
+    holds 2 R cells (one LDS each), as K2's does."""
+    from seqalign_tpu_torch import sass
+
+    name = f"_ZN12_GLOBAL__N_116sw_stream_kernelILi{r}ELb{solo}EEEvPKiPKaS3_Piiiiiiiiii"
+    key = sass.kernel_key(name)
+    assert key == f"sw_stream_kernel<{r}, {'true' if solo else 'false'}>"
+    assert sass.expected_cells(key) == 2 * r == r * sass.STRIPED_POSITIONS_PER_STEP
+    assert sass.expected_cells("sw_windows_kernel<false, false>") == sass.CELLS_PER_ITERATION
+
+
+@pytest.mark.parametrize("multi", [False, True])
+@pytest.mark.parametrize("rows,ok", [(None, True), (0, True), (5, True), (8, True),
+                                     (9, False), (-1, False)])
+def test_stream_rows_to_score(rows, ok, multi):
+    """``rows`` names the profile's rows K1 and K3 score (the rest is the
+    caller's padding, which the kernel skips); at most the profile's rows.
+    The plain version scores every row, so on the CPU the result is the
+    whole profile's."""
+    from seqalign_tpu_torch.ops.swa_cuda import sw_stream_multi_reference
+
+    prof, streams, fs, go, ge, kw = _team_case(rows=7, nq=2 if multi else None)
+    assert prof.shape[-2] == 8
+    fn, ref = (sw_stream_multi, sw_stream_multi_reference) if multi else (
+        sw_stream, sw_stream_reference)
+    if not ok:
+        with pytest.raises(ValueError, match="rows="):
+            fn(prof, streams, fs, go, ge, rows=rows, **kw)
+        return
+    got = fn(prof, streams, fs, go, ge, rows=rows, **kw)
+    assert torch.equal(got, ref(prof, streams, fs, go, ge, **kw))

@@ -387,18 +387,19 @@ def test_stripe_kernel_instance(rows, bnd_in, bnd_out, r, key):
 
 
 def test_striped_pass_refuses_slots_the_segment_word_cannot_hold():
-    """The kernel packs a slot from bit kSlotShift of a signed int32 word:
-    STRIPE_MAX_SLOTS is the first slot that would set bit 31, and the pass
+    """The kernel packs a slot from bit kSlotShift of a signed int32 word
+    (the team step K2 shares with K1 and K3, csrc/sw_team.cuh):
+    TEAM_MAX_SLOTS is the first slot that would set bit 31, and the pass
     refuses nslots from there on, on any device."""
     import re
     from pathlib import Path
 
-    src = (Path(swa_cuda.__file__).resolve().parent.parent / "csrc" / "sw_striped.cu").read_text()
+    src = (Path(swa_cuda.__file__).resolve().parent.parent / "csrc" / "sw_team.cuh").read_text()
     shift = int(re.search(r"kSlotShift = (\d+);", src).group(1))
-    assert (swa_cuda.STRIPE_MAX_SLOTS - 1) << shift < 2**31 <= swa_cuda.STRIPE_MAX_SLOTS << shift
+    assert (swa_cuda.TEAM_MAX_SLOTS - 1) << shift < 2**31 <= swa_cuda.TEAM_MAX_SLOTS << shift
     stripes, streams, fs, go, ge, kw = _small_case(96)
     bnd = torch.zeros((2, *streams.shape), dtype=torch.int32)
-    for nslots in (swa_cuda.STRIPE_MAX_SLOTS, swa_cuda.STRIPE_MAX_SLOTS + 1):
+    for nslots in (swa_cuda.TEAM_MAX_SLOTS, swa_cuda.TEAM_MAX_SLOTS + 1):
         with pytest.raises(ValueError, match="segment word"):
             sw_stream_striped_pass(stripes[0], streams, fs, go, ge, bnd_out=bnd,
                                    nslots=nslots, jb=kw["jb"])
