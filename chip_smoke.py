@@ -73,7 +73,29 @@ Phases, each printing its own lines; any failure exits nonzero:
    query file, a 2000-residue query and a 3-record file holding one;
    identical but for Total Time; and --engine pallas (the stream kernels)
    and --engine oracle (the NumPy oracle) on a 300-record FASTA, one query
-   and a 3-record file, identical to --engine wavefront.
+   and a 3-record file, identical to --engine wavefront;
+9. ingest: the host libraries (native/fastio.cc, native/traceback.cc)
+   built from nothing, with their seconds; the phase-4 database written as
+   FASTA under build/ and parsed natively, equal to the pure-Python parse;
+   the chunked reader (parts of 131,072 records) and iter_cache_chunks over
+   a fresh .sqc concatenating back to it; parse and pack timed native
+   against Python (swissprot.ingest_breakdown);
+10. streaming and resume: search_files_streaming over that FASTA in parts
+   of 131,072 records with the 144-residue query (K1 once a part, nothing
+   else; scores equal phase 4's), with --checkpoint (the first run writes
+   every part, a rerun launches nothing, a chunk dropped from one part's
+   manifest is the rerun's one launch), and the 2000-residue query the same
+   way through K2 in one part (scores equal phase 6's); the streaming wall
+   against search_files', the device busy share and the ingest the
+   prefetch hides (swissprot.streaming_breakdown);
+11. --align and --trace through the CLI: --align 10 over the FASTA for the
+   144- and 2000-residue queries, with PAM250 whose '*' scores -8 (so the
+   ends engine may run): K1 (K2) once, each hit's traceback score equal to
+   its kernel score and the hits the 10 best, the 2000-residue query's long
+   hits localized by one call of sw_wavefront_ends on the card; on a
+   3,012-record FASTA with 12 long records, --align 10 equal to --engine
+   wavefront --align 10 but for Total Time; --trace writes a
+   torch.profiler trace that names K1's kernel.
 
 With ``--against DIR`` (another checkout, for example the parent commit
 unpacked under build/) it then times K1 and K3 in turns against that
@@ -1143,6 +1165,7 @@ def phase_striped_path(torch, chk: Checker, smi: str, db, loops, usage, factor,
         "shape": f"long-query path, {db.n} records, lq={lq}, {shape}",
         "main_path_kernel_s": runs[-1][0],
         "main_path_gcups": cells / runs[-1][0] / 1e9,
+        "scores": scores,
     }
 
 
@@ -1349,6 +1372,307 @@ def phase_cli_engines(out_dir, rng, env):
               "records (Total Time dropped)", flush=True)
 
 
+def cli_run(args):
+    """The port's CLI in this process (its launch counters readable here):
+    (exit code, stdout, stderr)."""
+    import contextlib
+    import io
+
+    from seqalign_tpu_torch import cli
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        code = cli.main(["smith_waterman", *map(str, args)])
+    return code, out.getvalue(), err.getvalue()
+
+
+def phase_ingest(smi: str, db):
+    """The native host libraries built from native/ (seconds each, in a
+    fresh directory), then the whole Swiss-Prot-scale database written as
+    FASTA and read back: the native parse equal to the pure-Python one,
+    the chunked reader (131,072 records a part) and iter_cache_chunks over
+    a fresh .sqc concatenating back to it, and parse and pack timed native
+    against Python (swissprot.ingest_breakdown)."""
+    import tempfile
+
+    from seqalign_tpu_torch import native
+    from seqalign_tpu_torch.swissprot import ingest_breakdown, write_fasta
+    from seqalign_tpu_torch.utils import native_io
+
+    tag = "[ingest]"
+    native.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=native.BUILD_DIR) as tmp:
+        for name in native.LIBRARIES:
+            t0 = time.perf_counter()
+            try:
+                native.build(name, Path(tmp))
+            except RuntimeError as e:
+                fail(f"{tag} native/{native.LIBRARIES[name][0]} does not build: {e}")
+            print(f"{tag} native {name} built in {time.perf_counter() - t0} s "
+                  f"({native.compiler()})", flush=True)
+    if not native_io.available():
+        fail(f"{tag} the native fastio library is not available")
+    out_dir = ROOT / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    fasta = out_dir / "swissprot.fa"
+    t0 = time.perf_counter()
+    write_fasta(db, fasta)
+    print(f"{tag} {fasta.relative_to(ROOT)}: {fasta.stat().st_size} B written in "
+          f"{time.perf_counter() - t0} s", flush=True)
+    timing = ingest_breakdown(db, fasta, lambda msg: print(f"{msg} | {smi}", flush=True))
+    whole = native_io.parse_file(str(fasta))
+
+    def same(chunks, what):
+        seqs, offs, names, base, n = [], [np.zeros(1, np.int64)], [], 0, 0
+        for c in chunks:
+            if c.n > STREAM_PART:
+                fail(f"{tag} {what}: a part of {c.n} records")
+            seqs.append(np.asarray(c.seq))
+            offs.append(c.offsets[1:] + base)
+            base += len(c.seq)
+            names.extend(c.names)
+            n += 1
+        if not (np.array_equal(np.concatenate(seqs), whole.seq)
+                and np.array_equal(np.concatenate(offs), whole.offsets)
+                and names == whole.names):
+            fail(f"{tag} {what} does not concatenate back to the whole parse")
+        print(f"{tag} {what}: {n} parts concatenate back to the whole parse", flush=True)
+
+    t0 = time.perf_counter()
+    same(native_io.stream_chunks(str(fasta), STREAM_PART), "stream_chunks")
+    timing["stream_chunks_s"] = time.perf_counter() - t0
+    sqc = out_dir / "swissprot.fa.sqc"
+    native_io.save_cache(whole, str(sqc), src_path=str(fasta))
+    cached = native_io.load_cache(str(sqc), src_path=str(fasta))
+    if cached is None:
+        fail(f"{tag} a fresh .sqc cache did not load")
+    same(native_io.iter_cache_chunks(cached, STREAM_PART), "iter_cache_chunks over a fresh .sqc")
+    sqc.unlink()
+    return fasta, timing
+
+
+def phase_streaming(torch, smi: str, db, fasta, query, k1_scores, long_query, long_scores):
+    """The bounded-memory search and the resumable scan at Swiss-Prot scale
+    on the card: search_files_streaming in parts of 131,072 records (K1
+    once per part, nothing else; scores equal phase 4's), its wall against
+    search_files' and its device busy share (swissprot.streaming_breakdown);
+    --checkpoint's first run writes every part, a rerun launches nothing,
+    and a chunk dropped from one part's manifest is the one launch of the
+    next rerun; then the 2000-residue query the same way through K2, one
+    part."""
+    import shutil
+
+    from seqalign_tpu_torch import pipeline
+    from seqalign_tpu_torch.models import decode
+    from seqalign_tpu_torch.ops import swa_cuda
+    from seqalign_tpu_torch.swissprot import streaming_breakdown
+
+    sc = scoring("PAM250")
+    out_dir = fasta.parent
+    results = {}
+    for lq, q, want, part, kernel in (
+            (len(query), query, k1_scores, STREAM_PART, "sw_stream"),
+            (len(long_query), long_query, long_scores, db.n, "sw_stream_striped_pass")):
+        tag = f"[streaming lq={lq}]"
+        qfa = out_dir / f"q{lq}.fa"
+        qfa.write_text(f">q{lq}\n{decode(q)}\n")
+        parts = -(-db.n // part)
+        per_chunk = passes(kernel, lq)
+        ck = out_dir / f"ckpt{lq}"
+        shutil.rmtree(ck, ignore_errors=True)
+
+        def run(checkpoint):
+            reset_counts(swa_cuda)
+            t0 = time.perf_counter()
+            res = pipeline.search_files_streaming(
+                str(qfa), str(fasta), sc, chunk_records=part,
+                checkpoint_dir=str(ck) if checkpoint else None)
+            wall = time.perf_counter() - t0
+            counts = read_counts(swa_cuda)
+            if not np.array_equal(res.scores, want):
+                fail(f"{tag} streaming scores != the search's on the whole database")
+            return res, counts, wall
+
+        res, counts, wall = run(False)
+        print(f"{tag} {parts} parts of <= {part} records: launches {counts}; wall "
+              f"{wall} s, kernel timer {res.kernel_time} s | {smi}", flush=True)
+        if counts[kernel] != parts * per_chunk or sum(counts.values()) != counts[kernel] + (
+                counts["sw_stream_striped calls"]):
+            fail(f"{tag} the streaming search did not run through {kernel} alone, "
+                 f"{per_chunk} per part")
+        res, counts, wall = run(True)
+        written = sorted(p.name for p in ck.iterdir())
+        if written != sorted(f"part{k}" for k in range(parts)) or counts[kernel] != parts * per_chunk:
+            fail(f"{tag} --checkpoint's first run wrote {written}, launches {counts}")
+        res, counts, wall = run(True)
+        print(f"{tag} checkpoint rerun: launches {counts}, kernel timer "
+              f"{res.kernel_time} s, wall {wall} s | {smi}", flush=True)
+        if sum(counts.values()) != 0 or res.kernel_time != 0.0:
+            fail(f"{tag} a finished checkpointed scan launched a kernel")
+        victim = ck / f"part{parts - 1}" / "manifest.json"
+        state = json.loads(victim.read_text())
+        state["chunks"] = state["chunks"][:-1]
+        victim.write_text(json.dumps(state))
+        res, counts, wall = run(True)
+        print(f"{tag} one chunk dropped from part{parts - 1}'s manifest: launches "
+              f"{counts}, wall {wall} s | {smi}", flush=True)
+        if counts[kernel] != per_chunk:
+            fail(f"{tag} the rerun launched {counts[kernel]} {kernel}, not one chunk's")
+        shutil.rmtree(ck)
+        results[lq] = {"parts": parts, "launches_first": parts * per_chunk}
+    results["breakdown"] = streaming_breakdown(
+        out_dir / f"q{len(query)}.fa", fasta, sc, STREAM_PART,
+        lambda msg: print(f"{msg} | {smi}", flush=True))
+    return results
+
+
+def passes(kernel: str, lq: int) -> int:
+    """Launches of ``kernel`` per chunk for a query of ``lq`` rows: one,
+    or one per row stripe for K2."""
+    from seqalign_tpu_torch.ops import swa_cuda
+
+    return -(-lq // swa_cuda.STRIPE_ROWS) if kernel == "sw_stream_striped_pass" else 1
+
+
+# Records a part of phase 10's streaming search (and of phase 9's chunked
+# reads): 565,247 records in 5 parts.
+STREAM_PART = 131072
+# The small FASTA of phase 11's comparison with the wavefront engine:
+# records of 2-400 residues, and long ones of 2,500-9,000 (above the direct
+# traceback's 4 Mi cells for the 2000-residue query).
+ALIGN_SMALL = (3000, 12)
+
+
+def star_negative_pam250(path: Path) -> None:
+    """PAM250 as a matrix file whose '*' row and column score -8: the
+    builtin's ('*', '*') = +1 would leave --align's end finding to the host
+    (a '*' that could outscore real residues), and no query or database here
+    holds a '*', so every score is PAM250's."""
+    from seqalign_tpu_torch.models import write_matrix_file
+
+    write_matrix_file(str(path), "PAM250")
+    lines = path.read_text().splitlines()
+    star = lines[1].split().index("*")
+    rows = lines[:2]
+    for ln in lines[2:]:
+        cells = ln.split()
+        rows.append(cells[0] + " " + " ".join(
+            "-8" if k == star or cells[0] == "*" else v for k, v in enumerate(cells[1:])))
+    path.write_text("\n".join(rows) + "\n")
+
+
+def phase_align_trace(smi: str, db, fasta, query, k1_scores, long_query, long_scores):
+    """--align 10 and --trace through the CLI on the card. At Swiss-Prot
+    scale, the 144- and 2000-residue queries: K1 (K2) once, the ends of the
+    hits above the direct-fill threshold found by one call of
+    sw_wavefront_ends, each hit's score equal to its K1 (K2) score, the hits
+    the 10 best. On a 3,012-record FASTA with 12 long records, the same
+    queries' alignments equal --engine wavefront's, but for Total Time.
+    --trace writes a trace that names K1's kernel."""
+    import shutil
+
+    import torch
+
+    from seqalign_tpu_torch.device import resolve_device
+    from seqalign_tpu_torch.ops import swa_cuda, swa_torch
+    from seqalign_tpu_torch.ops import traceback as tb
+
+    out_dir = fasta.parent
+    matrix = out_dir / "pam250_star.txt"
+    star_negative_pam250(matrix)
+    base = ["--substitution_matrix", matrix, "--gapopen", "-2", "--gapextend", "-1"]
+    results = {}
+    for lq, want, kernel in ((len(query), k1_scores, "sw_stream"),
+                             (len(long_query), long_scores, "sw_stream_striped_pass")):
+        tag = f"[align lq={lq}]"
+        reset_counts(swa_cuda)
+        swa_torch.sw_wavefront_ends.calls = 0
+        t0 = time.perf_counter()
+        code, out, err = cli_run(["--files", out_dir / f"q{lq}.fa", fasta, *base,
+                                  "--align", "10", "--json"])
+        wall = time.perf_counter() - t0
+        counts = read_counts(swa_cuda)
+        ends = swa_torch.sw_wavefront_ends.calls
+        if code != 0:
+            fail(f"{tag} CLI rc={code}: {err[-2000:]}")
+        hits = json.loads(out.splitlines()[-1])["alignments"]
+        top = np.argsort(-want, kind="stable")[:10]
+        big = [h["entry"] for h in hits
+               if (db.lengths[h["entry"]] + 1) * (lq + 1) > tb._DIRECT_CELLS]
+        print(f"{tag} --align 10 over {db.n} records: launches {counts}, "
+              f"sw_wavefront_ends calls {ends} for {len(big)} hits above "
+              f"{tb._DIRECT_CELLS} cells; wall {wall} s | {smi}", flush=True)
+        per = passes(kernel, lq)
+        long = kernel == "sw_stream_striped_pass"
+        if counts[kernel] != per or sum(counts.values()) != per + counts["sw_stream_striped calls"]:
+            fail(f"{tag} the --align scan did not run through {kernel} alone")
+        if ends != (1 if big else 0) or (long and not big):
+            fail(f"{tag} {ends} calls of sw_wavefront_ends for {len(big)} long hits")
+        if [h["entry"] for h in hits] != [int(r) for r in top]:
+            fail(f"{tag} the hits are not the 10 best of the scan")
+        if [h["score"] for h in hits] != [int(want[r]) for r in top]:
+            fail(f"{tag} a hit's traceback score != its kernel score")
+        print(f"{tag} 10 hits (records {[h['entry'] for h in hits]}, lengths "
+              f"{[int(db.lengths[h['entry']]) for h in hits]}): traceback scores == "
+              "kernel scores", flush=True)
+        results[lq] = {"wall_s": wall, "ends_calls": ends, "long_hits": len(big)}
+        if big:
+            # The ends engine's call on these hits again, timed alone.
+            table = scoring("PAM250").table.copy()
+            table[31, :] = table[:, 31] = -8
+            q = query if lq == len(query) else long_query
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tb._batched_engine_ends(q, db, big, table, -2, -1, resolve_device())
+            torch.cuda.synchronize()
+            results[lq]["ends_s"] = time.perf_counter() - t0
+            print(f"{tag} sw_wavefront_ends on the {len(big)} long hits (longest "
+                  f"{int(db.lengths[big].max())}): {results[lq]['ends_s']} s | {smi}",
+                  flush=True)
+
+    # The same queries on a small FASTA, against the wavefront engine.
+    rng = np.random.default_rng(98)
+    small = out_dir / "db_align.fa"
+    n_short, n_long = ALIGN_SMALL
+    small.write_text("".join(
+        f">s{i}\n{random_protein(rng, int(rng.integers(2, 400)))}\n" for i in range(n_short)
+    ) + "".join(f">long{i}\n{random_protein(rng, int(rng.integers(2500, 9000)))}\n"
+                for i in range(n_long)))
+    for lq in (len(query), len(long_query)):
+        outs = []
+        for extra in ([], ["--engine", "wavefront"]):
+            swa_torch.sw_wavefront_ends.calls = 0
+            code, out, err = cli_run(["--files", out_dir / f"q{lq}.fa", small, *base,
+                                      "--align", "10", *extra])
+            if code != 0 or out.count("CIGAR") != 10:
+                fail(f"[align lq={lq}] small FASTA {extra}: rc={code} {err[-2000:]}")
+            outs.append([ln for ln in out.splitlines() if not ln.startswith("Total Time:")])
+            if lq == len(long_query) and swa_torch.sw_wavefront_ends.calls != 1:
+                fail(f"[align lq={lq}] small FASTA {extra}: the long hits' ends were "
+                     "not found by sw_wavefront_ends")
+        if outs[0] != outs[1]:
+            fail(f"[align lq={lq}] --align 10 output != --engine wavefront's")
+        print(f"[align lq={lq}] --align 10 on {n_short + n_long} records: stream == "
+              "--engine wavefront (Total Time dropped)", flush=True)
+
+    trace = out_dir / "trace"
+    shutil.rmtree(trace, ignore_errors=True)
+    reset_counts(swa_cuda)
+    code, out, err = cli_run(["--files", out_dir / f"q{len(query)}.fa", fasta, *base,
+                              "--topk", "5", "--trace", trace])
+    files = list(trace.glob("seqalign_trace_*.json"))
+    if code != 0 or "Note:" in err or len(files) != 1:
+        fail(f"[trace] rc={code} files={files} {err[-2000:]}")
+    names = {str(e.get("name", "")) for e in json.loads(files[0].read_text())["traceEvents"]}
+    kernels = sorted(n for n in names if "sw_stream_kernel" in n)
+    if not kernels or read_counts(swa_cuda)["sw_stream"] != 1:
+        fail("[trace] the trace names no sw_stream_kernel")
+    print(f"[trace] {files[0].relative_to(ROOT)}: {files[0].stat().st_size} B, "
+          f"{len(names)} event names, K1's: {kernels}", flush=True)
+    results["trace_kernels"] = kernels
+    return results
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1391,6 +1715,11 @@ def main(argv=None) -> int:
         torch, chk, smi, query, db, alu, (k1_scores, main_path["ms"]),
         (multi8.pop("scores"), [random_query(17, 100 + k) for k in range(8)]))
     phase_cli()
+    fasta, ingest = phase_ingest(smi, db)
+    long_query, long_scores = random_query(2000, 2000), long_path.pop("scores")
+    streaming = phase_streaming(torch, smi, db, fasta, query, k1_scores,
+                                long_query, long_scores)
+    align = phase_align_trace(smi, db, fasta, query, k1_scores, long_query, long_scores)
     print(f"[main] every phase in {time.perf_counter() - t_start} s", flush=True)
     turns = None
     if args.against:

@@ -5,9 +5,11 @@ for the single-query and the multi-query search and prints the same lines:
 the "Query File=... and Database File=..." line, ``Entry #N:`` / ``score: S``
 per entry (under a ``Query #k: name`` line per query of a multi-record
 query file), and the trailing ``Total Time:`` / ``Total Entries:`` lines,
-with the same messages and exit codes. Flags of modes the port does not
-have yet exit 1 with ``Error: <flag> is not yet ported to
-seqalign_tpu_torch``.
+with the same messages and exit codes; ``--align`` prints the JAX CLI's
+alignment blocks, ``--stream-chunk`` and ``--checkpoint`` its bounded-memory
+and resumable scans, and ``--trace`` writes a ``torch.profiler`` trace. The
+multi-host flags, which the port does not have yet, exit 1 with ``Error:
+<flag> is not yet ported to seqalign_tpu_torch``.
 
 ``SEQALIGN_PLATFORM`` picks the device: ``cuda`` (the default) or ``cpu``.
 """
@@ -56,13 +58,16 @@ USAGE = """usage: {prog} [OPTIONS] [seq1 seq2]
                          on by default for multi-record query files)
     --first-query        strict reference behavior: score only the first
                          query record (src/alignment_cmdline.c:355-360)
+    --align <k>          print gapped alignments + CIGAR for the k best hits
+    --checkpoint <dir>   chunk-level resume state for huge scans
     --db-cache <path>    persistent encoded-database cache (.sqc): parse
                          the FASTA once, mmap thereafter ('auto' = sidecar
                          <db>.sqc; rebuilt when the FASTA changes)
+    --stream-chunk <n>   bounded-memory mode: process n db records at a time
+    --trace <dir>        write a torch.profiler trace of the search
     --json               print results as one JSON object
 
-  Not yet ported: --align, --stream-chunk, --checkpoint, --trace, --hosts,
-  --host-id, --coordinator.
+  Not yet ported: --hosts, --host-id, --coordinator.
   SEQALIGN_PLATFORM=cuda|cpu picks the device [default: cuda].
 
  DETAILS:
@@ -72,11 +77,8 @@ USAGE = """usage: {prog} [OPTIONS] [seq1 seq2]
     character or whitespace, or a builtin name (BLOSUM45, BLOSUM62, PAM250).
 """
 
-# Flags of the JAX package's later slices: recognised, refused.
-NOT_PORTED = (
-    "--align", "--stream-chunk", "--checkpoint", "--trace", "--hosts",
-    "--host-id", "--coordinator",
-)
+# The JAX package's multi-host flags: recognised, refused.
+NOT_PORTED = ("--hosts", "--host-id", "--coordinator")
 
 
 def _usage_exit(prog: str, scoring: ScoringModel, err: str | None) -> int:
@@ -145,6 +147,10 @@ def main(argv: list[str] | None = None) -> int:
     all_queries = False
     matrix_spec = None
     db_cache = None
+    checkpoint = None
+    stream_chunk = None
+    trace_dir = None
+    align_k = None
 
     i = 0
     n = len(args)
@@ -232,6 +238,29 @@ def main(argv: list[str] | None = None) -> int:
             elif al == "--db-cache":
                 db_cache = args[i + 1]
                 i += 1
+            elif al == "--checkpoint":
+                checkpoint = args[i + 1]
+                i += 1
+            elif al == "--stream-chunk":
+                stream_chunk = _parse_int(args[i + 1])
+                if stream_chunk is None or stream_chunk <= 0:
+                    return _usage_exit(
+                        prog, scoring,
+                        f"Invalid --stream-chunk argument ('{args[i+1]}') "
+                        "must be a positive int",
+                    )
+                i += 1
+            elif al == "--trace":
+                trace_dir = args[i + 1]
+                i += 1
+            elif al == "--align":
+                align_k = _parse_int(args[i + 1])
+                if align_k is None:
+                    return _usage_exit(
+                        prog, scoring,
+                        f"Invalid --align argument ('{args[i+1]}') must be an int",
+                    )
+                i += 1
             elif al == "--files":
                 if i >= n - 2:
                     return _usage_exit(prog, scoring, "--files option takes 2 arguments")
@@ -273,10 +302,14 @@ def main(argv: list[str] | None = None) -> int:
 
     # A multi-record query file batches every record through the
     # multi-query kernel (the reference reads only the first record,
-    # src/alignment_cmdline.c:355-360); --first-query and --printseq keep
-    # first-record behaviour.
+    # src/alignment_cmdline.c:355-360); --first-query, and the modes tied to
+    # single-query semantics, keep first-record behaviour.
+    single_only = (
+        align_k is not None or stream_chunk is not None
+        or checkpoint is not None or print_seq or trace_dir is not None
+    )
     if (
-        not all_queries and not first_query and not print_seq
+        not all_queries and not first_query and not single_only
         and file1 != "-" and _has_second_record(file1)
     ):
         all_queries = True
@@ -289,7 +322,7 @@ def main(argv: list[str] | None = None) -> int:
             f"Unknown engine '{engine}': expected one of {', '.join(ENGINES)}",
         )
     try:
-        resolve_device()
+        device = resolve_device()
     except (RuntimeError, ValueError) as e:
         sys.stderr.write(f"Error: {e}\n")
         return 1
@@ -298,6 +331,11 @@ def main(argv: list[str] | None = None) -> int:
         return _run_multi(
             file1, file2, scoring, engine, lanes, topk, as_json, print_fasta,
             minscore=minscore, db_cache=db_cache,
+        )
+    if align_k is not None:
+        return _run_align(
+            file1, file2, scoring, engine, lanes, align_k, as_json,
+            db_cache=db_cache,
         )
 
     if db_cache is not None and print_seq:
@@ -309,17 +347,31 @@ def main(argv: list[str] | None = None) -> int:
         )
         db_cache = None
 
+    trace = _start_trace(device) if trace_dir is not None else None
     try:
-        result = search_files(
-            file1, file2, scoring, engine=engine, lanes=lanes,
-            keep_seqs=print_seq, db_cache=db_cache, sort=sort,
-        )
+        if stream_chunk is not None:
+            from .pipeline import search_files_streaming
+
+            result = search_files_streaming(
+                file1, file2, scoring, engine=engine, lanes=lanes,
+                chunk_records=stream_chunk, checkpoint_dir=checkpoint,
+                db_cache=db_cache,
+            )
+        else:
+            result = search_files(
+                file1, file2, scoring, engine=engine, lanes=lanes,
+                keep_seqs=print_seq, db_cache=db_cache, sort=sort,
+                checkpoint_dir=checkpoint,
+            )
     except NotImplementedError as e:
         sys.stderr.write(f"Error: {e}\n")
         return 1
     except ValueError as e:
         sys.stderr.write(str(e) + "\n")
         return 0  # reference prints the error and exits successfully
+    finally:
+        if trace is not None:
+            _stop_trace(trace, trace_dir)
 
     out = sys.stdout
     order = range(result.total_entries)
@@ -371,6 +423,108 @@ def main(argv: list[str] | None = None) -> int:
 
     out.write(f"Total Time: {result.kernel_time:f}\n")
     out.write(f"Total Entries: {result.total_entries}\n")
+    return 0
+
+
+def _start_trace(device):
+    """A started ``torch.profiler`` over the host and, on a GPU, the card,
+    or None when the profiler cannot start (tracing is best-effort
+    observability, as ``jax.profiler`` is in the JAX CLI)."""
+    try:
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        prof = profile(activities=activities)
+        prof.start()
+        return prof
+    except Exception as e:
+        sys.stderr.write(f"Note: profiler unavailable ({e})\n")
+        return None
+
+
+def _stop_trace(prof, trace_dir: str) -> None:
+    """Stop ``prof`` and write its Chrome trace into ``trace_dir``."""
+    import os
+
+    try:
+        prof.stop()
+        os.makedirs(trace_dir, exist_ok=True)
+        prof.export_chrome_trace(
+            os.path.join(trace_dir, f"seqalign_trace_{os.getpid()}.json")
+        )
+    except Exception as e:
+        sys.stderr.write(f"Note: profiler unavailable ({e})\n")
+
+
+def _run_align(
+    file1, file2, scoring, engine, lanes, k, as_json, db_cache=None
+) -> int:
+    """--align mode: score-only scan, then re-align the k best hits with a
+    full traceback (``ops.traceback.topk_alignments``)."""
+    from .host import parse_file_cached, read_first
+    from .ops.traceback import topk_alignments
+    from .pipeline import _warn_padding, search_database
+
+    try:
+        query = read_first(file1)
+        query_idx = scoring.query_indices(query.seq)
+        _warn_padding(scoring, query_idx)
+        db = parse_file_cached(file2, db_cache)
+        scores, kernel_time = search_database(
+            query_idx, db, scoring, engine=engine, lanes=lanes
+        )
+    except (ValueError, OSError) as e:
+        sys.stderr.write(str(e) + "\n")
+        return 0
+
+    hits = topk_alignments(
+        query_idx, db, scores, k, scoring.table,
+        scoring.gap_open, scoring.gap_extend, query_str=query.seq,
+    )
+    out = sys.stdout
+    if as_json:
+        import json
+
+        json.dump(
+            {
+                "query": query.name,
+                "alignments": [
+                    {
+                        "entry": rec,
+                        "name": db.names[rec],
+                        "score": aln.score,
+                        "query_start": aln.query_start,
+                        "query_end": aln.query_end,
+                        "db_start": aln.db_start,
+                        "db_end": aln.db_end,
+                        "query_aligned": aln.query_aligned,
+                        "db_aligned": aln.db_aligned,
+                        "cigar": aln.cigar,
+                    }
+                    for rec, aln in hits
+                ],
+                "total_time": kernel_time,
+                "total_entries": db.n,
+            },
+            out,
+        )
+        out.write("\n")
+        return 0
+    for rec, aln in hits:
+        out.write(f"Entry #{rec}:\n")
+        if db.names[rec]:
+            out.write(db.names[rec] + "\n")
+        out.write(f"score: {aln.score}\n")
+        out.write(
+            f"query {aln.query_start}..{aln.query_end}  "
+            f"db {aln.db_start}..{aln.db_end}  CIGAR {aln.cigar}\n"
+        )
+        out.write(aln.query_aligned + "\n")
+        out.write(aln.db_aligned + "\n\n")
+    out.write(f"Total Time: {kernel_time:f}\n")
+    out.write(f"Total Entries: {db.n}\n")
     return 0
 
 

@@ -11,6 +11,10 @@ on int32 tensors of any device:
   a diagonal is independent, so each step is one vector op over
   ``(Lq, B)``. The engine the pipeline routes to when the stream kernel's
   scoring guard rejects a system.
+- :func:`sw_wavefront_ends`: the wavefront that also reports a best cell
+  per lane, which localizes the top hits' alignments for the traceback
+  (``ops.traceback``). The JAX package computes it in XLA, not in a
+  Pallas kernel, so this plain version is its counterpart on the card.
 
 Conventions (shared with the JAX package):
 - ``profile``: ``(Lq, 32)`` int32 query profile, ``profile[i, c] =
@@ -81,15 +85,44 @@ def sw_wavefront(
     cells (``j`` outside ``[0, Lb)``) are masked to zero, which reproduces
     the zero boundary row/column of local alignment for free.
     """
+    return _wavefront(profile, db, go, ge, track_ends=False)
+
+
+def sw_wavefront_ends(
+    profile: torch.Tensor, db: torch.Tensor, go: int, ge: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Wavefront engine variant that also reports a best cell per lane.
+
+    Returns ``(best, end_j, end_i)``, each ``(B,)`` int32: 1-based
+    coordinates (database position, query position) of a maximal H cell, 0
+    where ``best == 0``. The tie rule is the JAX package's: a later
+    diagonal updates only on a strictly greater value, and within a
+    diagonal the smallest query index wins. ``sw_wavefront_ends.calls``
+    counts the calls.
+    """
+    sw_wavefront_ends.calls += 1
+    return _wavefront(profile, db, go, ge, track_ends=True)
+
+
+sw_wavefront_ends.calls = 0
+
+
+def _wavefront(profile, db, go, ge, track_ends: bool):
+    """The anti-diagonal body of :func:`sw_wavefront` and
+    :func:`sw_wavefront_ends` (``track_ends`` also carries each lane's
+    best cell)."""
     profile = profile.to(torch.int32)
     db = db.to(torch.int32)
     dev = db.device
     lq = profile.shape[0]
     lb, b = db.shape
     best = torch.zeros(b, dtype=torch.int32, device=dev)
+    bj = torch.zeros(b, dtype=torch.int32, device=dev)
+    bi = torch.zeros(b, dtype=torch.int32, device=dev)
     if lq == 0 or lb == 0:
-        return best
+        return (best, bj, bi) if track_ends else best
     iota_i = torch.arange(lq, device=dev)
+    col_i = iota_i.to(torch.int32)[:, None]
     zrow = torch.zeros((1, b), dtype=torch.int32, device=dev)
 
     def shift(x):  # out[i] = x[i-1], out[0] = 0
@@ -117,6 +150,14 @@ def sw_wavefront(
         f_new = torch.where(valid, f_new, 0)
         # The next step's "two-diagonals-back" max3 is this step's d-1 max3.
         t2 = torch.maximum(torch.maximum(h1, e1), f1)
-        best = torch.maximum(best, h_new.amax(dim=0))
+        colbest = h_new.amax(dim=0)
+        if track_ends:
+            # The first (smallest i) maximum of the diagonal, and only a
+            # strictly greater value than the lane's best so far.
+            coli = torch.where(h_new == colbest, col_i, lq).amin(dim=0)
+            upd = colbest > best
+            bi = torch.where(upd, coli + 1, bi)
+            bj = torch.where(upd, d - coli + 1, bj)
+        best = torch.maximum(best, colbest)
         h1, e1, f1 = h_new, e_new, f_new
-    return best
+    return (best, bj, bi) if track_ends else best

@@ -10,6 +10,9 @@ stripe, for a query over ``MAX_QUERY_ROWS``) and scatters the scores back
 to database order. The timer covers the launches, the kernels and the fetch
 of the scores; parsing, packing and the host-to-device copy stay outside
 it, the same boundary as the JAX package's and the reference's.
+``search_files_streaming`` reads the database in parts on a prefetch
+thread for a bounded-memory search, and ``checkpoint_dir=`` makes a scan
+resumable chunk by chunk (``_ScanCheckpoint``).
 
 The device comes from ``SEQALIGN_PLATFORM`` (``cuda``, the default, or
 ``cpu``; ``device.resolve_device``). With no GPU, ``cuda`` is an error,
@@ -19,6 +22,7 @@ never a silent run on the CPU.
 from __future__ import annotations
 
 import dataclasses
+import os
 import sys
 import time
 from typing import Callable, Iterable, Sequence
@@ -121,6 +125,7 @@ def search_database(
     lanes: int | None = None,
     sort: bool = True,
     device: torch.device | str | None = None,
+    checkpoint_dir: str | None = None,
 ) -> tuple[np.ndarray, float]:
     """Score an encoded query against an EncodedDatabase.
 
@@ -128,7 +133,9 @@ def search_database(
     ``engine`` is one of ``ENGINES`` (default ``stream``; ``pallas`` is
     ``stream``); ``device`` defaults to :func:`resolve_device`. The
     ``oracle`` engine scores each record with the NumPy oracle on the host,
-    timed as the JAX package times it.
+    timed as the JAX package times it. ``checkpoint_dir`` makes the stream
+    kernels' scan resumable chunk by chunk (:class:`_ScanCheckpoint`); the
+    lane-batch engines, as in the JAX package, do not checkpoint.
     """
     eng = _engine(engine)
     dev = resolve_device() if device is None else torch.device(device)
@@ -155,7 +162,10 @@ def search_database(
             _note_wavefront()
             eng = "wavefront"
         else:
-            return _stream_search(profile, db, go, ge, order, lanes, dev)
+            return _stream_search(
+                profile, db, go, ge, order, lanes, dev,
+                checkpoint_dir=checkpoint_dir,
+            )
 
     engine_fn = get_engine(eng)
     prof_dev = torch.from_numpy(profile).to(dev)
@@ -350,19 +360,17 @@ def query_blocks(
     return [b.to(device) for b in torch.cat([prof, pad]).split(nq_b)]
 
 
-def stream_chunks(
-    db: EncodedDatabase, order: np.ndarray, lanes: int | None,
-    device: torch.device, max_residues: int | None = None,
-) -> Iterable[tuple[np.ndarray, StreamPack]]:
-    """``(records, pack)`` of each chunk a search launches on: the records
-    of ``order``, ``MAX_STREAM_SLOTS`` lane groups at a time, packed into
-    :func:`choose_windows` streams. With ``max_residues`` (the striped
-    search, :func:`striped_chunk_residues`) a chunk also ends, at a lane
-    group's end, before its real residues pass that many; it keeps at
+def chunk_bounds(
+    db: EncodedDatabase, order: np.ndarray, max_residues: int | None = None,
+) -> list[tuple[int, int]]:
+    """``(start, stop)`` in ``order`` of each chunk a search launches on:
+    ``MAX_STREAM_SLOTS`` lane groups at a time. With ``max_residues`` (the
+    striped search, :func:`striped_chunk_residues`) a chunk also ends, at a
+    lane group's end, before its real residues pass that many; it keeps at
     least one lane group."""
-    max_lanes = resident_lanes(device)
     win = WINDOW_LANES
     csum = np.cumsum(db.lengths[order]) if max_residues else None
+    bounds = []
     start = 0
     while start < db.n:
         stop = min(start + MAX_STREAM_SLOTS * win, db.n)
@@ -371,12 +379,32 @@ def stream_chunks(
             fit = int(np.searchsorted(csum, base + max_residues, side="right"))
             if fit < stop:
                 stop = max(start + win, fit // win * win)
-        chunk = order[start:stop]
-        nw = choose_windows(db.lengths[chunk], win, lanes, max_lanes)
-        yield chunk, pack_streams(
-            db, chunk, nw, win=win, jb=STREAM_JB, grain=STREAM_GRAIN
-        )
+        bounds.append((start, stop))
         start = stop
+    return bounds
+
+
+def pack_chunk(
+    db: EncodedDatabase, chunk: np.ndarray, lanes: int | None,
+    max_lanes: int | None,
+) -> StreamPack:
+    """The records of ``chunk`` packed into :func:`choose_windows` streams."""
+    nw = choose_windows(db.lengths[chunk], WINDOW_LANES, lanes, max_lanes)
+    return pack_streams(
+        db, chunk, nw, win=WINDOW_LANES, jb=STREAM_JB, grain=STREAM_GRAIN
+    )
+
+
+def stream_chunks(
+    db: EncodedDatabase, order: np.ndarray, lanes: int | None,
+    device: torch.device, max_residues: int | None = None,
+) -> Iterable[tuple[np.ndarray, StreamPack]]:
+    """``(records, pack)`` of each chunk a search launches on
+    (:func:`chunk_bounds`, :func:`pack_chunk`)."""
+    max_lanes = resident_lanes(device)
+    for start, stop in chunk_bounds(db, order, max_residues):
+        chunk = order[start:stop]
+        yield chunk, pack_chunk(db, chunk, lanes, max_lanes)
 
 
 def striped_chunk_residues() -> int:
@@ -394,11 +422,12 @@ def _stream_search(
     order: np.ndarray,
     lanes: int | None,
     device: torch.device,
+    checkpoint_dir: str | None = None,
 ) -> tuple[np.ndarray, float]:
     """Whole-database search through the segmented stream kernels.
 
     The database becomes NW window streams scored in one launch per chunk
-    of ``MAX_STREAM_SLOTS`` segments (:func:`stream_chunks`). A 3-D
+    of ``MAX_STREAM_SLOTS`` segments (:func:`chunk_bounds`). A 3-D
     ``(NQ, Lq, 32)`` profile runs one multi-query launch per block of
     queries (:func:`query_blocks`) over the same device-resident streams.
     The chunks are the single-query search's: the JAX package's smaller
@@ -408,6 +437,11 @@ def _stream_search(
     ``MAX_QUERY_ROWS`` rows runs the striped kernel, one launch per stripe
     of ``STRIPE_ROWS`` rows, in chunks whose boundaries fit
     ``STRIPED_SCRATCH_BYTES``. Returns ``(N,)`` or ``(NQ, N)`` scores.
+
+    With ``checkpoint_dir`` each chunk's scores persist as it finishes
+    (:class:`_ScanCheckpoint`); a rerun of the same scan reads them back,
+    packs and launches nothing for them, and adds nothing to the kernel
+    time.
     """
     n = db.n
     multi = profile.ndim == 3
@@ -430,8 +464,20 @@ def _stream_search(
     # The query rows the stream kernels score: the ROW_ALIGN padding of the
     # profile never raises a score, and the one-pass kernel skips it.
     rows = profile.shape[-2]
-    max_residues = striped_chunk_residues() if striped else None
-    for chunk, pack in stream_chunks(db, order, lanes, device, max_residues):
+    bounds = chunk_bounds(db, order, striped_chunk_residues() if striped else None)
+    ckpt = (
+        _ScanCheckpoint(checkpoint_dir, profile, db, go, ge, order, bounds)
+        if checkpoint_dir
+        else None
+    )
+    max_lanes = resident_lanes(device)
+    for start, stop in bounds:
+        chunk = order[start:stop]
+        done = ckpt.load(start) if ckpt is not None else None
+        if done is not None:
+            scores[..., chunk] = done
+            continue
+        pack = pack_chunk(db, chunk, lanes, max_lanes)
         streams, fs = stream_pack_to_torch(pack, device)
         kw = dict(nslots=len(pack.slot_ids), jb=STREAM_JB)
         _sync(device)
@@ -455,7 +501,76 @@ def _stream_search(
             scores[:, chunk] = flat[:nq, : len(chunk)]
         else:
             scores[chunk] = out.numpy().reshape(-1)[: len(chunk)]
+        if ckpt is not None:
+            ckpt.save(start, scores[..., chunk])
     return scores, kernel_time
+
+
+class _ScanCheckpoint:
+    """Chunk-level resume for huge database scans.
+
+    Each chunk's scores (records ``order[start:stop]``, in that order)
+    persist to ``dir/chunk_<start>.npy`` under ``dir/manifest.json``, keyed
+    by a fingerprint of the scan: the query profile, the database (offsets
+    and sampled residues), the record order, the penalties and the chunk
+    plan (every chunk's bounds, which ``MAX_STREAM_SLOTS``,
+    ``WINDOW_LANES`` and, for the striped search,
+    ``STRIPED_SCRATCH_BYTES`` decide). Re-running the same scan skips its
+    completed chunks; any other scan, a chunk plan included, starts
+    afresh, since the same start would hold other records.
+    """
+
+    def __init__(self, path, profile, db, go, ge, order, bounds):
+        import hashlib
+        import json
+
+        self.dir = path
+        os.makedirs(path, exist_ok=True)
+        h = hashlib.sha256()
+        h.update(np.ascontiguousarray(profile).tobytes())
+        h.update(np.ascontiguousarray(db.offsets).tobytes())
+        # Sampled content fingerprint: cheap but catches edits.
+        h.update(np.ascontiguousarray(db.seq[:: max(1, len(db.seq) // 65536)]).tobytes())
+        # The chunk->record mapping depends on the sort order and the
+        # chunk plan: a chunk file indexes the records order[start:stop].
+        h.update(np.ascontiguousarray(order).tobytes())
+        h.update(str((int(go), int(ge))).encode())
+        h.update(np.asarray(bounds, dtype=np.int64).tobytes())
+        self.key = h.hexdigest()[:16]
+        self.manifest = os.path.join(path, "manifest.json")
+        try:
+            with open(self.manifest) as f:
+                state = json.load(f)
+            if state.get("key") != self.key:
+                state = {"key": self.key, "chunks": []}
+        except (OSError, ValueError):
+            state = {"key": self.key, "chunks": []}
+        self.state = state
+        self._flush()
+
+    def _flush(self):
+        import json
+
+        tmp = f"{self.manifest}.{os.getpid()}.tmp"
+        with open(tmp, "w") as f:
+            json.dump(self.state, f)
+        os.replace(tmp, self.manifest)
+
+    def _file(self, start):
+        return os.path.join(self.dir, f"chunk_{start}.npy")
+
+    def load(self, start):
+        if start not in self.state["chunks"]:
+            return None
+        try:
+            return np.load(self._file(start))
+        except (OSError, ValueError):
+            return None
+
+    def save(self, start, chunk_scores):
+        np.save(self._file(start), chunk_scores)
+        self.state["chunks"].append(start)
+        self._flush()
 
 
 def _db_from_encoded(encoded: Sequence[np.ndarray], names=None) -> EncodedDatabase:
@@ -523,11 +638,13 @@ def search_files(
     keep_seqs: bool = False,
     db_cache: str | None = None,
     sort: bool = True,
+    checkpoint_dir: str | None = None,
 ) -> SearchResult:
     """Search a query FASTA (first record) against a database FASTA.
 
     ``keep_seqs`` retains the original sequence strings (needed for
-    ``--printseq``) via the Python reader.
+    ``--printseq``) via the Python reader, and then, as in the JAX
+    package, keeps no checkpoint.
     """
     query = read_first(query_path)
     query_idx = scoring.query_indices(query.seq)
@@ -539,7 +656,8 @@ def search_files(
     _warn_padding(scoring, query_idx)
     db = parse_file_cached(db_path, db_cache)
     scores, kernel_time = search_database(
-        query_idx, db, scoring, engine=engine, lanes=lanes, sort=sort
+        query_idx, db, scoring, engine=engine, lanes=lanes, sort=sort,
+        checkpoint_dir=checkpoint_dir,
     )
     return SearchResult(
         query_name=query.name,
@@ -549,6 +667,134 @@ def search_files(
         scores=scores,
         kernel_time=kernel_time,
         total_entries=db.n,
+    )
+
+
+def search_files_streaming(
+    query_path: str,
+    db_path: str,
+    scoring: ScoringModel,
+    engine: str | None = None,
+    lanes: int | None = None,
+    chunk_records: int = 512 * 1024,
+    checkpoint_dir: str | None = None,
+    db_cache: str | None = None,
+) -> SearchResult:
+    """Bounded-memory search: stream the database in record chunks.
+
+    ``search_files``' whole-file parse holds the database in memory, which
+    a larger-than-RAM database breaks. This variant reads, encodes and
+    scores ``chunk_records`` records at a time (each part length-sorted on
+    its own) and keeps only names and scores; the ingest runs through the
+    native chunked reader (``native_io.stream_chunks``). Scores are
+    identical to :func:`search_files`'. Part ``k`` checkpoints under
+    ``checkpoint_dir/part<k>``.
+
+    ``db_cache``: when a FRESH .sqc cache exists ("auto" = sidecar), the
+    parts are zero-copy views of its mmap (``iter_cache_chunks``), so the
+    FASTA is never re-read and cache-only deployments stream too. A missing
+    or stale cache streams from the FASTA and says so; it is not built
+    here (building one needs a whole-file parse, which would defeat this
+    mode's memory bound).
+    """
+    import queue
+    import threading
+
+    from .utils.native_io import iter_cache_chunks, load_cache, stream_chunks
+
+    query = read_first(query_path)
+    query_idx = scoring.query_indices(query.seq)
+    _warn_padding(scoring, query_idx)
+
+    chunk_iter = None
+    if db_cache is not None:
+        cache_path = db_path + ".sqc" if db_cache == "auto" else db_cache
+        cached = load_cache(cache_path, src_path=db_path)
+        if cached is not None:
+            chunk_iter = iter_cache_chunks(cached, chunk_records)
+        else:
+            print(
+                f"Note: database cache {cache_path} absent or stale; "
+                "streaming from the FASTA (a streaming run does not "
+                "build caches).",
+                file=sys.stderr,
+            )
+    if chunk_iter is None:
+        chunk_iter = stream_chunks(db_path, chunk_records)
+
+    # One-deep ingest prefetch: a thread parses and encodes part k+1 while
+    # the device scores part k. The native reader's ctypes calls and the
+    # device's fetch release the GIL, so the two really overlap; memory
+    # holds two parts (one scoring, one staged).
+    staged: queue.Queue = queue.Queue(maxsize=1)
+    # Consumer-driven cancellation: if the consume loop dies mid-iteration
+    # (a kernel error, a checkpoint write failure, KeyboardInterrupt), the
+    # producer must not block forever on the full queue, which would leak
+    # the thread, the open reader and two parsed parts.
+    cancel = threading.Event()
+
+    def put(item) -> bool:
+        while not cancel.is_set():
+            try:
+                staged.put(item, timeout=0.5)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def produce():
+        try:
+            for item in chunk_iter:
+                if not put(item):
+                    break
+            else:
+                put(None)
+        except BaseException as e:  # re-raised on the consumer
+            put(e)
+        finally:
+            if cancel.is_set():
+                close = getattr(chunk_iter, "close", None)
+                if close is not None:
+                    close()
+
+    threading.Thread(target=produce, daemon=True).start()
+
+    def consume():
+        try:
+            while True:
+                item = staged.get()
+                if item is None:
+                    return
+                if isinstance(item, BaseException):
+                    raise item
+                yield item
+        finally:
+            # Runs on exhaustion and when the loop below closes the
+            # generator after an exception: releases the producer.
+            cancel.set()
+
+    names: list[str] = []
+    parts: list[np.ndarray] = []
+    kernel_time = 0.0
+    for k, db in enumerate(consume()):
+        ck = os.path.join(checkpoint_dir, f"part{k}") if checkpoint_dir else None
+        s, dt = search_database(
+            query_idx, db, scoring, engine=engine, lanes=lanes,
+            checkpoint_dir=ck,
+        )
+        kernel_time += dt
+        names.extend(db.names)
+        parts.append(s)
+
+    scores = np.concatenate(parts) if parts else np.zeros(0, dtype=np.int32)
+    return SearchResult(
+        query_name=query.name,
+        query_seq=query.seq,
+        names=names,
+        seqs=None,
+        scores=scores,
+        kernel_time=kernel_time,
+        total_entries=len(names),
     )
 
 

@@ -7,10 +7,12 @@ the same stream.
 
     python -m seqalign_tpu_torch.swissprot [--lq 17,144,512,1536,2000]
         [--stripe-rows 256,512,768] [--windows 132,264,396,528,1056]
-        [--nq N] [--fixed] [--out FILE.json]
+        [--nq N] [--fixed] [--stream-chunk N] [--out FILE.json]
 
 times each layer of a search over it on the GPU, PAM250, gaps -2/-1: the
-FASTA parse, ``pack_streams``, the host-to-device copy, the kernel (CUDA
+FASTA parse and ``pack_streams``, each native (the fastio library that
+``seqalign_tpu_torch.native`` builds) and pure Python, the host-to-device
+copy, the kernel (CUDA
 events), the fetch and scatter, the whole ``search_database`` call, and the
 device's busy share under ``torch.profiler``. It then times the kernel at
 each query length of ``--lq`` (the pipeline's own window count) and, with
@@ -41,11 +43,18 @@ launch on device-resident windows, for each query length of ``--lq``; K4
 and K5 in turns (K4, K5, K5, K4), and K1 over the pipeline's streams at the
 same query length beside them. K5/K4 is the share of K4's time that the DP
 loop takes without the profile gather.
+
+With ``--stream-chunk N`` it times the bounded-memory search instead
+(``pipeline.search_files_streaming``, parts of N records, the 144-residue
+query): its wall beside ``search_files``', the device's busy share, the
+chunked reader alone and the parts' searches alone, and how much of the
+ingest the prefetch thread hides behind the device.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import tempfile
@@ -56,6 +65,7 @@ import numpy as np
 import torch
 
 from .host import EncodedDatabase, ScoringModel, encode, load_builtin
+from .models import decode
 
 AA = "ACDEFGHIKLMNPQRSTVWY"
 AA_FREQS = np.array([
@@ -186,7 +196,7 @@ def _seconds(fn):
     return out, time.perf_counter() - t0
 
 
-def _busy(fn):
+def device_busy(fn):
     """(wall seconds, device-busy ms, top kernels) of fn under torch.profiler;
     device-side events only (a host op such as aten::copy_ also reports
     the device time of the memcpy it issued)."""
@@ -200,6 +210,111 @@ def _busy(fn):
     top = sorted(((e.key, e.self_device_time_total / 1e3) for e in on_device),
                  key=lambda kv: -kv[1])[:6]
     return wall, busy_us / 1e3, top
+
+
+@contextlib.contextmanager
+def python_ingest():
+    """``native_io``'s pure-Python parse and pack in place of the native
+    library, for timing the two side by side."""
+    from .utils import native_io
+
+    load = native_io._load
+    native_io._load = lambda: None
+    try:
+        yield
+    finally:
+        native_io._load = load
+
+
+def ingest_breakdown(db: EncodedDatabase, fasta: Path, say) -> dict:
+    """The whole database's FASTA parse and stream pack (the pipeline's
+    windows), native and pure Python: the seconds of each, the outputs
+    checked equal to each other and the parse to ``db``."""
+    from . import pipeline
+    from .host import pack_streams
+    from .ops.swa_cuda import STREAM_JB
+    from .utils import native_io
+
+    if not native_io.available():
+        raise SystemExit("swissprot: the native fastio library is not available")
+    out = {}
+    t0 = time.perf_counter()
+    parsed = native_io.parse_file(str(fasta))
+    out["parse_native_s"] = time.perf_counter() - t0
+    with python_ingest():
+        t0 = time.perf_counter()
+        plain = native_io.parse_file(str(fasta))
+        out["parse_python_s"] = time.perf_counter() - t0
+    for got in (parsed, plain):
+        if not (np.array_equal(got.seq, db.seq) and np.array_equal(got.offsets, db.offsets)):
+            raise SystemExit("swissprot: the parsed FASTA differs from the database")
+    if parsed.names != plain.names:
+        raise SystemExit("swissprot: native and Python parses name the records differently")
+    del plain
+    order = np.argsort(-db.lengths, kind="stable")
+    win = pipeline.WINDOW_LANES
+    nw = pipeline.choose_windows(db.lengths[order], win, None,
+                                 pipeline.resident_lanes(pipeline.resolve_device()))
+    kw = dict(win=win, jb=STREAM_JB, grain=pipeline.STREAM_GRAIN)
+    t0 = time.perf_counter()
+    pack = pack_streams(parsed, order, nw, **kw)
+    out["pack_native_s"] = time.perf_counter() - t0
+    with python_ingest():
+        t0 = time.perf_counter()
+        plain = pack_streams(parsed, order, nw, **kw)
+        out["pack_python_s"] = time.perf_counter() - t0
+    if not (np.array_equal(pack.streams, plain.streams) and np.array_equal(pack.fs, plain.fs)):
+        raise SystemExit("swissprot: native and Python packs differ")
+    say(f"[ingest] {db.n} records, {int(db.offsets[-1])} residues: parse native "
+        f"{out['parse_native_s']} s, Python {out['parse_python_s']} s; pack (nw={nw}) "
+        f"native {out['pack_native_s']} s, Python {out['pack_python_s']} s; "
+        "outputs equal")
+    return out
+
+
+def streaming_breakdown(query_fa: Path, fasta: Path, sc, chunk_records: int, say) -> dict:
+    """``search_files_streaming`` in parts of ``chunk_records`` records
+    against ``search_files`` over the same FASTA: both walls (best of two),
+    the streaming search's device busy share, the chunked reader alone, the
+    parts' searches alone (parsed beforehand), and the ingest seconds the
+    prefetch thread hides (reader + searches - streaming wall)."""
+    from . import pipeline
+    from .host import read_first
+    from .utils import native_io
+
+    dev = pipeline.resolve_device()
+    tag = f"[stream-chunk {chunk_records}]"
+    query_idx = sc.query_indices(read_first(str(query_fa)).seq)
+    t0 = time.perf_counter()
+    parts = list(native_io.stream_chunks(str(fasta), chunk_records))
+    ingest_s = time.perf_counter() - t0
+    pipeline.search_database(query_idx, parts[0], sc, device=dev)  # builds the kernel
+    _, search_s = _seconds(
+        lambda: [pipeline.search_database(query_idx, p, sc, device=dev) for p in parts])
+    n_parts = len(parts)
+    del parts
+
+    def streaming():
+        return pipeline.search_files_streaming(
+            str(query_fa), str(fasta), sc, chunk_records=chunk_records)
+
+    stream_walls = [_seconds(streaming)[1] for _ in range(2)]
+    whole_walls = [_seconds(lambda: pipeline.search_files(str(query_fa), str(fasta), sc))[1]
+                   for _ in range(2)]
+    wall, busy_ms, top = device_busy(streaming)
+    hidden_s = ingest_s + search_s - min(stream_walls)
+    out = {"chunk_records": chunk_records, "parts": n_parts, "ingest_s": ingest_s,
+           "parts_search_s": search_s, "streaming_wall_s": stream_walls,
+           "search_files_wall_s": whole_walls, "hidden_ingest_s": hidden_s,
+           "hidden_share": hidden_s / ingest_s,
+           "profile": {"wall_s": wall, "device_ms": busy_ms,
+                       "busy_share": busy_ms / 1e3 / wall, "top_ms": top}}
+    say(f"{tag} {n_parts} parts: streaming wall {stream_walls} s, search_files wall "
+        f"{whole_walls} s; chunked reader alone {ingest_s} s, the parts' searches "
+        f"alone {search_s} s; prefetch hides {hidden_s} s of the ingest "
+        f"({hidden_s / ingest_s} of it); device busy {busy_ms} ms in a {wall} s "
+        f"streaming wall, share {busy_ms / 1e3 / wall}; {top}")
+    return out
 
 
 def fixed_profiles(query, lqs, dev) -> dict[int, torch.Tensor]:
@@ -344,7 +459,7 @@ def multi_breakdown(db, nq: int, lq: int, say) -> dict:
         walls.append({"wall_s": wall, "kernel_timer_s": kernel_s})
         say(f"{tag} [search] wall {wall} s, kernel timer {kernel_s} s = "
             f"{cells / kernel_s / 1e9} GCUPS")
-    wall, busy_ms, top = _busy(
+    wall, busy_ms, top = device_busy(
         lambda: pipeline.search_database_multi(queries, db, sc, device=dev))
     say(f"{tag} [profile] device {busy_ms} ms in a {wall} s search wall, busy "
         f"share {busy_ms / 1e3 / wall}; {top}")
@@ -363,7 +478,7 @@ def multi_breakdown(db, nq: int, lq: int, say) -> dict:
 def main(argv=None) -> int:
     from . import pipeline, sass
     from .convert import profile_stripes, profile_to_torch, stream_pack_to_torch
-    from .host import pack_streams, parse_file_cached
+    from .host import pack_streams
     from .ops import _build
     from .ops.swa_cuda import (
         MAX_QUERY_ROWS, STREAM_JB, STRIPE_ROWS, stripe_kernel_instance,
@@ -380,6 +495,8 @@ def main(argv=None) -> int:
                     help="time the multi-query search of this many queries")
     ap.add_argument("--fixed", action="store_true",
                     help="time the fixed-batch kernel (K4) and K5 instead")
+    ap.add_argument("--stream-chunk", type=int, default=0,
+                    help="time the bounded-memory search in parts of this many records")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -414,13 +531,20 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory(dir=build) as tmp:
         fasta = Path(tmp) / "swissprot.fa"
         write_fasta(db, fasta)
-        t0 = time.perf_counter()
-        parsed = parse_file_cached(str(fasta), None)
-        steps["parse"] = time.perf_counter() - t0
-    if not np.array_equal(parsed.seq, db.seq):
-        raise SystemExit("swissprot: the parsed FASTA differs from the database")
-    del parsed
-    say(f"[steps] parse {db.n} records, {residues} residues: {steps['parse']} s")
+        if args.stream_chunk:
+            query_fa = Path(tmp) / "query.fa"
+            query_fa.write_text(">query\n" + decode(query) + "\n")
+            result["streaming"] = streaming_breakdown(
+                query_fa, fasta, sc, args.stream_chunk, say)
+            _write(args.out, result)
+            return 0
+        ingest = ingest_breakdown(db, fasta, say)
+    result["ingest_s"] = ingest
+    steps["parse"] = ingest["parse_native_s"]
+    steps["parse_python"] = ingest["parse_python_s"]
+    steps["pack_python"] = ingest["pack_python_s"]
+    say(f"[steps] parse {db.n} records, {residues} residues: {steps['parse']} s "
+        f"(Python {steps['parse_python']} s)")
 
     # The pipeline's steps one by one, as _stream_search runs them.
     pipeline.search_database(query, db, sc, device=dev)  # builds the kernel
@@ -460,7 +584,7 @@ def main(argv=None) -> int:
             f"{len(query) * residues / kernel_s / 1e9} GCUPS")
     result["search"] = walls
 
-    wall, busy_ms, top = _busy(
+    wall, busy_ms, top = device_busy(
         lambda: pipeline.search_database(query, db, sc, device=dev))
     result["profile"] = {"wall_s": wall, "device_ms": busy_ms,
                          "busy_share": busy_ms / 1e3 / wall, "top_ms": top}

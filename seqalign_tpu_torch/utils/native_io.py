@@ -1,12 +1,13 @@
-"""The encoded database: FASTA/FASTQ parse + encode, the ``.sqc`` cache and
-lane-batch packing.
+"""The encoded database: FASTA/FASTQ parse + encode, the chunked reader for
+bounded-memory searches, the ``.sqc`` cache and lane-batch packing.
 
-The port's copy of the parts of ``seqalign_tpu.utils.native_io`` that it
-calls (the streaming ingest, ``stream_chunks`` and ``iter_cache_chunks``, is
-not copied). Parse and pack use the native fastio library
-(``native/fastio.cc``) when a build of it, ``_fastio.so``, sits beside this
-file; nothing builds one there, so they run the pure-Python
-implementations.
+The port's copy of ``seqalign_tpu.utils.native_io``. Parse, the chunked
+reader and pack run the native fastio library (``native/fastio.cc``), which
+``seqalign_tpu_torch.native`` builds at first use into
+``build/seqalign_tpu_torch/host/``; a failed build raises. The pure-Python
+implementations serve a host with no C++ compiler, stdin and other
+non-regular files, and are the plain versions the tests hold the native
+paths to.
 """
 
 from __future__ import annotations
@@ -16,17 +17,20 @@ import os
 
 import numpy as np
 
-_LIB_PATH = os.path.join(os.path.dirname(__file__), "_fastio.so")
+from .. import native
+
 _lib = None
 
 
 def _load():
+    """The fastio library with its ctypes signatures, or None when the host
+    has no C++ compiler to build it."""
     global _lib
     if _lib is not None:
         return _lib
-    if not os.path.exists(_LIB_PATH):
+    lib = native.load("fastio")
+    if lib is None:
         return None
-    lib = ctypes.CDLL(_LIB_PATH)
     lib.fastio_parse.restype = ctypes.c_void_p
     lib.fastio_parse.argtypes = [
         ctypes.c_char_p,
@@ -39,6 +43,21 @@ def _load():
     lib.fastio_fetch.argtypes = [ctypes.c_void_p] + [ctypes.c_void_p] * 3
     lib.fastio_free.restype = None
     lib.fastio_free.argtypes = [ctypes.c_void_p]
+    lib.fastio_open.restype = ctypes.c_void_p
+    lib.fastio_open.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_int)]
+    lib.fastio_read_chunk.restype = ctypes.c_void_p
+    lib.fastio_read_chunk.argtypes = [
+        ctypes.c_void_p,
+        ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(ctypes.c_int),
+    ]
+    lib.fastio_fetch_chunk.restype = None
+    lib.fastio_fetch_chunk.argtypes = [ctypes.c_void_p] + [ctypes.c_void_p] * 3
+    lib.fastio_close.restype = None
+    lib.fastio_close.argtypes = [ctypes.c_void_p]
     lib.fastio_pack.restype = None
     lib.fastio_pack.argtypes = [ctypes.c_void_p] * 3 + [
         ctypes.c_int64,
@@ -48,6 +67,11 @@ def _load():
     ]
     _lib = lib
     return lib
+
+
+def available() -> bool:
+    """Whether parse, the chunked reader and pack run natively."""
+    return _load() is not None
 
 
 class EncodedDatabase:
@@ -105,15 +129,7 @@ def parse_file(path: str) -> EncodedDatabase:
         ctypes.byref(names_bytes), ctypes.byref(err),
     )
     if not handle:
-        if err.value == -1:
-            raise OSError(f"couldn't read {path}")
-        if err.value == -2:
-            from ..models.alphabet import AlphabetError
-
-            raise AlphabetError(
-                f"illegal character for the substitution matrix in {path}"
-            )
-        raise ValueError(f"unrecognized sequence file format: {path}")
+        _raise_parse_error(err.value, path)
     try:
         seq = np.empty(residues.value, dtype=np.int8)
         offsets = np.empty(n.value + 1, dtype=np.int64)
@@ -308,6 +324,114 @@ def parse_file_cached(path: str, cache: str | None) -> EncodedDatabase:
             file=sys.stderr,
         )
     return db
+
+
+def iter_cache_chunks(db: EncodedDatabase, chunk_records: int):
+    """Yield <= chunk_records-record EncodedDatabase views of ``db``.
+
+    With a load_cache database the views stay zero-copy slices of the
+    mmap, so a streaming search over a cache touches each residue page
+    once and the OS evicts behind it — bounded memory without the FASTA
+    re-read that stream_chunks needs.
+    """
+    for s in range(0, db.n, chunk_records):
+        e = min(db.n, s + chunk_records)
+        yield EncodedDatabase(
+            seq=db.seq[db.offsets[s] : db.offsets[e]],
+            offsets=db.offsets[s : e + 1] - db.offsets[s],
+            names=db.names[s:e],
+        )
+
+
+def _raise_parse_error(err: int, path: str):
+    if err == -1:
+        raise OSError(f"couldn't read {path}")
+    if err == -2:
+        from ..models.alphabet import AlphabetError
+
+        raise AlphabetError(
+            f"illegal character for the substitution matrix in {path}"
+        )
+    raise ValueError(f"unrecognized sequence file format: {path}")
+
+
+def stream_chunks(path: str, chunk_records: int):
+    """Yield EncodedDatabase chunks of <= chunk_records records.
+
+    Bounded-memory ingest at native parse speed (the whole-file
+    ``parse_file`` is O(database) RAM). Runs the pure-Python reader when
+    the host has no compiler for the native library or the input is not a
+    regular file (e.g. '-').
+    """
+    lib = _load()
+    if lib is None or path == "-" or not os.path.isfile(path):
+        yield from _stream_chunks_python(path, chunk_records)
+        return
+    err = ctypes.c_int()
+    handle = lib.fastio_open(path.encode(), ctypes.byref(err))
+    if not handle:
+        raise OSError(f"couldn't read {path}")
+    try:
+        n = ctypes.c_int64()
+        residues = ctypes.c_int64()
+        names_bytes = ctypes.c_int64()
+        while True:
+            chunk = lib.fastio_read_chunk(
+                handle, chunk_records, ctypes.byref(n),
+                ctypes.byref(residues), ctypes.byref(names_bytes),
+                ctypes.byref(err),
+            )
+            if not chunk:
+                if err.value != 0:
+                    _raise_parse_error(err.value, path)
+                return  # clean EOF
+            seq = np.empty(residues.value, dtype=np.int8)
+            offsets = np.empty(n.value + 1, dtype=np.int64)
+            names_buf = ctypes.create_string_buffer(
+                max(names_bytes.value, 1)
+            )
+            lib.fastio_fetch_chunk(
+                chunk,
+                seq.ctypes.data_as(ctypes.c_void_p),
+                offsets.ctypes.data_as(ctypes.c_void_p),
+                names_buf,
+            )
+            raw_names = names_buf.raw[: names_bytes.value].decode(
+                "ascii", errors="replace"
+            )
+            yield EncodedDatabase(seq=seq, offsets=offsets, names=raw_names)
+    finally:
+        lib.fastio_close(handle)
+
+
+def _stream_chunks_python(path: str, chunk_records: int):
+    from ..models.alphabet import encode
+    from .fasta import read_fasta
+
+    def build(records):
+        seqs = [encode(r.seq) for r in records]
+        offsets = np.zeros(len(seqs) + 1, dtype=np.int64)
+        total = 0
+        for i, e in enumerate(seqs):
+            total += len(e)
+            offsets[i + 1] = total
+        seq = (
+            np.concatenate(seqs).astype(np.int8)
+            if seqs
+            else np.zeros(0, dtype=np.int8)
+        )
+        return EncodedDatabase(
+            seq=seq, offsets=offsets, names=[r.name for r in records]
+        )
+
+    buf = []
+    for rec in read_fasta(path):
+        buf.append(rec)
+        if len(buf) >= chunk_records:
+            yield build(buf)
+            buf = []
+    if buf:
+        yield build(buf)
 
 
 def pack_batch(

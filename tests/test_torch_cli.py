@@ -266,7 +266,8 @@ def test_unknown_engine_exits_1(files, capsys):
 
 @pytest.mark.parametrize(
     "args",
-    [[], ["--match", "x"], ["--files", "a"], ["--bogus"], ["--match", "-3"]],
+    [[], ["--match", "x"], ["--files", "a"], ["--bogus"], ["--match", "-3"],
+     ["--stream-chunk", "0"], ["--stream-chunk", "x"], ["--align", "x"]],
 )
 def test_usage_errors_match_jax(args, capsys):
     code, _, err = _run(cli.main, args, capsys)
@@ -281,3 +282,127 @@ def test_no_gpu_exits_1(files, capsys, monkeypatch):
     code, out, err = _run(cli.main, ["--files", files["q"], files["db"]], capsys)
     assert code == 1
     assert "Error: no CUDA device" in err and "Entry #" not in out
+
+
+def _json_drop_time(out):
+    d = json.loads(out.splitlines()[-1])
+    d.pop("total_time")
+    d.pop("entries_per_s", None)
+    return d
+
+
+SINGLE_ONLY_CASES = {
+    "align": ["--align", "5"],
+    "align_json": ["--align", "4", "--json", "--substitution_matrix", "PAM250"],
+    "align_all": ["--align", "100", "--substitution_matrix", "BLOSUM62"],
+    "stream_chunk": ["--stream-chunk", "7"],
+    "stream_chunk_json": ["--stream-chunk", "16", "--json", "--topk", "3"],
+    "stream_chunk_checkpoint": ["--stream-chunk", "9", "--checkpoint", "CK"],
+    "checkpoint": ["--checkpoint", "CK", "--substitution_matrix", "BLOSUM62"],
+    "checkpoint_topk": ["--checkpoint", "CK", "--topk", "4", "--printfasta"],
+}
+
+
+@pytest.mark.parametrize("query", ["q", "multi3"])
+@pytest.mark.parametrize("case", sorted(SINGLE_ONLY_CASES))
+def test_single_query_modes_match_jax(case, query, files, capsys, tmp_path):
+    """--align, --stream-chunk and --checkpoint print what the JAX CLI
+    prints, and a multi-record query file keeps first-record behaviour
+    under each. A --checkpoint run repeated resumes every chunk: no
+    launch, the same output."""
+    from seqalign_tpu_torch.ops import swa_cuda
+
+    args = ["--files", files[query], files["db"]] + [
+        str(tmp_path / "ck") if a == "CK" else a for a in SINGLE_ONLY_CASES[case]]
+    jargs = [str(tmp_path / "jck") if a == str(tmp_path / "ck") else a for a in args]
+    code, out, err = _run(cli.main, args, capsys)
+    jcode, jout, _ = _run(jax_cli.main, jargs + ["--engine", "oracle"], capsys)
+    assert code == jcode == 0 and "Query #" not in out
+    if "--json" in args:
+        assert _json_drop_time(out) == _json_drop_time(jout)
+    else:
+        assert "Entry #" in out
+        assert _drop_time(out) == _drop_time(jout)
+    if "--checkpoint" in args:
+        launches = swa_cuda.sw_stream_reference.calls
+        code, again, _ = _run(cli.main, args, capsys)
+        assert code == 0 and swa_cuda.sw_stream_reference.calls == launches
+        assert _drop_time(again) == _drop_time(out)
+        assert "Total Time: 0.000000" in again
+
+
+def _star_negative_matrix(path):
+    """BLOSUM62 as a matrix file whose '*' row and column score -4, so that
+    '*' padding cannot move an alignment's end and --align localizes long
+    pairs through the wavefront ends engine."""
+    from seqalign_tpu_torch.models import write_matrix_file
+
+    write_matrix_file(str(path), "BLOSUM62")
+    lines = path.read_text().splitlines()
+    alphabet = lines[1].split()
+    star = alphabet.index("*")
+    out = lines[:2]
+    for ln in lines[2:]:
+        cells = ln.split()
+        vals = ["-4" if (k == star or cells[0] == "*") else v
+                for k, v in enumerate(cells[1:])]
+        out.append(cells[0] + " " + " ".join(vals))
+    path.write_text("\n".join(out) + "\n")
+
+
+@pytest.mark.parametrize("as_json", [False, True])
+def test_align_through_the_ends_engine_matches_jax(as_json, files, capsys, tmp_path,
+                                                   monkeypatch):
+    """Hits above the (shrunk) direct-fill threshold: one call of the
+    wavefront ends engine localizes them, and the output equals the JAX
+    CLI's, whose ends come from its XLA wavefront."""
+    from seqalign_tpu.ops import traceback as jax_tb
+    from seqalign_tpu_torch.ops import swa_torch
+    from seqalign_tpu_torch.ops import traceback as tb
+
+    matrix = tmp_path / "b62star.txt"
+    _star_negative_matrix(matrix)
+    for mod in (tb, jax_tb):
+        monkeypatch.setattr(mod, "_DIRECT_CELLS", 1 << 9)
+    args = ["--files", files["q"], files["db"], "--substitution_matrix", str(matrix),
+            "--align", "6"] + (["--json"] if as_json else [])
+    calls = swa_torch.sw_wavefront_ends.calls
+    code, out, _ = _run(cli.main, args, capsys)
+    assert swa_torch.sw_wavefront_ends.calls == calls + 1
+    jcode, jout, _ = _run(jax_cli.main, args + ["--engine", "oracle"], capsys)
+    assert code == jcode == 0
+    if as_json:
+        got = _json_drop_time(out)
+        assert got == _json_drop_time(jout) and len(got["alignments"]) == 6
+    else:
+        assert out.count("CIGAR") == 6
+        assert _drop_time(out) == _drop_time(jout)
+
+
+@pytest.mark.parametrize("query", ["q", "multi3"])
+def test_trace_writes_a_trace(query, files, capsys, tmp_path):
+    trace = tmp_path / "trace"
+    args = ["--files", files[query], files["db"]]
+    code, out, err = _run(cli.main, args + ["--trace", str(trace)], capsys)
+    assert code == 0 and "Note: profiler unavailable" not in err
+    written = list(trace.glob("seqalign_trace_*.json"))
+    assert len(written) == 1
+    events = json.loads(written[0].read_text())["traceEvents"]
+    assert any("sw_stream" in str(e.get("name", "")) or "aten::" in str(e.get("name", ""))
+               for e in events)
+    jcode, jout, _ = _run(jax_cli.main, args + ["--first-query", "--engine", "oracle"],
+                          capsys)
+    assert jcode == 0 and _drop_time(out) == _drop_time(jout)
+
+
+def test_trace_unavailable_is_a_note(files, capsys, monkeypatch):
+    import torch.profiler
+
+    def broken(*a, **k):
+        raise RuntimeError("no profiler here")
+
+    monkeypatch.setattr(torch.profiler, "profile", broken)
+    code, out, err = _run(
+        cli.main, ["--files", files["q"], files["db"], "--trace", "unused"], capsys)
+    assert code == 0 and "Entry #" in out
+    assert "Note: profiler unavailable (no profiler here)" in err

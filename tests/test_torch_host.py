@@ -185,6 +185,20 @@ def test_pack_streams_and_pack_batch_match(nw, win, jb, grain):
 
 
 def test_no_native_library_beside_the_copy():
-    """No build puts ``_fastio.so`` beside the port's native_io: it parses
-    and packs with the pure-Python readers."""
-    assert native_io._load() is None
+    """The port's fastio loads from the build directory at the root of the
+    checkout, built from ``native/fastio.cc``; nothing is built beside the
+    port's ``native_io`` or anywhere in the JAX package's tree."""
+    from pathlib import Path
+
+    from seqalign_tpu_torch import native
+
+    root = Path(__file__).resolve().parent.parent
+    lib = native_io._load()
+    assert lib is not None and native_io.available()
+    path = Path(lib._name)
+    assert path.parent == root / "build" / "seqalign_tpu_torch" / "host"
+    assert path.name.startswith("_fastio_") and path.exists()
+    assert native.load("fastio") is lib
+    beside = Path(native_io.__file__).parent
+    assert not list(beside.glob("*.so"))
+    assert not list((root / "seqalign_tpu").rglob("*.so"))
