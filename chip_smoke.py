@@ -95,7 +95,21 @@ Phases, each printing its own lines; any failure exits nonzero:
    hits localized by one call of sw_wavefront_ends on the card; on a
    3,012-record FASTA with 12 long records, --align 10 equal to --engine
    wavefront --align 10 but for Total Time; --trace writes a
-   torch.profiler trace that names K1's kernel.
+   torch.profiler trace that names K1's kernel;
+12. multi-device and multi-host (seqalign_tpu_torch.parallel) on the one
+   card, whose entries stand in for several cards: multi_device_search
+   over local_devices() and over 2 and 4 entries of cuda:0 with the
+   144-residue query (one K1 launch per entry and nothing else; all
+   565,247 scores equal phase 4's), the 8 x 17 batch over 2 entries (K3
+   only; scores equal phase 5's), a 2000-residue query refused with
+   ValueError; sharded_engine and sharded_topk over
+   get_engine("windows") on 4 entries, a 65,536-lane batch of the sorted
+   database in 4 shards (4 K4 launches each; scores equal one K4 call on
+   the whole batch, the top 10 a stable descending sort of them); and the
+   CLI as two hosts (--hosts 2, one process each, gloo on a local port,
+   one .sqc built up front): host 0's stdout equals the one-process CLI's
+   but for Total Time, and with --topk 10 --json the stable top 10 of
+   phase 4's scores; host 1 prints no result.
 
 With ``--against DIR`` (another checkout, for example the parent commit
 unpacked under build/) it then times K1 and K3 in turns against that
@@ -1673,6 +1687,220 @@ def phase_align_trace(smi: str, db, fasta, query, k1_scores, long_query, long_sc
     return results
 
 
+# Phase 12: the stand-in meshes (entries of the one card), the lane batch
+# of the sharded K4 (the records from 4 x 65,536 on of the length-sorted
+# database: 4 shards of 16,384 lanes, 16 windows of FIXED_WINDOW_LANES
+# each), and how long a host of the two-host CLI may take.
+MESH_ENTRIES = (2, 4)
+SHARDED_LANES = 65536
+SHARDED_START = 4 * SHARDED_LANES
+HOST_TIMEOUT_S = 300
+KERNEL_TIMER = "multi_device_search's kernel timer: first launch to last fetch"
+
+
+def phase_parallel(torch, smi: str, db, query, k1_scores, k1_kernel_s, multi8, fasta):
+    """Phase 12: the multi-device search (K1 per device entry, K3 per entry
+    and block), the sharded fixed-batch engine and its top-k (K4 per
+    shard), and the two-host CLI, all on the one card; every check against
+    an earlier phase's scores (``k1_scores``, ``multi8``)."""
+    from seqalign_tpu_torch import pipeline
+    from seqalign_tpu_torch.device import local_devices
+    from seqalign_tpu_torch.host import lattice_round_up, pack_batch
+    from seqalign_tpu_torch.ops import swa_cuda
+    from seqalign_tpu_torch.ops.swa_torch import make_profile
+    from seqalign_tpu_torch.parallel import (
+        deal_chunks, make_mesh, multi_device_search, shard_db, sharded_engine,
+        sharded_topk,
+    )
+    from seqalign_tpu_torch.swissprot import random_query
+
+    sc = scoring("PAM250")
+    go, ge = sc.gap_open_total, sc.gap_extend
+    profile = make_profile(sc.table, query)
+    cuda0 = torch.device("cuda", 0)
+    win = pipeline.WINDOW_LANES
+    order = np.argsort(-db.lengths, kind="stable")
+    result = {"sw_stream": {}, "sw_stream_multi": {}, "sw_windows": {}}
+
+    # (a) multi_device_search: K1 once per entry, every score phase 4's.
+    for devices in [local_devices()] + [[cuda0] * d for d in MESH_ENTRIES]:
+        tag = f"[parallel K1 x{len(devices)}]"
+        reset_counts(swa_cuda)
+        t0 = time.perf_counter()
+        scores, kernel_s = multi_device_search(profile, db, go, ge, devices=devices)
+        wall = time.perf_counter() - t0
+        counts = read_counts(swa_cuda)
+        if counts["sw_stream"] != len(devices) or sum(counts.values()) != len(devices):
+            fail(f"{tag} launches {counts}, not one K1 per device entry")
+        if not np.array_equal(scores, k1_scores):
+            fail(f"{tag} {int(np.count_nonzero(scores != k1_scores))} scores != phase 4's")
+        packs = []
+        for chunk in deal_chunks(order, db.lengths, len(devices), win=win):
+            p = pipeline.pack_chunk(db, chunk, None, pipeline.resident_lanes(cuda0))
+            packs.append((len(chunk), p.real_residues, *p.streams.shape[:2],
+                          p.padded_cells_per_query_row))
+        key = f"x{len(devices)}" + (" (local_devices)" if devices == local_devices() else "")
+        result["sw_stream"][key] = {
+            "launches": counts["sw_stream"], "ms": kernel_s * 1e3, "ms_is": KERNEL_TIMER,
+            "search_wall_s": wall,
+            "shape": "; ".join(f"{n} records, {r} residues, nw={nw} L={length}, "
+                               f"{cells} packed cells a row" for n, r, nw, length, cells in packs),
+        }
+        print(f"{tag} all {db.n} scores == phase 4's K1; launches {counts}; kernel "
+              f"timer {kernel_s} s (phase 4: {k1_kernel_s} s), search wall {wall} s; per "
+              f"entry (records, real residues, nw, L, packed cells a row): {packs} | {smi}",
+              flush=True)
+
+    # K3 on two entries: the 8 x 17 batch, every score phase 5's.
+    scores8, queries8 = multi8
+    tag = "[parallel K3 x2]"
+    reset_counts(swa_cuda)
+    t0 = time.perf_counter()
+    got8, kernel_s = multi_device_search(pipeline.multi_profile(sc.table, queries8), db,
+                                         go, ge, devices=[cuda0] * 2)
+    wall = time.perf_counter() - t0
+    counts = read_counts(swa_cuda)
+    if counts["sw_stream_multi"] != 2 or sum(counts.values()) != 2:
+        fail(f"{tag} launches {counts}, not one K3 per entry (one block each)")
+    if not np.array_equal(got8, scores8):
+        fail(f"{tag} scores != phase 5's K3 scores")
+    result["sw_stream_multi"]["x2"] = {
+        "launches": 2, "ms": kernel_s * 1e3, "ms_is": KERNEL_TIMER, "search_wall_s": wall,
+        "shape": f"{len(queries8)}x17 on 2 entries of cuda:0, one block each"}
+    print(f"{tag} all {len(queries8)} x {db.n} scores == phase 5's K3; launches {counts}; "
+          f"kernel timer {kernel_s} s, search wall {wall} s | {smi}", flush=True)
+
+    # A query K1 cannot hold in one pass: refused before any launch.
+    reset_counts(swa_cuda)
+    try:
+        multi_device_search(make_profile(sc.table, random_query(2000, 2000)), db, go, ge,
+                            devices=[cuda0] * 2)
+        fail("[parallel] a 2000-residue query did not raise")
+    except ValueError as e:
+        if sum(read_counts(swa_cuda).values()):
+            fail("[parallel] the 2000-residue query launched a kernel")
+        print(f"[parallel] 2000-residue query: ValueError({e}), nothing launched", flush=True)
+
+    # (b) the fixed-batch engine (K4) sharded over 4 entries, and its top-k.
+    tag = f"[parallel K4 x4]"
+    ids = order[SHARDED_START:SHARDED_START + SHARDED_LANES]
+    lb = lattice_round_up(int(db.lengths[ids].max()))
+    batch = pack_batch(db, ids, SHARDED_LANES, lb)
+    engine = pipeline.get_engine("windows")
+    mesh = make_mesh([cuda0] * 4)
+    shards = shard_db(batch, mesh)
+    run, topk = sharded_engine(engine, mesh, go, ge), sharded_topk(engine, mesh, go, ge, k=10)
+    whole_dev = torch.from_numpy(batch).to(cuda0)
+    for _ in range(2):  # the second round is timed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        whole = engine(profile, whole_dev, go, ge).cpu().numpy()
+        whole_ms = (time.perf_counter() - t0) * 1e3
+        reset_counts(swa_cuda)
+        t0 = time.perf_counter()
+        got = run(profile, shards).cpu().numpy()
+        sharded_ms = (time.perf_counter() - t0) * 1e3
+        engine_counts = read_counts(swa_cuda)
+        reset_counts(swa_cuda)
+        t0 = time.perf_counter()
+        vals, idx = (t.cpu().numpy() for t in topk(profile, shards))
+        topk_ms = (time.perf_counter() - t0) * 1e3
+        topk_counts = read_counts(swa_cuda)
+    for what, counts in (("sharded_engine", engine_counts), ("sharded_topk", topk_counts)):
+        if counts["sw_windows"] != 4 or sum(counts.values()) != 4:
+            fail(f"{tag} {what} launches {counts}, not one K4 per shard")
+    if not np.array_equal(got, whole):
+        fail(f"{tag} sharded scores != one K4 call on the whole batch")
+    best = np.argsort(-whole, kind="stable")[:10]
+    if not (np.array_equal(idx, best) and np.array_equal(vals, whole[best])):
+        fail(f"{tag} sharded top-10 != a stable descending sort of the scores")
+    shape = (f"records {SHARDED_START}..{SHARDED_START + SHARDED_LANES - 1} of the sorted "
+             f"database, Lb={lb}, 4 shards of {SHARDED_LANES // 4} lanes "
+             f"({SHARDED_LANES // 4 // swa_cuda.FIXED_WINDOW_LANES} windows each)")
+    result["sw_windows"]["x4"] = {
+        "launches": 4, "ms": sharded_ms, "ms_is": "host clock around sharded_engine's "
+        "call and the fetch of its scores", "sharded_topk_ms": topk_ms,
+        "one_call_ms": whole_ms, "shape": shape}
+    print(f"{tag} {shape}: scores == one K4 call; top-10 {best.tolist()} == stable sort; "
+          f"launches 4 + 4; sharded_engine {sharded_ms} ms, sharded_topk {topk_ms} ms, "
+          f"one call {whole_ms} ms (host clock, H2D of the profile included) | {smi}",
+          flush=True)
+
+    # (c) the two-host CLI on the one card against the one-process CLI.
+    from seqalign_tpu_torch.utils import native_io
+
+    sqc = fasta.parent / "swissprot.fa.sqc"
+    native_io.parse_file_cached(str(fasta), str(sqc))  # built once, before the hosts
+    qfa = fasta.parent / f"q{len(query)}.fa"
+    base = ["--substitution_matrix", "PAM250", "--gapopen", "-2", "--gapextend", "-1",
+            "--db-cache", str(sqc), "--files", str(qfa), str(fasta)]
+    code, single, err = cli_run(base)
+    lines = [ln for ln in single.splitlines() if not ln.startswith("Total Time:")]
+    got = np.array([int(ln.split()[1]) for ln in lines if ln.startswith("score:")])
+    if code != 0 or not np.array_equal(got, k1_scores):
+        fail(f"[parallel cli] one-process CLI rc={code}, scores != phase 4's: {err[-2000:]}")
+    walls = {}
+    for extra in ([], ["--topk", "10", "--json"]):
+        tag = f"[parallel cli --hosts 2 {' '.join(extra)}]".replace(" ]", "]")
+        (out0, out1), walls[" ".join(extra) or "plain"] = two_hosts(base + extra)
+        if "score:" in out1 or '"entries"' in out1:
+            fail(f"{tag} host 1 printed results")
+        if extra:
+            d = json.loads(out0.splitlines()[-1])
+            best = np.argsort(-k1_scores, kind="stable")[:10]
+            want = [{"entry": int(k), "score": int(k1_scores[k])} for k in best]
+            if d["entries"] != want or d["hosts"] != 2 or d["total_entries"] != db.n:
+                fail(f"{tag} host 0's JSON != the stable top 10 of phase 4's scores")
+        elif [ln for ln in out0.splitlines() if not ln.startswith("Total Time:")] != lines:
+            fail(f"{tag} host 0's stdout != the one-process CLI's")
+        elif f"Total Entries: {db.n}" not in out0:
+            fail(f"{tag} host 0 printed no 'Total Entries: {db.n}'")
+        what = ("host 0's JSON == the stable top 10 of phase 4's scores" if extra
+                else f"host 0 == the one-process CLI ({db.n} entries)")
+        print(f"{tag} {what}; host 1 printed no result; each host's wall "
+              f"{walls[' '.join(extra) or 'plain']} s | {smi}", flush=True)
+    result["cli_two_hosts_wall_s"] = walls
+    sqc.unlink()
+    return result
+
+
+def two_hosts(args):
+    """``python -m seqalign_tpu_torch.cli ARGS --hosts 2 --host-id {0,1}``
+    on the card, both at once, coordinated on a free local port (a port
+    taken before it was bound is retried once); both killed on a timeout
+    or a failure. Returns (the hosts' stdouts, each host's wall seconds)."""
+    import socket
+
+    env = dict(os.environ, SEQALIGN_PLATFORM="cuda")
+    for attempt in range(2):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "seqalign_tpu_torch.cli", *args, "--hosts", "2",
+             "--host-id", str(pid), "--coordinator", f"127.0.0.1:{port}"],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for pid in range(2)]
+        results, walls = [], []
+        try:
+            for p in procs:
+                out, err = p.communicate(timeout=HOST_TIMEOUT_S)
+                results.append((p.returncode, out, err))
+                walls.append(time.perf_counter() - t0)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        errs = "\n".join(err[-2000:] for _, _, err in results)
+        if all(rc == 0 for rc, _, _ in results):
+            return [out for _, out, _ in results], walls
+        if attempt == 0 and "address already in use" in errs.lower():
+            continue
+        fail(f"[parallel cli] a host failed: {errs}")
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1711,15 +1939,19 @@ def main(argv=None) -> int:
     del k1_pack
     from seqalign_tpu_torch.swissprot import random_query
 
+    batch8 = (multi8.pop("scores"), [random_query(17, 100 + k) for k in range(8)])
     fixed = phase_fixed_path(
-        torch, chk, smi, query, db, alu, (k1_scores, main_path["ms"]),
-        (multi8.pop("scores"), [random_query(17, 100 + k) for k in range(8)]))
+        torch, chk, smi, query, db, alu, (k1_scores, main_path["ms"]), batch8)
     phase_cli()
     fasta, ingest = phase_ingest(smi, db)
     long_query, long_scores = random_query(2000, 2000), long_path.pop("scores")
     streaming = phase_streaming(torch, smi, db, fasta, query, k1_scores,
                                 long_query, long_scores)
     align = phase_align_trace(smi, db, fasta, query, k1_scores, long_query, long_scores)
+    t0 = time.perf_counter()
+    parallel = phase_parallel(torch, smi, db, query, k1_scores,
+                              main_path["main_path_kernel_s"], batch8, fasta)
+    print(f"[parallel] phase 12 in {time.perf_counter() - t0} s", flush=True)
     print(f"[main] every phase in {time.perf_counter() - t_start} s", flush=True)
     turns = None
     if args.against:
@@ -1808,6 +2040,10 @@ def main(argv=None) -> int:
     for k in kernels:
         k["bound_ms_measured_rates"] = k["bound_ms"] * (
             kfactor[k["name"]] if k["bound_by"] == "operations" else 1.0)
+    # Phase 12's launches, shapes and times on the parallel paths.
+    for k in kernels:
+        if k["name"] in parallel:
+            k["parallel"] = parallel[k["name"]]
     if turns is not None:
         kernels[0]["in_turns"] = {c: v for c, v in turns.items() if c.startswith("K1")}
         kernels[1]["in_turns"] = {c: v for c, v in turns.items() if c.startswith("K3")}

@@ -7,9 +7,10 @@ per entry (under a ``Query #k: name`` line per query of a multi-record
 query file), and the trailing ``Total Time:`` / ``Total Entries:`` lines,
 with the same messages and exit codes; ``--align`` prints the JAX CLI's
 alignment blocks, ``--stream-chunk`` and ``--checkpoint`` its bounded-memory
-and resumable scans, and ``--trace`` writes a ``torch.profiler`` trace. The
-multi-host flags, which the port does not have yet, exit 1 with ``Error:
-<flag> is not yet ported to seqalign_tpu_torch``.
+and resumable scans, and ``--trace`` writes a ``torch.profiler`` trace.
+``--hosts`` / ``--host-id`` / ``--coordinator`` make the process one host
+of a multi-host search (``parallel.multihost``, merged over
+``torch.distributed`` with gloo); host 0 prints the merged result.
 
 ``SEQALIGN_PLATFORM`` picks the device: ``cuda`` (the default) or ``cpu``.
 """
@@ -66,8 +67,12 @@ USAGE = """usage: {prog} [OPTIONS] [seq1 seq2]
     --stream-chunk <n>   bounded-memory mode: process n db records at a time
     --trace <dir>        write a torch.profiler trace of the search
     --json               print results as one JSON object
+    --hosts <n>          multi-host run: total torch.distributed processes
+                         (with --host-id and --coordinator; DB striped per
+                         host, scores merged over gloo)
+    --host-id <i>        this process's id (0-based)
+    --coordinator <a:p>  torch.distributed coordinator address (host 0's)
 
-  Not yet ported: --hosts, --host-id, --coordinator.
   SEQALIGN_PLATFORM=cuda|cpu picks the device [default: cuda].
 
  DETAILS:
@@ -76,9 +81,6 @@ USAGE = """usage: {prog} [OPTIONS] [seq1 seq2]
   * Scoring files should be matrices, with entries separated by a single
     character or whitespace, or a builtin name (BLOSUM45, BLOSUM62, PAM250).
 """
-
-# The JAX package's multi-host flags: recognised, refused.
-NOT_PORTED = ("--hosts", "--host-id", "--coordinator")
 
 
 def _usage_exit(prog: str, scoring: ScoringModel, err: str | None) -> int:
@@ -93,11 +95,6 @@ def _usage_exit(prog: str, scoring: ScoringModel, err: str | None) -> int:
             gapextend=scoring.gap_extend,
         )
     )
-    return 1
-
-
-def _not_ported(what: str) -> int:
-    sys.stderr.write(f"Error: {what} is not yet ported to seqalign_tpu_torch\n")
     return 1
 
 
@@ -151,6 +148,9 @@ def main(argv: list[str] | None = None) -> int:
     stream_chunk = None
     trace_dir = None
     align_k = None
+    hosts = None
+    host_id = None
+    coordinator = None
 
     i = 0
     n = len(args)
@@ -158,8 +158,6 @@ def main(argv: list[str] | None = None) -> int:
         a = args[i]
         al = a.lower()
         if a.startswith("-"):
-            if al in NOT_PORTED:
-                return _not_ported(al)
             if al == "--printseq":
                 print_seq = True
             elif al == "--printmatrices":
@@ -253,6 +251,27 @@ def main(argv: list[str] | None = None) -> int:
             elif al == "--trace":
                 trace_dir = args[i + 1]
                 i += 1
+            elif al == "--hosts":
+                hosts = _parse_int(args[i + 1])
+                if hosts is None or hosts <= 0:
+                    return _usage_exit(
+                        prog, scoring,
+                        f"Invalid --hosts argument ('{args[i+1]}') "
+                        "must be a positive int",
+                    )
+                i += 1
+            elif al == "--host-id":
+                host_id = _parse_int(args[i + 1])
+                if host_id is None or host_id < 0:
+                    return _usage_exit(
+                        prog, scoring,
+                        f"Invalid --host-id argument ('{args[i+1]}') "
+                        "must be a nonnegative int",
+                    )
+                i += 1
+            elif al == "--coordinator":
+                coordinator = args[i + 1]
+                i += 1
             elif al == "--align":
                 align_k = _parse_int(args[i + 1])
                 if align_k is None:
@@ -299,6 +318,17 @@ def main(argv: list[str] | None = None) -> int:
             )
             return 0  # reference main returns EXIT_SUCCESS here
         return _usage_exit(prog, scoring, "No input specified")
+
+    if hosts is not None and hosts > 1:
+        if host_id is None or coordinator is None:
+            return _usage_exit(
+                prog, scoring,
+                "--hosts requires --host-id and --coordinator",
+            )
+        return _run_multihost(
+            file1, file2, scoring, topk, minscore, as_json,
+            hosts, host_id, coordinator, db_cache=db_cache,
+        )
 
     # A multi-record query file batches every record through the
     # multi-query kernel (the reference reads only the first record,
@@ -525,6 +555,67 @@ def _run_align(
         out.write(aln.db_aligned + "\n\n")
     out.write(f"Total Time: {kernel_time:f}\n")
     out.write(f"Total Entries: {db.n}\n")
+    return 0
+
+
+def _run_multihost(
+    file1, file2, scoring, topk, minscore, as_json, hosts, host_id,
+    coordinator,
+    db_cache=None,
+) -> int:
+    """--hosts mode: this process joins a multi-host search as one worker.
+
+    Every host reads its database stripe, scores it on its local devices,
+    and the merged global result (identical on every host) is printed by
+    host 0 only. A failure (no GPU, a query over ``MAX_QUERY_ROWS``, a lost
+    peer) prints ``Error: ...`` and exits 1.
+    """
+    from .host import read_first
+    from .parallel.multihost import multihost_search
+
+    try:
+        query = read_first(file1)
+        query_idx = scoring.query_indices(query.seq)
+        scores, kernel_time = multihost_search(
+            query_idx, file2, scoring,
+            coordinator_address=coordinator, num_processes=hosts,
+            process_id=host_id, db_cache=db_cache,
+        )
+    except (ValueError, RuntimeError) as e:
+        sys.stderr.write(f"Error: {e}\n")
+        return 1
+    if host_id != 0:
+        return 0
+    out = sys.stdout
+    order = range(len(scores))
+    if topk is not None:
+        import numpy as np
+
+        order = list(np.argsort(-scores, kind="stable")[:topk])
+    if minscore is not None:
+        order = [k for k in order if scores[k] >= minscore]
+    if as_json:
+        import json
+
+        json.dump(
+            {
+                "query": query.name,
+                "hosts": hosts,
+                "entries": [
+                    {"entry": int(k), "score": int(scores[k])} for k in order
+                ],
+                "total_time": kernel_time,
+                "total_entries": len(scores),
+            },
+            out,
+        )
+        out.write("\n")
+        return 0
+    for k in order:
+        out.write(f"Entry #{k}:\n")
+        out.write(f"score: {int(scores[k])}\n\n")
+    out.write(f"Total Time: {kernel_time:f}\n")
+    out.write(f"Total Entries: {len(scores)}\n")
     return 0
 
 

@@ -1,0 +1,25 @@
+"""Multi-device and multi-host search: the port of ``seqalign_tpu.parallel``
+without its sequence-parallel long pair (``sw_longpair``), which is not
+ported yet."""
+
+from .multidevice import deal_chunks, multi_device_search
+from .multihost import (
+    host_stripe,
+    init_distributed,
+    merge_topk_candidates,
+    multihost_search,
+)
+from .sharding import make_mesh, shard_db, sharded_engine, sharded_topk
+
+__all__ = [
+    "deal_chunks",
+    "host_stripe",
+    "init_distributed",
+    "make_mesh",
+    "merge_topk_candidates",
+    "multi_device_search",
+    "multihost_search",
+    "shard_db",
+    "sharded_engine",
+    "sharded_topk",
+]

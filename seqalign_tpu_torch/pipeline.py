@@ -386,13 +386,12 @@ def chunk_bounds(
 
 def pack_chunk(
     db: EncodedDatabase, chunk: np.ndarray, lanes: int | None,
-    max_lanes: int | None,
+    max_lanes: int | None, win: int = WINDOW_LANES,
 ) -> StreamPack:
-    """The records of ``chunk`` packed into :func:`choose_windows` streams."""
-    nw = choose_windows(db.lengths[chunk], WINDOW_LANES, lanes, max_lanes)
-    return pack_streams(
-        db, chunk, nw, win=WINDOW_LANES, jb=STREAM_JB, grain=STREAM_GRAIN
-    )
+    """The records of ``chunk`` packed into :func:`choose_windows` streams
+    of ``win`` lanes."""
+    nw = choose_windows(db.lengths[chunk], win, lanes, max_lanes)
+    return pack_streams(db, chunk, nw, win=win, jb=STREAM_JB, grain=STREAM_GRAIN)
 
 
 def stream_chunks(
@@ -493,17 +492,27 @@ def _stream_search(
         else:
             out = sw_stream(prof_dev, streams, fs, go, ge, rows=rows, **kw).cpu()
         kernel_time += time.perf_counter() - t0
-        # Slot s holds chunk records [s*win, (s+1)*win): the flattened slots
-        # are the chunk in packing order, the final group's padding lanes
-        # past its end.
-        if multi:
-            flat = out.numpy().transpose(1, 0, 2).reshape(out.shape[1], -1)
-            scores[:, chunk] = flat[:nq, : len(chunk)]
-        else:
-            scores[chunk] = out.numpy().reshape(-1)[: len(chunk)]
+        scatter_slots(scores, chunk, out)
         if ckpt is not None:
             ckpt.save(start, scores[..., chunk])
     return scores, kernel_time
+
+
+def scatter_slots(scores: np.ndarray, chunk: np.ndarray, out: torch.Tensor) -> None:
+    """Write a stream launch's fetched ``(nslots, win)`` bests, or a
+    multi-query launch's ``(nslots, nq_b, win)`` (blocks concatenated on
+    the query axis, zero-profile padding queries past ``scores``' rows),
+    into ``scores[..., chunk]``.
+
+    :func:`pack_chunk` puts chunk records ``[s*win, (s+1)*win)`` in slot
+    ``s`` (``pack.slot_ids``), so the flattened slots are the chunk in
+    packing order, the final group's padding lanes past its end.
+    """
+    if out.ndim == 3:
+        flat = out.numpy().transpose(1, 0, 2).reshape(out.shape[1], -1)
+        scores[:, chunk] = flat[: scores.shape[0], : len(chunk)]
+    else:
+        scores[chunk] = out.numpy().reshape(-1)[: len(chunk)]
 
 
 class _ScanCheckpoint:

@@ -65,6 +65,7 @@ CASES = {
     "gapopen_positive": ["--gapopen", "2"],
     "no_sort_lanes": ["--no-sort", "--lanes", "512"],
     "first_query": ["--q", "multi", "--first-query"],
+    "one_host": ["--hosts", "1", "--host-id", "0"],
 }
 
 
@@ -105,16 +106,6 @@ def test_json_matches_jax_oracle(extra, files, capsys):
         d.pop("total_time")
         d.pop("entries_per_s")
     assert got == want
-
-
-@pytest.mark.parametrize("flag", cli.NOT_PORTED)
-def test_flag_not_yet_ported(flag, files, capsys):
-    code, out, err = _run(
-        cli.main, ["--files", files["q"], files["db"], flag, "1"], capsys
-    )
-    assert code == 1
-    assert f"Error: {flag} is not yet ported to seqalign_tpu_torch" in err
-    assert "Entry #" not in out
 
 
 def test_multi_record_query_not_yet_ported(files, capsys):
@@ -267,7 +258,9 @@ def test_unknown_engine_exits_1(files, capsys):
 @pytest.mark.parametrize(
     "args",
     [[], ["--match", "x"], ["--files", "a"], ["--bogus"], ["--match", "-3"],
-     ["--stream-chunk", "0"], ["--stream-chunk", "x"], ["--align", "x"]],
+     ["--stream-chunk", "0"], ["--stream-chunk", "x"], ["--align", "x"],
+     ["--hosts", "0"], ["--host-id", "-1"],
+     ["--files", "q.fa", "db.fa", "--hosts", "2", "--host-id", "0"]],
 )
 def test_usage_errors_match_jax(args, capsys):
     code, _, err = _run(cli.main, args, capsys)
