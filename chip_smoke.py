@@ -9,7 +9,7 @@ Phases, each printing its own lines; any failure exits nonzero:
 2. build: compile csrc/*.cu (sw_stream.cu and sw_stream_solo.cu: K1 and
    K3, the one-pass team kernel of sw_stream.cuh, an instance per R built
    and solo instances; sw_striped.cu: K2; both on the team step of
-   sw_team.cuh; sw_windows.cu: K4, K5; isa_probe.cu: the issue-rate probe), one nvcc each in parallel, for sm_90a into build/;
+   sw_team.cuh, with K2's block instance; sw_windows.cu: K4, K5; isa_probe.cu: the issue-rate probe), one nvcc each in parallel, for sm_90a into build/;
    read every instance's registers and local memory (no spills) and the
    inner DP loop of its SASS (integer instructions per cell, for the
    bound): K1 and K3 (a step of R rows, one instance per R built), K2, the
@@ -32,7 +32,11 @@ Phases, each printing its own lines; any failure exits nonzero:
    partial final stripe, 32 R + 1 rows, a last pass where most threads
    have no rows, passes whose last row sits inside a thread, a full pass
    of every R built, segments of 16 positions with empty lanes, a tail
-   segment and empty windows;
+   segment and empty windows; and K2's block instance (sw_longpair's
+   kernel) block by block against its plain version: bests, the carried
+   left column and the boundary row, at j0 = 0 and j0 > 0, every R built,
+   kPartial passes, with and without a boundary in, lanes that are not a
+   multiple of a CTA's warps;
    then the fixed-batch kernel (K4) and its constant-S mode (K5) against
    their plain versions, over the six scoring systems, windows of 256 and
    1,024 lanes, 1 to 8 windows, lq = 1 to MAX_QUERY_ROWS, 3-D profiles of
@@ -109,7 +113,16 @@ Phases, each printing its own lines; any failure exits nonzero:
    CLI as two hosts (--hosts 2, one process each, gloo on a local port,
    one .sqc built up front): host 0's stdout equals the one-process CLI's
    but for Total Time, and with --topk 10 --json the stable top 10 of
-   phase 4's scores; host 1 prints no result.
+   phase 4's scores; host 1 prints no result;
+13. sequence-parallel long pair (seqalign_tpu_torch.parallel.sw_longpair)
+   on the one card: a 35,000-residue query against the 1,024 longest records
+   as one lane batch over 1, 2 and 4 entries of cuda:0 and a 2 x 2 data x
+   seq mesh at jb=128, and 4 entries at jb=512; the counters prove each run
+   launched K2's block instance (blocks x sub-passes) and nothing else;
+   every score equals the long-query search's (K2) of the same records;
+   the launches, a CUDA-event kernel timer, the device-memory peak and the
+   bound of each run, and the block kernel against its plain version on
+   one block at the run's shape.
 
 With ``--against DIR`` (another checkout, for example the parent commit
 unpacked under build/) it then times K1 and K3 in turns against that
@@ -283,11 +296,15 @@ def phase_build():
                  f"{sass.expected_cells(key)}")
         loops[key] = loop
     from seqalign_tpu_torch.ops.swa_cuda import (
-        STREAM_ROWS_PER_THREAD_BUILT, STREAM_SOLO_ROWS,
+        STREAM_ROWS_PER_THREAD_BUILT, STREAM_SOLO_ROWS, STRIPE_ROWS_PER_THREAD_BUILT,
+        block_kernel_instance,
     )
 
     team = {f"sw_stream_kernel<{r}, false>" for r in STREAM_ROWS_PER_THREAD_BUILT}
     team |= {f"sw_stream_kernel<{r}, true>" for r in STREAM_SOLO_ROWS}
+    team |= {block_kernel_instance(32 * r - 4 * partial, b_in, b_out, r)
+             for r in STRIPE_ROWS_PER_THREAD_BUILT for b_in in (False, True)
+             for b_out in (False, True) for partial in ((0, 1) if b_out else (0,))}
     if not (set(BOUND_INSTANCES) | team) <= set(loops):
         fail(f"SASS of the kernels not all found: {sorted(loops)}")
 
@@ -309,8 +326,8 @@ class Checker:
     def __init__(self, torch):
         self.torch = torch
         self.max_abs_err = {"sw_stream": 0, "sw_stream_multi": 0,
-                            "sw_stream_striped": 0, "sw_windows": 0,
-                            "sw_windows_const_s": 0}
+                            "sw_stream_striped": 0, "sw_stream_striped_block": 0,
+                            "sw_windows": 0, "sw_windows_const_s": 0}
 
     def compare(self, label, prof, streams, fs, go, ge, nslots, jb, team=None,
                 rows=None):
@@ -395,6 +412,54 @@ class Checker:
             fail(f"sw_stream_striped != plain version for {label}")
         return whole, plain_ms
 
+    def compare_block(self, label, stripe, windows, go, ge, blocks, bnd_in, bnd_out,
+                      left_first=False, rows_per_thread=None):
+        """K2's block instance against its plain version on the same card
+        tensors, block by block over ``blocks`` ([(j0, j1)]): each block's
+        bests and left column, both taking the plain version's left column
+        of the block before (the kernel in place), none before the first
+        block unless ``left_first`` (then a random column); then the whole
+        boundary row written (``bnd_out``), outside the blocks too."""
+        from seqalign_tpu_torch.ops import swa_cuda
+
+        torch = self.torch
+        nw, length, win = windows.shape
+        lshape = (2, nw, stripe.shape[0], win)
+        gen = torch.Generator(device=windows.device).manual_seed(len(label))
+        left = (torch.randint(-4, 40, lshape, dtype=torch.int32, device=windows.device,
+                              generator=gen) if left_first else None)
+        outs = [None if not bnd_out else torch.full((2, *windows.shape), -9, dtype=torch.int32,
+                                                    device=windows.device) for _ in range(2)]
+        err = 0
+        for j0, j1 in blocks:
+            k_left = torch.empty(lshape, dtype=torch.int32, device=windows.device) \
+                if left is None else left.clone()
+            k, _, _ = swa_cuda.sw_stream_striped_block(
+                stripe, windows, go, ge, j0=j0, j1=j1, bnd_in=bnd_in, bnd_out=outs[0],
+                left_in=None if left is None else k_left, left_out=k_left,
+                rows_per_thread=rows_per_thread)
+            p_left = torch.empty(lshape, dtype=torch.int32, device=windows.device)
+            r, _, _ = swa_cuda.sw_stream_striped_block_reference(
+                stripe, windows, go, ge, j0=j0, j1=j1, bnd_in=bnd_in, bnd_out=outs[1],
+                left_in=left, left_out=p_left)
+            torch.cuda.synchronize()
+            err = max(err, *(int((a.long() - b.long()).abs().max())
+                             for a, b in ((k, r), (k_left, p_left))))
+            if not (torch.equal(k, r) and torch.equal(k_left, p_left)):
+                fail(f"sw_stream_striped_block != plain version for {label}, block "
+                     f"[{j0}, {j1})")
+            left = p_left
+        if bnd_out:
+            err = max(err, int((outs[0].long() - outs[1].long()).abs().max()))
+            if not torch.equal(outs[0], outs[1]):
+                fail(f"sw_stream_striped_block's boundary row != plain version for {label}")
+        self.max_abs_err["sw_stream_striped_block"] = max(
+            self.max_abs_err["sw_stream_striped_block"], err)
+        key = swa_cuda.block_kernel_instance(stripe.shape[0], bnd_in is not None, bnd_out,
+                                             rows_per_thread)
+        print(f"[kernel] sw_stream_striped_block {label}: {key} rows={stripe.shape[0]} nw={nw} "
+              f"L={length} win={win} blocks {blocks} bests, left columns"
+              f"{', boundary row' if bnd_out else ''} equal, max_abs_err={err}", flush=True)
 
     def compare_windows(self, label, prof, dbw, go, ge, const_s=False, kernel=None):
         """K4 (K5 with ``const_s``) against its plain version on the same
@@ -649,6 +714,50 @@ def phase_kernel_striped(chk: Checker):
     if np.count_nonzero(pack.fs.any(axis=(0, 2))) != 2:
         fail("striped empty-window case does not leave windows empty")
     chk.compare_striped("empty windows", *args)
+    phase_kernel_block(chk)
+
+
+# K2's block instance (sw_longpair): name, rows, rows_per_thread (None: the
+# chooser's), nw, L, win, blocks, a boundary in, a boundary row out, a left
+# column before the first block, seed. Covers j0 = 0 and j0 > 0, chained
+# left columns, every R built, kPartial passes, no boundary in, lanes that
+# are not a multiple of a CTA's warps, and threads without rows.
+BLOCK_CASES = [
+    ("BLOSUM62", 200, None, 1, 160, 77, [(0, 48), (48, 112), (112, 160)], True, True, False, 61),
+    ("PAM250", 500, None, 2, 256, 256, [(0, 128), (128, 256)], False, True, False, 62),
+    ("BLOSUM45", 700, None, 1, 96, 1000, [(0, 32), (32, 96)], True, False, False, 63),
+    ("PAM250", 1024, None, 1, 128, 100, [(0, 64), (64, 128)], True, True, False, 64),
+    ("random", 300, None, 2, 96, 77, [(0, 16), (16, 32), (32, 64), (64, 96)], True, True,
+     False, 65),
+    ("match/mismatch", 1000, None, 2, 64, 64, [(0, 32), (32, 64)], False, True, False, 66),
+    ("go==ge", 40, 32, 1, 80, 33, [(32, 48), (48, 80)], True, True, True, 67),
+    ("BLOSUM62", 96, 8, 3, 48, 20, [(16, 48)], False, False, True, 68),
+]
+
+
+def phase_kernel_block(chk: Checker):
+    """K2's block instance against its plain version (BLOCK_CASES), on
+    random '*'-padded windows and a random boundary row above."""
+    import torch
+
+    from seqalign_tpu_torch.convert import batch_windows, profile_to_torch
+    from seqalign_tpu_torch.ops.swa_cuda import STREAM_JB
+    from seqalign_tpu_torch.ops.swa_torch import make_profile
+
+    for name, rows, rpt, nw, length, win, blocks, b_in, b_out, left, seed in BLOCK_CASES:
+        sc = scoring(name)
+        rng = np.random.default_rng(seed)
+        go, ge = sc.gap_open_total, sc.gap_extend
+        stripe = profile_to_torch(
+            make_profile(sc.table, sc.query_indices(random_protein(rng, rows))), go, "cuda")
+        lens = rng.integers(1, length + 1, nw * win)
+        db = rng.integers(0, 20, (length, nw * win)).astype(np.int8)
+        db[np.arange(length)[:, None] >= lens[None, :]] = 31
+        windows = batch_windows(db, win, STREAM_JB, "cuda")
+        bnd_in = (torch.from_numpy(rng.integers(-4, 60, (2, *windows.shape), dtype=np.int32))
+                  .to("cuda") if b_in else None)
+        chk.compare_block(f"{name} rows={rows}", stripe, windows, go, ge, blocks, bnd_in,
+                          b_out, left_first=left, rows_per_thread=rpt)
 
 
 def windows_case(name, lq, nw, win, hi, seed, lb=None):
@@ -740,13 +849,15 @@ def cuda_ms(torch, fn, reps):
 
 def reset_counts(swa_cuda):
     for fn in (swa_cuda.sw_stream, swa_cuda.sw_stream_multi,
-               swa_cuda.sw_stream_striped_pass, swa_cuda.sw_windows):
+               swa_cuda.sw_stream_striped_pass, swa_cuda.sw_stream_striped_block,
+               swa_cuda.sw_windows):
         fn.launches = 0
     swa_cuda.sw_windows.launches_const_s = 0
     for fn in (swa_cuda.sw_stream_striped, swa_cuda.sw_stream_reference,
                swa_cuda.sw_stream_multi_reference,
                swa_cuda.sw_stream_striped_reference,
                swa_cuda.sw_stream_striped_pass_reference,
+               swa_cuda.sw_stream_striped_block_reference,
                swa_cuda.sw_windows_reference):
         fn.calls = 0
 
@@ -757,12 +868,14 @@ def read_counts(swa_cuda):
         "sw_stream_multi": swa_cuda.sw_stream_multi.launches,
         "sw_stream_striped_pass": swa_cuda.sw_stream_striped_pass.launches,
         "sw_stream_striped calls": swa_cuda.sw_stream_striped.calls,
+        "sw_stream_striped_block": swa_cuda.sw_stream_striped_block.launches,
         "sw_windows": swa_cuda.sw_windows.launches,
         "sw_windows_const_s": swa_cuda.sw_windows.launches_const_s,
         "plain": swa_cuda.sw_stream_reference.calls
         + swa_cuda.sw_stream_multi_reference.calls
         + swa_cuda.sw_stream_striped_reference.calls
         + swa_cuda.sw_stream_striped_pass_reference.calls
+        + swa_cuda.sw_stream_striped_block_reference.calls
         + swa_cuda.sw_windows_reference.calls,
     }
 
@@ -1901,6 +2014,166 @@ def two_hosts(args):
         fail(f"[parallel cli] a host failed: {errs}")
 
 
+# Phase 13: one titin-class query (the JAX tool's --lq 35000) against the
+# LONGPAIR_RECORDS longest records of the database, as one lane batch;
+# meshes of the one card: entries (or data x seq) and jb.
+LONGPAIR_LQ = 35_000
+LONGPAIR_RECORDS = 1024
+LONGPAIR_RUNS = (([0], 128), ([0] * 2, 128), ([0] * 4, 128), ([[0] * 2] * 2, 128),
+                 ([0] * 4, 512))
+
+
+def longpair_layout(mesh, lq, length, jb, stripe_rows):
+    """Per data slice and entry of ``mesh`` (as sw_longpair lays it out):
+    each entry's sub-pass rows and whether it reads a boundary in and writes
+    one out; and the blocks. For the launch count and the bound."""
+    from seqalign_tpu_torch.convert import ROW_ALIGN
+    from seqalign_tpu_torch.ops.swa_cuda import STREAM_JB
+
+    def rows_of(n):
+        return -(-n // ROW_ALIGN) * ROW_ALIGN
+
+    grid = mesh if isinstance(mesh[0], list) else [mesh]
+    rows = rows_of(-(-lq // len(grid[0])))
+    entries = [min(rows, lq - s) for s in range(0, lq, rows)]
+    subs = []
+    for k, n in enumerate(entries):
+        cuts = [rows_of(min(stripe_rows, n - s)) for s in range(0, n, stripe_rows)]
+        subs += [(r, k > 0 or p > 0, k < len(entries) - 1 or p < len(cuts) - 1)
+                 for p, r in enumerate(cuts)]
+    blk = -(-jb // STREAM_JB) * STREAM_JB
+    return [subs] * len(grid), -(-length // blk)
+
+
+def phase_longpair(torch, smi: str, db, loops, factor):
+    """Phase 13: sw_longpair on the one card (LONGPAIR_RUNS) against the
+    long-query search (K2) of the same records; K2's block instance alone,
+    its launches, a CUDA-event timer, the device-memory peak; the block
+    kernel and its plain version on one block at the run's shape."""
+    from seqalign_tpu_torch import pipeline
+    from seqalign_tpu_torch.convert import batch_windows, profile_stripes
+    from seqalign_tpu_torch.host import pack_batch
+    from seqalign_tpu_torch.ops import swa_cuda
+    from seqalign_tpu_torch.ops.swa_torch import make_profile
+    from seqalign_tpu_torch.parallel import sw_longpair
+    from seqalign_tpu_torch.swissprot import random_query
+
+    tag = f"[longpair lq={LONGPAIR_LQ}]"
+    sc = scoring("PAM250")
+    go, ge = sc.gap_open_total, sc.gap_extend
+    query = random_query(LONGPAIR_LQ, LONGPAIR_LQ)
+    profile = make_profile(sc.table, query)
+    ids = np.argsort(-db.lengths, kind="stable")[:LONGPAIR_RECORDS]
+    sub = pipeline._db_from_encoded([db.seq[db.offsets[i]:db.offsets[i + 1]] for i in ids])
+    lengths = sub.lengths
+    batch = pack_batch(sub, np.arange(sub.n), sub.n, int(lengths.max()))
+    residues = int(lengths.sum())
+    print(f"{tag} {sub.n} records of {int(lengths.min())}-{int(lengths.max())} residues, "
+          f"{residues} residues, one ({batch.shape[0]}, {batch.shape[1]}) lane batch", flush=True)
+
+    # The reference: the long-query search (K2 passes) of the same records.
+    reset_counts(swa_cuda)
+    t0 = time.perf_counter()
+    want, k2_s = pipeline.search_database(query, sub, sc, device="cuda")
+    k2_wall = time.perf_counter() - t0
+    k2_counts = read_counts(swa_cuda)
+    if not k2_counts["sw_stream_striped_pass"] or k2_counts["sw_stream_striped_block"]:
+        fail(f"{tag} the K2 search launched {k2_counts}")
+    print(f"{tag} K2 search: {k2_counts['sw_stream_striped_pass']} passes, kernel timer "
+          f"{k2_s} s, wall {k2_wall} s | {smi}", flush=True)
+
+    cuda0 = torch.device("cuda", 0)
+    runs = []
+    for mesh_ids, jb in LONGPAIR_RUNS:
+        mesh = [[cuda0] * len(r) for r in mesh_ids] if isinstance(mesh_ids[0], list) \
+            else [cuda0] * len(mesh_ids)
+        two_d = isinstance(mesh[0], list)
+        name = (f"{len(mesh)}x{len(mesh[0])} data x seq" if two_d else f"x{len(mesh)}") \
+            + f" jb={jb}"
+        subs, n_blocks = longpair_layout(mesh, LONGPAIR_LQ, windows_length(batch), jb,
+                                         swa_cuda.STRIPE_ROWS)
+        expect = n_blocks * sum(len(s) for s in subs)
+        timers = []
+        for _ in range(2):  # the second run is the one kept
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts(swa_cuda)
+            events = []
+            t0 = time.perf_counter()
+            got = sw_longpair(profile, batch, go, ge, mesh, jb=jb, events=events,
+                              **({"axis": "seq", "data_axis": "data"} if two_d else {}))
+            got = got.cpu().numpy()
+            wall = time.perf_counter() - t0
+            counts = read_counts(swa_cuda)
+            start, end = events[0]
+            timers.append(start.elapsed_time(end))
+            peak = torch.cuda.max_memory_allocated() - base
+        if counts["sw_stream_striped_block"] != expect or sum(counts.values()) != expect:
+            fail(f"{tag} {name}: launches {counts}, not {expect} of K2's block instance alone")
+        if got.shape != (sub.n,) or got.dtype != np.int32 or not np.array_equal(got, want):
+            fail(f"{tag} {name}: {int(np.count_nonzero(got != want))} scores != the K2 search's")
+        length = windows_length(batch)
+        win = batch.shape[1] // len(subs)  # lanes of a data slice
+        cells = sum(r for sl in subs for r, _, _ in sl) * win * length
+        keys = [swa_cuda.block_kernel_instance(r, i, o) for sl in subs for r, i, o in sl]
+        if not set(keys) <= set(loops):
+            fail(f"{tag} no SASS loop for the block instances {sorted(set(keys))}")
+        rows = [r for sl in subs for r, _, _ in sl]
+        ops = [n * loops[key]["pipe_per_cell"] for n, key in zip(rows, keys)]
+        # The batch and profile read once, the scores written once.
+        io_bytes = batch.size + profile.size * 4 + batch.shape[1] * 4
+        bound_ms, bound_by = bound(io_bytes, cells, sum(ops) / sum(rows))
+        row = {"mesh": name, "launches": counts["sw_stream_striped_block"],
+               "ms": timers[-1], "ms_first_run": timers[0], "search_wall_s": wall,
+               "memory_peak_bytes": peak, "bound_ms": bound_ms, "bound_by": bound_by,
+               "factor": sum(o * factor[key] for o, key in zip(ops, keys)) / sum(ops),
+               "cells": cells, "blocks": n_blocks,
+               "sub_passes": [len(sl) for sl in subs]}
+        runs.append(row)
+        print(f"{tag} {name}: all {sub.n} scores == the K2 search's; {row['launches']} "
+              f"launches of the block instance ({n_blocks} blocks x "
+              f"{sum(len(sl) for sl in subs)} sub-passes), nothing else; kernel timer "
+              f"(CUDA events, first launch to merged result) {timers} ms, call + fetch wall "
+              f"{wall} s; K2 search's kernel timer {k2_s * 1e3} ms; device-memory peak "
+              f"{peak} B; bound {bound_ms} ms by {bound_by} over {cells} cells | {smi}",
+              flush=True)
+
+    # One block at the run's shape: the kernel and its plain version.
+    windows = batch_windows(batch, batch.shape[1], swa_cuda.STREAM_JB, cuda0)
+    stripe = profile_stripes(profile[:swa_cuda.STRIPE_ROWS], go, swa_cuda.STRIPE_ROWS, cuda0)[0]
+    bnd = torch.zeros((2, *windows.shape), dtype=torch.int32, device=cuda0)
+    left = torch.empty((2, 1, stripe.shape[0], windows.shape[2]), dtype=torch.int32,
+                       device=cuda0)
+    blk = dict(j0=0, j1=min(128, windows.shape[1]), bnd_out=bnd, left_out=left)
+    block_ms = cuda_ms(torch, lambda: swa_cuda.sw_stream_striped_block(
+        stripe, windows, go, ge, **blk), 3)
+    k_out = swa_cuda.sw_stream_striped_block(stripe, windows, go, ge, **blk)[0].clone()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    p_out = swa_cuda.sw_stream_striped_block_reference(stripe, windows, go, ge, **blk)[0]
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    if not torch.equal(k_out, p_out):
+        fail(f"{tag} one block: kernel != plain version")
+    print(f"{tag} one block ({stripe.shape[0]} rows x {blk['j1']} positions x "
+          f"{windows.shape[2]} lanes): kernel "
+          f"{block_ms} ms, plain version {plain_ms} ms, equal | {smi}", flush=True)
+    return {"runs": runs, "k2_search_kernel_s": k2_s, "k2_search_wall_s": k2_wall,
+            "k2_passes": k2_counts["sw_stream_striped_pass"], "block_ms": block_ms,
+            "plain_ms": plain_ms, "records": sub.n, "residues": residues,
+            "batch": list(batch.shape)}
+
+
+def windows_length(batch) -> int:
+    """The batch's length padded with '*' to STREAM_JB (convert.batch_windows)."""
+    from seqalign_tpu_torch.ops.swa_cuda import STREAM_JB
+
+    return -(-batch.shape[0] // STREAM_JB) * STREAM_JB
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1952,6 +2225,9 @@ def main(argv=None) -> int:
     parallel = phase_parallel(torch, smi, db, query, k1_scores,
                               main_path["main_path_kernel_s"], batch8, fasta)
     print(f"[parallel] phase 12 in {time.perf_counter() - t0} s", flush=True)
+    t0 = time.perf_counter()
+    longpair = phase_longpair(torch, smi, db, loops, factor)
+    print(f"[longpair] phase 13 in {time.perf_counter() - t0} s", flush=True)
     print(f"[main] every phase in {time.perf_counter() - t_start} s", flush=True)
     turns = None
     if args.against:
@@ -2019,6 +2295,28 @@ def main(argv=None) -> int:
         "main_path_kernel_s": long_path["main_path_kernel_s"],
         "main_path_gcups": long_path["main_path_gcups"],
         "card": smi,
+    }, {
+        "name": "sw_stream_striped_block",
+        "route": "cuda",
+        "source": "seqalign_tpu_torch/csrc/sw_striped.cu",
+        "replaces": "seqalign_tpu/parallel/longpair.py:139",
+        "launches": longpair["runs"][0]["launches"],
+        "max_abs_err": chk.max_abs_err["sw_stream_striped_block"],
+        "ms": longpair["runs"][0]["ms"],
+        "plain_ms": longpair["plain_ms"],
+        "plain_ms_is": "the plain version on one block (1024 rows x 128 positions x all "
+                       "lanes), beside block_ms; the whole run's plain version is not run",
+        "block_ms": longpair["block_ms"],
+        "bound_ms": longpair["runs"][0]["bound_ms"],
+        "bound_by": longpair["runs"][0]["bound_by"],
+        "library_ms": None,
+        "ms_is": "sw_longpair's kernel timer over [cuda:0] x 1, jb=128 (CUDA events, "
+                 "first launch to merged result)",
+        "longpair": longpair,
+        "shape": f"sw_longpair, lq={LONGPAIR_LQ}, the {longpair['records']} longest "
+                 f"records ({longpair['residues']} residues) as one {longpair['batch']} "
+                 "lane batch",
+        "card": smi,
     }] + [{
         "name": name,
         "route": "cuda",
@@ -2037,6 +2335,7 @@ def main(argv=None) -> int:
     kfactor["sw_stream"] = factor[main_path["instance"]]
     kfactor["sw_stream_multi"] = factor[multi8["instance"]]
     kfactor["sw_stream_striped"] = long_path["factor"]
+    kfactor["sw_stream_striped_block"] = longpair["runs"][0]["factor"]
     for k in kernels:
         k["bound_ms_measured_rates"] = k["bound_ms"] * (
             kfactor[k["name"]] if k["bound_by"] == "operations" else 1.0)

@@ -10,6 +10,12 @@
 // the previous stripe's boundary, the stripe's last row written as the next
 // one's, and the same per-segment outputs, bit for bit.
 //
+// Its block instance (sw_striped_block_kernel, below) runs the same team
+// step over one block of positions [j0, j1) with the pass's left column
+// carried in and out: the work of one device at one step of the JAX
+// package's sequence-parallel long pair (seqalign_tpu/parallel/longpair.py,
+// whose lax.scan over a block's columns and rows it replaces).
+//
 // Layout of the work. A team of 32 threads (one warp) scores one lane of
 // one window, thread k holding the R rows k R .. k R + R - 1 of the pass in
 // registers (the team step of sw_team.cuh). Thread 0 reads row -1 from
@@ -193,6 +199,173 @@ int launch_rows(const void* prof, const void* streams, const void* fs,
                        nw, go, ge, s);
 }
 
+// K2's block instance (sw_longpair): positions [j0, j1) of every window
+// of one pass, each lane one sequence from position 0 (no segment table).
+// Each row's (Gg, E) at j0 - 1 comes from left_in (NULL: the boundary Gg =
+// go, E = 0) and goes out at j1 - 1 to left_out, (2, nw, lqp, win) row by
+// row; left_out may be left_in, since each thread reads its rows before
+// any step and writes the same rows after the last. Row -1 comes from
+// bnd_in inside [j0, j1) and its corner Gg(-1, j0 - 1) from bnd_in at j0 -
+// 1 (go at j0 = 0 or without bnd_in); the last row goes to bnd_out inside
+// [j0, j1). Each lane's best over the block goes to out (nw, win).
+//
+// Thread k runs step s at position j0 + 2 (s - k), and only while that lies
+// in the block: the steps before (the warp's fill) and after (its drain)
+// skip the team step, so the carried column is loaded before thread k's
+// first position and stored after its last. Thread k's diagonal at j0 is
+// row k R - 1 of left_in, the last row of thread k - 1; thread 0's is the
+// corner. No step carries a fresh bit or a slot.
+template <int R, bool kIn, bool kOut, bool kPartial>
+__global__ void __launch_bounds__(team_warps<R>() * kTeam)
+    sw_striped_block_kernel(
+        const int32_t* __restrict__ prof,    // (lqp, 32), lqp <= 32 R
+        const int8_t* __restrict__ streams,  // (nw, L, win) chars 0..31
+        int32_t* __restrict__ out,           // (nw, win) bests over the block
+        const int32_t* __restrict__ bnd_in,  // (2, nw, L, win)
+        int32_t* __restrict__ bnd_out,       // (2, nw, L, win)
+        const int32_t* left_in,              // (2, nw, lqp, win) or NULL
+        int32_t* left_out,                   // (2, nw, lqp, win) or NULL
+        int lqp, int len, int j0, int j1, int win, int nw, int go, int ge,
+        int one) {
+  static_assert(R % kRowAlign == 0, "a thread holds whole row groups");
+  constexpr int kWarps = team_warps<R>();
+  extern __shared__ int32_t sprof[];  // [c][r][k] = P'[k R + r][c]
+  for (int idx = threadIdx.x; idx < kAlpha * R * kTeam; idx += blockDim.x) {
+    const int k = idx % kTeam;
+    const int r = (idx / kTeam) % R;
+    const int c = idx / (kTeam * R);
+    const int row = k * R + r;
+    sprof[idx] = row < lqp ? prof[row * kAlpha + c] : 0;
+  }
+  __syncthreads();
+
+  const int k = threadIdx.x % kTeam;
+  const int lane = blockIdx.x * kWarps + threadIdx.x / kTeam;
+  if (lane >= win) return;  // the whole warp
+  const int w = blockIdx.y;
+  const size_t col = (size_t)w * len * win + lane;
+  const size_t plane = (size_t)nw * len * win;
+  // (w, row 0, lane) of the left column and its plane.
+  const size_t lcol = (size_t)w * lqp * win + lane;
+  const size_t lplane = (size_t)nw * lqp * win;
+  const int last = min(kTeam - 1, (lqp - 1) / R);
+  const int n = j1 - j0;  // positions of the block
+  const Pass ps{sprof + k, out, bnd_out + col + (size_t)j0 * win, plane, k,
+                last, lqp - 1 - last * R, n, win, lane, go, ge, one};
+
+  Team<R> st;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int row = k * R + r;
+    const bool carried = left_in != nullptr && row < lqp;
+    st.gg[r] = carried ? left_in[lcol + (size_t)row * win] : go;
+    st.e[r] = carried ? left_in[lplane + lcol + (size_t)row * win] : 0;
+  }
+  st.o_gg0 = st.o_gg1 = go;
+  st.o_f0 = st.o_f1 = st.o_word = st.o_cm = 0;
+  st.diag = go;
+  if (k == 0) {
+    if (kIn && j0 > 0) st.diag = bnd_in[col + (size_t)(j0 - 1) * win];
+  } else if (left_in != nullptr && k * R - 1 < lqp) {
+    st.diag = left_in[lcol + (size_t)(k * R - 1) * win];
+  }
+  st.best = 0;
+  const int nsteps = n / 2 + last;
+  for (int s0 = 0; s0 < nsteps; s0 += kTeam) {
+    // Thread 0's steps s0 .. s0 + 31, one per lane.
+    Block b{0, go, 0, go, 0};
+    {
+      const int jr = 2 * (s0 + k);
+      if (jr < n) {
+        const int8_t* c = streams + col + (size_t)(j0 + jr) * win;
+        b.word = ((int)(uint8_t)c[0] & (kAlpha - 1)) |
+                 (((int)(uint8_t)c[win] & (kAlpha - 1)) << kChar1Shift);
+        if constexpr (kIn) {
+          const int32_t* bi = bnd_in + col + (size_t)(j0 + jr) * win;
+          b.gg0 = bi[0];
+          b.f0 = bi[plane];
+          b.gg1 = bi[win];
+          b.f1 = bi[plane + win];
+        }
+      }
+    }
+    const int tn = min(kTeam, nsteps - s0);
+#pragma unroll 1
+    for (int t = 0; t < tn; ++t) {
+      const Input in = receive<kIn, R, kTeam>(st, ps, t, b, kTeam);
+      const int j = 2 * (s0 + t - k);
+      if ((unsigned)j < (unsigned)n) {
+        team_step<R, kOut, kPartial, false>(st, in, ps, j);
+      }
+    }
+  }
+  if (left_out != nullptr) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int row = k * R + r;
+      if (row < lqp) {
+        left_out[lcol + (size_t)row * win] = st.gg[r];
+        left_out[lplane + lcol + (size_t)row * win] = st.e[r];
+      }
+    }
+  }
+  if (k == last) out[(size_t)w * win + lane] = st.best;
+}
+
+template <int R, bool kIn, bool kOut, bool kPartial>
+int launch_block(const void* prof, const void* streams, void* out,
+                 const void* bnd_in, void* bnd_out, const void* left_in,
+                 void* left_out, int lqp, int len, int j0, int j1, int win,
+                 int nw, int go, int ge, cudaStream_t stream) {
+  constexpr int kWarps = team_warps<R>();
+  const size_t smem = (size_t)kAlpha * R * kTeam * sizeof(int32_t);
+  cudaError_t err = cudaFuncSetAttribute(
+      sw_striped_block_kernel<R, kIn, kOut, kPartial>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((win + kWarps - 1) / kWarps, nw);
+  sw_striped_block_kernel<R, kIn, kOut, kPartial>
+      <<<grid, kWarps * kTeam, smem, stream>>>(
+          (const int32_t*)prof, (const int8_t*)streams, (int32_t*)out,
+          (const int32_t*)bnd_in, (int32_t*)bnd_out, (const int32_t*)left_in,
+          (int32_t*)left_out, lqp, len, j0, j1, win, nw, go, ge, 1);
+  return (int)cudaGetLastError();
+}
+
+template <int R, bool kIn>
+int launch_block_out(const void* prof, const void* streams, void* out,
+                     const void* bnd_in, void* bnd_out, const void* left_in,
+                     void* left_out, int lqp, int len, int j0, int j1,
+                     int win, int nw, int go, int ge, cudaStream_t s) {
+  if (!bnd_out) {
+    return launch_block<R, kIn, false, false>(prof, streams, out, bnd_in,
+                                              bnd_out, left_in, left_out, lqp,
+                                              len, j0, j1, win, nw, go, ge, s);
+  }
+  return lqp % R != 0
+             ? launch_block<R, kIn, true, true>(prof, streams, out, bnd_in,
+                                                bnd_out, left_in, left_out,
+                                                lqp, len, j0, j1, win, nw, go,
+                                                ge, s)
+             : launch_block<R, kIn, true, false>(prof, streams, out, bnd_in,
+                                                 bnd_out, left_in, left_out,
+                                                 lqp, len, j0, j1, win, nw,
+                                                 go, ge, s);
+}
+
+template <int R>
+int launch_block_rows(const void* prof, const void* streams, void* out,
+                      const void* bnd_in, void* bnd_out, const void* left_in,
+                      void* left_out, int lqp, int len, int j0, int j1,
+                      int win, int nw, int go, int ge, cudaStream_t s) {
+  return bnd_in ? launch_block_out<R, true>(prof, streams, out, bnd_in,
+                                            bnd_out, left_in, left_out, lqp,
+                                            len, j0, j1, win, nw, go, ge, s)
+                : launch_block_out<R, false>(prof, streams, out, bnd_in,
+                                             bnd_out, left_in, left_out, lqp,
+                                             len, j0, j1, win, nw, go, ge, s);
+}
+
 }  // namespace
 
 extern "C" {
@@ -228,6 +401,45 @@ int sw_stream_striped_launch(const void* prof, const void* streams,
     case 32:
       return launch_rows<32>(prof, streams, fs, out, bnd_in, bnd_out, lqp,
                              len, win, nw, go, ge, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Launch one block of one K2 pass on `stream` (sw_striped_block_kernel);
+// returns the CUDA error code (0 = launched). prof (lqp, 32) biased, lqp a
+// positive multiple of 4 and at most 32 x rows_per_thread; streams (nw,
+// len, win); out (nw, win); bnd_in / bnd_out (2, nw, len, win) or NULL;
+// left_in / left_out (2, nw, lqp, win) or NULL. 0 <= j0 < j1 <= len, both
+// multiples of the JB the kernel is built for.
+int sw_striped_block_launch(const void* prof, const void* streams, void* out,
+                            const void* bnd_in, void* bnd_out,
+                            const void* left_in, void* left_out, int lqp,
+                            int len, int j0, int j1, int win, int nw, int go,
+                            int ge, int rows_per_thread, void* stream) {
+  if (lqp <= 0 || lqp % kRowAlign || lqp > kTeam * rows_per_thread ||
+      win <= 0 || nw <= 0 || nw > 65535 || len <= 0 || len % JB || j0 < 0 ||
+      j0 % JB || j1 % JB || j1 <= j0 || j1 > len) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (rows_per_thread) {
+    case 8:
+      return launch_block_rows<8>(prof, streams, out, bnd_in, bnd_out,
+                                  left_in, left_out, lqp, len, j0, j1, win,
+                                  nw, go, ge, s);
+    case 16:
+      return launch_block_rows<16>(prof, streams, out, bnd_in, bnd_out,
+                                   left_in, left_out, lqp, len, j0, j1, win,
+                                   nw, go, ge, s);
+    case 24:
+      return launch_block_rows<24>(prof, streams, out, bnd_in, bnd_out,
+                                   left_in, left_out, lqp, len, j0, j1, win,
+                                   nw, go, ge, s);
+    case 32:
+      return launch_block_rows<32>(prof, streams, out, bnd_in, bnd_out,
+                                   left_in, left_out, lqp, len, j0, j1, win,
+                                   nw, go, ge, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -111,6 +111,10 @@ def load() -> ctypes.CDLL:
         lib.sw_stream_striped_launch.argtypes = (
             [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         )
+        lib.sw_striped_block_launch.restype = ctypes.c_int
+        lib.sw_striped_block_launch.argtypes = (
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        )
         lib.sw_windows_launch.restype = ctypes.c_int
         lib.sw_windows_launch.argtypes = (
             [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p]

@@ -374,10 +374,14 @@ def stripe_kernel_instance(rows: int, bnd_in: bool, bnd_out: bool,
     kernel_key`` keys it: ``sw_stream_striped_kernel<R, kIn, kOut,
     kPartial>``, kPartial where the pass writes a last row that sits inside
     a thread."""
+    return _striped_instance("sw_stream_striped_kernel", rows, bnd_in, bnd_out,
+                             rows_per_thread)
+
+
+def _striped_instance(kernel, rows, bnd_in, bnd_out, rows_per_thread) -> str:
     r = rows_per_thread or stripe_rows_per_thread(rows)
     flags = (bnd_in, bnd_out, bnd_out and rows % r != 0)
-    return (f"sw_stream_striped_kernel<{r}, "
-            + ", ".join("true" if f else "false" for f in flags) + ">")
+    return f"{kernel}<{r}, " + ", ".join("true" if f else "false" for f in flags) + ">"
 
 
 def sw_stream_striped_pass(
@@ -647,6 +651,217 @@ def sw_stream_striped_reference(
 
 
 sw_stream_striped_reference.calls = 0
+
+
+def block_kernel_instance(rows: int, bnd_in: bool, bnd_out: bool,
+                          rows_per_thread: int | None = None) -> str:
+    """The template instance of ``csrc/sw_striped.cu`` that a block of a
+    pass of ``rows`` rows launches (``launch_block_rows``' choice), keyed as
+    ``sass.kernel_key`` keys it: ``sw_striped_block_kernel<R, kIn, kOut,
+    kPartial>``."""
+    return _striped_instance("sw_striped_block_kernel", rows, bnd_in, bnd_out,
+                             rows_per_thread)
+
+
+def _check_block(stripe, windows, go, ge, j0, j1, bnd_in, bnd_out, left_in, left_out):
+    if stripe.ndim != 2 or stripe.shape[1] != ALPHA:
+        raise ValueError(f"stripe shape {tuple(stripe.shape)} != (rows, 32)")
+    if stripe.shape[0] == 0:
+        raise ValueError("a block needs at least one row")
+    if windows.ndim != 3:
+        raise ValueError(f"windows must be (NW, L, win), got {tuple(windows.shape)}")
+    nw, length, win = windows.shape
+    if length == 0 or length % STREAM_JB:
+        raise ValueError(f"window length {length} not a positive multiple of {STREAM_JB}")
+    if not 0 <= j0 < j1 <= length or j0 % STREAM_JB or j1 % STREAM_JB:
+        raise ValueError(
+            f"block [{j0}, {j1}) is not a nonempty range of multiples of "
+            f"{STREAM_JB} inside [0, {length}]"
+        )
+    _check_rows_and_tensors(stripe, ("windows", windows), go=go, ge=ge)
+    _check_bnd("bnd_in", bnd_in, windows)
+    _check_bnd("bnd_out", bnd_out, windows)
+    want = (2, nw, stripe.shape[0], win)
+    for name, t in (("left_in", left_in), ("left_out", left_out)):
+        if t is None:
+            continue
+        if tuple(t.shape) != want:
+            raise ValueError(f"{name} shape {tuple(t.shape)} != {want}")
+        if t.dtype != torch.int32 or t.device != windows.device:
+            raise ValueError(f"{name} must be int32 on {windows.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+
+
+def sw_stream_striped_block(
+    stripe: torch.Tensor,
+    windows: torch.Tensor,
+    go: int,
+    ge: int,
+    *,
+    j0: int,
+    j1: int,
+    bnd_in: torch.Tensor | None = None,
+    bnd_out: torch.Tensor | None = None,
+    left_in: torch.Tensor | None = None,
+    left_out: torch.Tensor | None = None,
+    rows_per_thread: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor | None, torch.Tensor | None]:
+    """One block of positions ``[j0, j1)`` of one row stripe against fixed
+    windows, in one launch (K2's block instance, ``sw_striped_block_kernel``).
+
+    Each lane of a window is one database sequence from position 0, as
+    ``convert.batch_windows`` lays them out; there is no segment table. The
+    block continues the DP of the blocks before it through the stripe's
+    left column and reads the stripe above it through ``bnd_in``; chained
+    over the blocks of a stripe, it computes what one pass of
+    :func:`sw_stream_striped_pass` over one segment per lane computes.
+
+    Args:
+      stripe: ``(rows, 32)`` int32 biased stripe (``convert.
+        profile_stripes``); the kernel takes at most ``STRIPE_TEAM`` x the
+        largest of ``STRIPE_ROWS_PER_THREAD_BUILT`` rows (1024).
+      windows: ``(NW, L, win)`` int8 windows, chars in 0..31, ``L`` a
+        multiple of ``STREAM_JB``.
+      go, ge: total gap-open and gap-extend penalties, ``ge >= go``.
+      j0, j1: the block, multiples of ``STREAM_JB``, ``0 <= j0 < j1 <= L``.
+      bnd_in: ``(2, NW, L, win)`` int32 ``(Gg, F)`` of the stripe above's
+        last row; read inside ``[j0, j1)`` and, as the corner of row 0's
+        diagonal, at ``j0 - 1``. None: row -1 is the boundary (Gg = go,
+        F = 0).
+      bnd_out: ``(2, NW, L, win)`` int32, written with the last row's ``(Gg,
+        F)`` inside ``[j0, j1)`` only; None writes nothing.
+      left_in: ``(2, NW, rows, win)`` int32 ``(Gg, E)`` of every row at
+        position ``j0 - 1`` (the previous block's ``left_out``); None: the
+        boundary Gg = go, E = 0, as at position 0.
+      left_out: ``(2, NW, rows, win)`` int32, written with every row's
+        ``(Gg, E)`` at ``j1 - 1``; it may be ``left_in`` itself. None
+        writes nothing.
+      rows_per_thread: R of the instance, as :func:`sw_stream_striped_pass`
+        takes it.
+
+    Returns:
+      ``((NW, win)`` int32 best G of each lane over the block's cells,
+      ``bnd_out``, ``left_out)``. ``sw_stream_striped_block.launches``
+      counts the kernel's launches.
+    """
+    _check_block(stripe, windows, go, ge, j0, j1, bnd_in, bnd_out, left_in, left_out)
+    rows = stripe.shape[0]
+    if rows_per_thread is not None and (
+            rows_per_thread not in STRIPE_ROWS_PER_THREAD_BUILT
+            or STRIPE_TEAM * rows_per_thread < rows):
+        raise ValueError(
+            f"rows_per_thread={rows_per_thread}: K2 is built for "
+            f"{STRIPE_ROWS_PER_THREAD_BUILT}, and a team must hold {rows} rows"
+        )
+    if windows.device.type == "cpu":
+        return sw_stream_striped_block_reference(
+            stripe, windows, go, ge, j0=j0, j1=j1, bnd_in=bnd_in,
+            bnd_out=bnd_out, left_in=left_in, left_out=left_out,
+        )
+    if windows.device.type != "cuda":
+        raise ValueError(f"no block kernel for device {windows.device}")
+    nw, length, win = windows.shape
+    out = torch.empty((nw, win), dtype=torch.int32, device=windows.device)
+    _call(
+        "sw_striped_block", windows.device, stripe.data_ptr(), windows.data_ptr(),
+        out.data_ptr(),
+        *(None if t is None else t.data_ptr()
+          for t in (bnd_in, bnd_out, left_in, left_out)),
+        rows, length, j0, j1, win, nw, int(go), int(ge),
+        rows_per_thread or stripe_rows_per_thread(rows),
+    )
+    sw_stream_striped_block.launches += 1
+    return out, bnd_out, left_out
+
+
+sw_stream_striped_block.launches = 0
+
+
+def sw_stream_striped_block_reference(
+    stripe: torch.Tensor,
+    windows: torch.Tensor,
+    go: int,
+    ge: int,
+    *,
+    j0: int,
+    j1: int,
+    bnd_in: torch.Tensor | None = None,
+    bnd_out: torch.Tensor | None = None,
+    left_in: torch.Tensor | None = None,
+    left_out: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor | None, torch.Tensor | None]:
+    """Plain PyTorch version of :func:`sw_stream_striped_block`, same
+    contract.
+
+    An anti-diagonal wavefront over the block: step ``d`` computes the cells
+    ``(i, j0 + d - i)`` of every window and lane. A row keeps its state
+    until its first position in the block, so there it reads the left
+    column, and after its last, so that it ends holding ``j1 - 1``'s.
+    State is laid out ``(row, window, lane)``.
+    """
+    _check_block(stripe, windows, go, ge, j0, j1, bnd_in, bnd_out, left_in, left_out)
+    sw_stream_striped_block_reference.calls += 1
+    dev = windows.device
+    rows = stripe.shape[0]
+    nw, length, win = windows.shape
+    n = j1 - j0
+    shape = (rows, nw, win)
+    if left_in is None:
+        gg1 = torch.full(shape, go, dtype=torch.int32, device=dev)
+        e1 = torch.zeros(shape, dtype=torch.int32, device=dev)
+    else:  # (Gg, E) at j0 - 1, as (row, window, lane)
+        gg1 = left_in[0].transpose(0, 1).clone()
+        e1 = left_in[1].transpose(0, 1).clone()
+    f1 = torch.zeros(shape, dtype=torch.int32, device=dev)
+    gg2 = gg1  # the state one diagonal earlier
+    best = torch.zeros((nw, win), dtype=torch.int32, device=dev)
+    go_row = torch.full((1, nw, win), go, dtype=torch.int32, device=dev)
+    zero_row = torch.zeros((1, nw, win), dtype=torch.int32, device=dev)
+    iota = torch.arange(rows, device=dev)
+    w_idx = torch.arange(nw, device=dev)[None, :]
+    row_base = (iota * ALPHA)[:, None, None]
+    prof_flat = stripe.reshape(-1)
+
+    def top(k, j):  # bnd_in[k] at position j as a (1, nw, win) row
+        return bnd_in[k][:, j][None]
+
+    for d in range(n + rows - 1):
+        j = d - iota  # each row's position in the block
+        valid = (j >= 0) & (j < n)
+        jc = (j0 + j.clamp(0, n - 1))[:, None]  # (rows, 1)
+        chars = windows[w_idx, jc].long() & (ALPHA - 1)  # (rows, nw, win)
+        s = prof_flat[row_base + chars]
+        # Row 0 at position j0 + d: row -1 is the boundary, or the stripe
+        # above; its diagonal at j0 is the corner.
+        if bnd_in is None or d >= n:
+            top_gg, top_f, top_diag = go_row, zero_row, go_row
+        else:
+            top_gg, top_f = top(0, j0 + d), top(1, j0 + d)
+            top_diag = top(0, j0 + d - 1) if j0 + d > 0 else go_row
+        gg_diag = torch.cat([top_diag, gg2[:-1]], dim=0)
+        hp = gg_diag + s
+        e = torch.maximum(gg1, e1 + ge)
+        f = torch.maximum(torch.cat([top_gg, gg1[:-1]], dim=0),
+                          torch.cat([top_f, f1[:-1]], dim=0) + ge)
+        g = torch.maximum(torch.maximum(hp, e), torch.clamp_min(f, 0))
+        jl = d - rows + 1  # the last row's position
+        if bnd_out is not None and 0 <= jl < n:
+            bnd_out[0][:, j0 + jl] = g[-1] + go
+            bnd_out[1][:, j0 + jl] = f[-1]
+        v = valid[:, None, None]
+        best = torch.maximum(best, torch.where(v, g, 0).amax(dim=0))
+        gg2 = gg1
+        gg1 = torch.where(v, g + go, gg1)
+        e1 = torch.where(v, e, e1)
+        f1 = torch.where(v, f, f1)
+    if left_out is not None:
+        left_out[0].copy_(gg1.transpose(0, 1))
+        left_out[1].copy_(e1.transpose(0, 1))
+    return best, bnd_out, left_out
+
+
+sw_stream_striped_block_reference.calls = 0
 
 
 def _check_windows(profile_biased, db_windows, go, ge):

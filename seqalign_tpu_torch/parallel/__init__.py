@@ -1,7 +1,7 @@
-"""Multi-device and multi-host search: the port of ``seqalign_tpu.parallel``
-without its sequence-parallel long pair (``sw_longpair``), which is not
-ported yet."""
+"""Multi-device and multi-host search, and the sequence-parallel long
+pair: the port of ``seqalign_tpu.parallel``."""
 
+from .longpair import sw_longpair
 from .multidevice import deal_chunks, multi_device_search
 from .multihost import (
     host_stripe,
@@ -22,4 +22,5 @@ __all__ = [
     "shard_db",
     "sharded_engine",
     "sharded_topk",
+    "sw_longpair",
 ]

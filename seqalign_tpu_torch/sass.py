@@ -7,7 +7,8 @@ function: the registers and spills ptxas reports (``-Xptxas -v``), its
 number of SASS instructions (``cuobjdump -sass``), and its innermost DP
 loop (K4's row loop; the team kernels' step loop, R rows at two
 positions: K1 and K3's ``sw_stream_kernel<R>``, K2's
-``sw_stream_striped_kernel``): the instructions of the loop body, the DP
+``sw_stream_striped_kernel`` and its block instance
+``sw_striped_block_kernel``): the instructions of the loop body, the DP
 cells one iteration computes (one ``LDS``, the profile gather
 ``P'[i][c]``, each; a loop without a gather, K5's, computes
 ``CELLS_PER_ITERATION``) and the integer
@@ -41,7 +42,8 @@ from .convert import ROW_ALIGN
 from .ops import _build
 from .ops.swa_cuda import STREAM_JB
 
-KERNELS = ("sw_stream_kernel", "sw_stream_striped_kernel", "sw_windows_kernel")
+KERNELS = ("sw_stream_kernel", "sw_stream_striped_kernel", "sw_striped_block_kernel",
+           "sw_windows_kernel")
 # Cells of one iteration of K4's row loop: kRowUnroll (= ROW_ALIGN) rows x
 # JB (= STREAM_JB) positions of csrc/sw_windows.cu. Where the loop gathers
 # the profile it holds one LDS per cell, and the count of LDS must equal
@@ -51,7 +53,7 @@ CELLS_PER_ITERATION = ROW_ALIGN * STREAM_JB
 # each.
 STRIPED_POSITIONS_PER_STEP = 2
 # The team kernels, whose first template argument is R.
-TEAM_KERNELS = ("sw_stream_kernel<", "sw_stream_striped_kernel<")
+TEAM_KERNELS = ("sw_stream_kernel<", "sw_stream_striped_kernel<", "sw_striped_block_kernel<")
 # Opcodes that are not integer ALU work: memory (SHFL shares LDS's path),
 # control, conversion.
 _NOT_ALU = ("LD", "ST", "SHFL", "BRA", "BAR", "NOP", "EXIT", "RET", "CALL",
