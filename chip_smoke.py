@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch + CUDA port (seqalign_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--against DIR]
+    python3 chip_smoke.py [--against DIR] [--phases 3,6,13]
 
 Phases, each printing its own lines; any failure exits nonzero:
 
@@ -34,9 +34,9 @@ Phases, each printing its own lines; any failure exits nonzero:
    of every R built, segments of 16 positions with empty lanes, a tail
    segment and empty windows; and K2's block instance (sw_longpair's
    kernel) block by block against its plain version: bests, the carried
-   left column and the boundary row, at j0 = 0 and j0 > 0, every R built,
-   kPartial passes, with and without a boundary in, lanes that are not a
-   multiple of a CTA's warps;
+   left column (its coalesced layout) and the boundary row, at j0 = 0 and
+   j0 > 0, every R built, kPartial passes, with and without a boundary in,
+   lanes that are not a multiple of a CTA's warps;
    then the fixed-batch kernel (K4) and its constant-S mode (K5) against
    their plain versions, over the six scoring systems, windows of 256 and
    1,024 lanes, 1 to 8 windows, lq = 1 to MAX_QUERY_ROWS, 3-D profiles of
@@ -63,7 +63,13 @@ Phases, each printing its own lines; any failure exits nonzero:
    card, pass by pass, and 4,096 records (the 256 longest among them)
    equal the wavefront engine; the search's device-memory peak; K2 is
    timed per pass and whole, with its rows per thread and registers, and
-   K1 and K2 side by side at lq=512 and 1536;
+   K1 and K2 side by side at lq=512 and 1536; then one step of K2's block
+   instance at the long pair's shape (1,024 rows x 128 positions x 1,024
+   lanes): five tasks of three instances (a first sub-pass without a
+   boundary in, sub-passes with a carried left column, a partial sub-pass
+   of 92 rows at R = 8, a last one of 184 rows without a boundary out) in
+   three launches, exact against the step's plain version, both timed,
+   and its first task alone (one block) beside the block's plain version;
 7. fixed-batch path: the same database and 144-residue query, length-
    sorted and cut into pipeline.lane_batches of 4,096, 16,384 and 67,584
    lanes, one call of pipeline.get_engine("windows") each; the counters
@@ -118,11 +124,17 @@ Phases, each printing its own lines; any failure exits nonzero:
    on the one card: a 35,000-residue query against the 1,024 longest records
    as one lane batch over 1, 2 and 4 entries of cuda:0 and a 2 x 2 data x
    seq mesh at jb=128, and 4 entries at jb=512; the counters prove each run
-   launched K2's block instance (blocks x sub-passes) and nothing else;
-   every score equals the long-query search's (K2) of the same records;
-   the launches, a CUDA-event kernel timer, the device-memory peak and the
-   bound of each run, and the block kernel against its plain version on
-   one block at the run's shape.
+   launched K2's block instance alone, once per entry and step (twice
+   where an entry's last sub-pass is another instance), and no plain
+   version; every score equals the long-query search's (K2) of the same
+   records; the launches, a CUDA-event kernel timer, the device-memory
+   peak and the bound of each run, over the records' real cells (lq x
+   residues) and over the padded batch the kernel runs.
+
+With ``--phases`` only phases 1-2 and the named ones of 3, 6 and 13 run
+(those that need no other phase's results), for a quick check of the
+kernels, the long-query path and the long pair; the line before the last
+then holds what those phases measured.
 
 With ``--against DIR`` (another checkout, for example the parent commit
 unpacked under build/) it then times K1 and K3 in turns against that
@@ -302,9 +314,9 @@ def phase_build():
 
     team = {f"sw_stream_kernel<{r}, false>" for r in STREAM_ROWS_PER_THREAD_BUILT}
     team |= {f"sw_stream_kernel<{r}, true>" for r in STREAM_SOLO_ROWS}
-    team |= {block_kernel_instance(32 * r - 4 * partial, b_in, b_out, r)
-             for r in STRIPE_ROWS_PER_THREAD_BUILT for b_in in (False, True)
-             for b_out in (False, True) for partial in ((0, 1) if b_out else (0,))}
+    team |= {block_kernel_instance(32 * r - 4 * partial, b_out, r)
+             for r in STRIPE_ROWS_PER_THREAD_BUILT for b_out in (False, True)
+             for partial in ((0, 1) if b_out else (0,))}
     if not (set(BOUND_INSTANCES) | team) <= set(loops):
         fail(f"SASS of the kernels not all found: {sorted(loops)}")
 
@@ -414,8 +426,9 @@ class Checker:
 
     def compare_block(self, label, stripe, windows, go, ge, blocks, bnd_in, bnd_out,
                       left_first=False, rows_per_thread=None):
-        """K2's block instance against its plain version on the same card
-        tensors, block by block over ``blocks`` ([(j0, j1)]): each block's
+        """K2's block instance, a step of one task, against the block's
+        plain version on the same card tensors, block by block over
+        ``blocks`` ([(j0, j1)]): each block's
         bests and left column, both taking the plain version's left column
         of the block before (the kernel in place), none before the first
         block unless ``left_first`` (then a random column); then the whole
@@ -424,7 +437,9 @@ class Checker:
 
         torch = self.torch
         nw, length, win = windows.shape
-        lshape = (2, nw, stripe.shape[0], win)
+        # The left column (2, R, nw, win, 32); words past the stripe's rows
+        # are neither read nor written, so both sides start from one fill.
+        lshape = swa_cuda.left_column(stripe.shape[0], windows, rows_per_thread).shape
         gen = torch.Generator(device=windows.device).manual_seed(len(label))
         left = (torch.randint(-4, 40, lshape, dtype=torch.int32, device=windows.device,
                               generator=gen) if left_first else None)
@@ -432,16 +447,18 @@ class Checker:
                                                     device=windows.device) for _ in range(2)]
         err = 0
         for j0, j1 in blocks:
-            k_left = torch.empty(lshape, dtype=torch.int32, device=windows.device) \
-                if left is None else left.clone()
-            k, _, _ = swa_cuda.sw_stream_striped_block(
-                stripe, windows, go, ge, j0=j0, j1=j1, bnd_in=bnd_in, bnd_out=outs[0],
-                left_in=None if left is None else k_left, left_out=k_left,
-                rows_per_thread=rows_per_thread)
-            p_left = torch.empty(lshape, dtype=torch.int32, device=windows.device)
+            base = (torch.full(lshape, -9, dtype=torch.int32, device=windows.device)
+                    if left is None else left)
+            k_left = base.clone()
+            k = torch.zeros((nw, win), dtype=torch.int32, device=windows.device)
+            table = swa_cuda.BlockTable(windows, [swa_cuda.BlockTask(
+                stripe, j0, j1, bnd_in, outs[0], None if left is None else k_left, k_left,
+                rows_per_thread)], go, ge)
+            swa_cuda.sw_stream_striped_step(table, 0, 1, k)
+            p_left = base.clone()
             r, _, _ = swa_cuda.sw_stream_striped_block_reference(
                 stripe, windows, go, ge, j0=j0, j1=j1, bnd_in=bnd_in, bnd_out=outs[1],
-                left_in=left, left_out=p_left)
+                left_in=left, left_out=p_left, rows_per_thread=rows_per_thread)
             torch.cuda.synchronize()
             err = max(err, *(int((a.long() - b.long()).abs().max())
                              for a, b in ((k, r), (k_left, p_left))))
@@ -455,8 +472,7 @@ class Checker:
                 fail(f"sw_stream_striped_block's boundary row != plain version for {label}")
         self.max_abs_err["sw_stream_striped_block"] = max(
             self.max_abs_err["sw_stream_striped_block"], err)
-        key = swa_cuda.block_kernel_instance(stripe.shape[0], bnd_in is not None, bnd_out,
-                                             rows_per_thread)
+        key = swa_cuda.block_kernel_instance(stripe.shape[0], bnd_out, rows_per_thread)
         print(f"[kernel] sw_stream_striped_block {label}: {key} rows={stripe.shape[0]} nw={nw} "
               f"L={length} win={win} blocks {blocks} bests, left columns"
               f"{', boundary row' if bnd_out else ''} equal, max_abs_err={err}", flush=True)
@@ -849,7 +865,7 @@ def cuda_ms(torch, fn, reps):
 
 def reset_counts(swa_cuda):
     for fn in (swa_cuda.sw_stream, swa_cuda.sw_stream_multi,
-               swa_cuda.sw_stream_striped_pass, swa_cuda.sw_stream_striped_block,
+               swa_cuda.sw_stream_striped_pass, swa_cuda.sw_stream_striped_step,
                swa_cuda.sw_windows):
         fn.launches = 0
     swa_cuda.sw_windows.launches_const_s = 0
@@ -858,6 +874,7 @@ def reset_counts(swa_cuda):
                swa_cuda.sw_stream_striped_reference,
                swa_cuda.sw_stream_striped_pass_reference,
                swa_cuda.sw_stream_striped_block_reference,
+               swa_cuda.sw_stream_striped_step_reference,
                swa_cuda.sw_windows_reference):
         fn.calls = 0
 
@@ -868,7 +885,7 @@ def read_counts(swa_cuda):
         "sw_stream_multi": swa_cuda.sw_stream_multi.launches,
         "sw_stream_striped_pass": swa_cuda.sw_stream_striped_pass.launches,
         "sw_stream_striped calls": swa_cuda.sw_stream_striped.calls,
-        "sw_stream_striped_block": swa_cuda.sw_stream_striped_block.launches,
+        "sw_stream_striped_step": swa_cuda.sw_stream_striped_step.launches,
         "sw_windows": swa_cuda.sw_windows.launches,
         "sw_windows_const_s": swa_cuda.sw_windows.launches_const_s,
         "plain": swa_cuda.sw_stream_reference.calls
@@ -876,6 +893,7 @@ def read_counts(swa_cuda):
         + swa_cuda.sw_stream_striped_reference.calls
         + swa_cuda.sw_stream_striped_pass_reference.calls
         + swa_cuda.sw_stream_striped_block_reference.calls
+        + swa_cuda.sw_stream_striped_step_reference.calls
         + swa_cuda.sw_windows_reference.calls,
     }
 
@@ -1294,6 +1312,106 @@ def phase_striped_path(torch, chk: Checker, smi: str, db, loops, usage, factor,
         "main_path_gcups": cells / runs[-1][0] / 1e9,
         "scores": scores,
     }
+
+
+# One step of K2's block instance at the long pair's shape (phase 6): a
+# stripe's rows, block start and end, whether it reads a boundary in, writes
+# one out and carries a left column in. Three full sub-passes (the first
+# without a boundary in, as entry 0's first), a partial one of 92 rows at
+# R = 8 (an entry's last at 2 entries), a last one of 184 rows at R = 8
+# without a boundary out (the last entry's at one entry): three instances.
+STEP_TASKS = [(1024, 0, 128, False, True, False), (1024, 128, 256, True, True, True),
+              (1024, 256, 384, True, True, True), (92, 384, 512, True, True, True),
+              (184, 0, 128, True, False, True)]
+STEP_LANES, STEP_LENGTH = 1024, 512
+
+
+def phase_step(torch, chk: Checker, smi: str):
+    """K2's block instance, one step (STEP_TASKS, in one launch per
+    instance) on random windows of STEP_LANES lanes and random boundaries
+    and left columns, against the step's plain version on copies of the
+    same card tensors: the merged bests, every boundary row and left
+    column; each timed."""
+    from seqalign_tpu_torch.convert import batch_windows, profile_stripes
+    from seqalign_tpu_torch.ops import swa_cuda
+    from seqalign_tpu_torch.ops.swa_torch import make_profile
+
+    tag = "[step]"
+    sc = scoring("PAM250")
+    go, ge = sc.gap_open_total, sc.gap_extend
+    rng = np.random.default_rng(90)
+    dev = torch.device("cuda")
+    lens = rng.integers(1, STEP_LENGTH + 1, STEP_LANES)
+    db = rng.integers(0, 20, (STEP_LENGTH, STEP_LANES)).astype(np.int8)
+    db[np.arange(STEP_LENGTH)[:, None] >= lens[None, :]] = 31
+    windows = batch_windows(db, STEP_LANES, swa_cuda.STREAM_JB, dev)
+    bnd = (2, *windows.shape)
+
+    def rand(shape):
+        return torch.from_numpy(rng.integers(-4, 60, shape, dtype=np.int32)).to(dev)
+
+    tasks, plain = [], []
+    for rows, j0, j1, b_in, b_out, carried in STEP_TASKS:
+        stripe = profile_stripes(
+            make_profile(sc.table, sc.query_indices(random_protein(rng, rows))), go, rows,
+            dev)[0]
+        left = rand(swa_cuda.left_column(rows, windows).shape)
+        out = torch.full(bnd, -9, dtype=torch.int32, device=dev) if b_out else None
+        task = swa_cuda.BlockTask(stripe, j0, j1, rand(bnd) if b_in else None, out,
+                                  left if carried else None, left)
+        tasks.append(task)
+        p_left = left.clone()  # in place, as the kernel's
+        plain.append(task._replace(bnd_out=None if out is None else out.clone(),
+                                   left_in=p_left if carried else None, left_out=p_left))
+    table = swa_cuda.BlockTable(windows, tasks, go, ge)
+    keys = [swa_cuda.block_kernel_instance(t.stripe.shape[0], t.bnd_out is not None)
+            for t in tasks]
+    runs = sum(i == 0 or keys[i] != keys[i - 1] for i in range(len(keys)))
+    best = torch.zeros((1, STEP_LANES), dtype=torch.int32, device=dev)
+    reset_counts(swa_cuda)
+    swa_cuda.sw_stream_striped_step(table, 0, len(tasks), best)
+    torch.cuda.synchronize()
+    if swa_cuda.sw_stream_striped_step.launches != runs:
+        fail(f"{tag} {swa_cuda.sw_stream_striped_step.launches} launches, not {runs}")
+    p_best = torch.zeros_like(best)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    swa_cuda.sw_stream_striped_step_reference(
+        swa_cuda.BlockTable(windows, plain, go, ge), 0, len(plain), p_best)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    pairs = [(best, p_best)] + [(getattr(a, f), getattr(b, f)) for a, b in zip(tasks, plain)
+                                for f in ("bnd_out", "left_out") if getattr(a, f) is not None]
+    err = max(int((a.long() - b.long()).abs().max()) for a, b in pairs)
+    chk.max_abs_err["sw_stream_striped_block"] = max(
+        chk.max_abs_err["sw_stream_striped_block"], err)
+    if not all(torch.equal(a, b) for a, b in pairs):
+        fail(f"{tag} K2's block instance != the step's plain version")
+    # Timed again on the kernel's own tensors (the columns change in place);
+    # then the first task alone, one block, and its plain version.
+    step_ms = cuda_ms(torch, lambda: swa_cuda.sw_stream_striped_step(
+        table, 0, len(tasks), best), 3)
+    block_ms = cuda_ms(torch, lambda: swa_cuda.sw_stream_striped_step(table, 0, 1, best), 3)
+    t = plain[0]
+    start.record()
+    swa_cuda.sw_stream_striped_block_reference(
+        t.stripe, windows, go, ge, j0=t.j0, j1=t.j1, bnd_in=t.bnd_in, bnd_out=t.bnd_out,
+        left_in=t.left_in, left_out=t.left_out)
+    end.record()
+    torch.cuda.synchronize()
+    block_plain_ms = start.elapsed_time(end)
+    shape = (f"{len(tasks)} tasks ({'/'.join(str(t[0]) for t in STEP_TASKS)} rows) x 128 "
+             f"positions x {STEP_LANES} lanes, L={windows.shape[1]}")
+    block = f"{STEP_TASKS[0][0]} rows x 128 positions x {STEP_LANES} lanes"
+    print(f"{tag} one step of {shape}: {runs} launches ({sorted(set(keys))}); bests, boundary "
+          f"rows and left columns == the plain version, max_abs_err={err}; kernel {step_ms} "
+          f"ms, plain version {plain_ms} ms; its first task alone (one block, {block}): "
+          f"kernel {block_ms} ms, plain version {block_plain_ms} ms | {smi}", flush=True)
+    return {"step_ms": step_ms, "plain_ms": plain_ms, "launches": runs, "shape": shape,
+            "instances": keys, "block_ms": block_ms, "block_plain_ms": block_plain_ms,
+            "block": block}
 
 
 def phase_fixed_path(torch, chk: Checker, smi: str, query, db, alu, k1, multi8):
@@ -2014,21 +2132,14 @@ def two_hosts(args):
         fail(f"[parallel cli] a host failed: {errs}")
 
 
-# Phase 13: one titin-class query (the JAX tool's --lq 35000) against the
-# LONGPAIR_RECORDS longest records of the database, as one lane batch;
-# meshes of the one card: entries (or data x seq) and jb.
-LONGPAIR_LQ = 35_000
-LONGPAIR_RECORDS = 1024
-LONGPAIR_RUNS = (([0], 128), ([0] * 2, 128), ([0] * 4, 128), ([[0] * 2] * 2, 128),
-                 ([0] * 4, 512))
-
-
 def longpair_layout(mesh, lq, length, jb, stripe_rows):
-    """Per data slice and entry of ``mesh`` (as sw_longpair lays it out):
-    each entry's sub-pass rows and whether it reads a boundary in and writes
-    one out; and the blocks. For the launch count and the bound."""
+    """As sw_longpair lays the run out: per data slice, each entry's
+    sub-passes as (rows, whether it writes a boundary out); the blocks;
+    the steps (stages + blocks - 1); and the launches of K2's block
+    instance, per entry and step one for each run of its sub-passes at work
+    that share an instance. For the launch count and the bound."""
     from seqalign_tpu_torch.convert import ROW_ALIGN
-    from seqalign_tpu_torch.ops.swa_cuda import STREAM_JB
+    from seqalign_tpu_torch.ops.swa_cuda import STREAM_JB, block_kernel_instance
 
     def rows_of(n):
         return -(-n // ROW_ALIGN) * ROW_ALIGN
@@ -2039,34 +2150,62 @@ def longpair_layout(mesh, lq, length, jb, stripe_rows):
     subs = []
     for k, n in enumerate(entries):
         cuts = [rows_of(min(stripe_rows, n - s)) for s in range(0, n, stripe_rows)]
-        subs += [(r, k > 0 or p > 0, k < len(entries) - 1 or p < len(cuts) - 1)
-                 for p, r in enumerate(cuts)]
+        subs.append([(r, k < len(entries) - 1 or p < len(cuts) - 1)
+                     for p, r in enumerate(cuts)])
     blk = -(-jb // STREAM_JB) * STREAM_JB
-    return [subs] * len(grid), -(-length // blk)
+    n_blocks = -(-length // blk)
+    n_steps = sum(map(len, subs)) + n_blocks - 1
+    launches, first = 0, 0
+    for entry in subs:
+        for t in range(n_steps):
+            keys = [block_kernel_instance(r, out) for p, (r, out) in enumerate(entry)
+                    if 0 <= t - first - p < n_blocks]
+            launches += sum(i == 0 or keys[i] != keys[i - 1] for i in range(len(keys)))
+        first += len(entry)
+    return [subs] * len(grid), n_blocks, n_steps, launches * len(grid)
+
+
+def longpair_live_cells(subs, lengths, win, length, jb) -> int:
+    """The padded cells of sw_longpair's tasks that lie in (CTA, block)
+    pairs where some lane of the CTA still has a residue at or after the
+    block's start (lanes sorted by length, data slices contiguous): what
+    the block kernel would run if it skipped a CTA whose lanes' records
+    ended before the block."""
+    from seqalign_tpu_torch.ops.swa_cuda import STREAM_JB, stripe_rows_per_thread
+
+    blk = -(-jb // STREAM_JB) * STREAM_JB
+    starts = np.arange(0, length, blk)
+    widths = np.minimum(starts + blk, length) - starts
+    live = 0
+    for d, sl in enumerate(subs):
+        lens = np.zeros(win, dtype=np.int64)
+        part = lengths[d * win:(d + 1) * win]
+        lens[:part.size] = part
+        for r, _ in (sp for entry in sl for sp in entry):
+            warps = 16 if stripe_rows_per_thread(r) >= 24 else 8  # team_warps<R>
+            cta_max = np.pad(lens, (0, -win % warps)).reshape(-1, warps).max(axis=1)
+            live += r * warps * int(((cta_max[None, :] > starts[:, None]).sum(axis=1)
+                                     * widths).sum())
+    return live
 
 
 def phase_longpair(torch, smi: str, db, loops, factor):
-    """Phase 13: sw_longpair on the one card (LONGPAIR_RUNS) against the
-    long-query search (K2) of the same records; K2's block instance alone,
-    its launches, a CUDA-event timer, the device-memory peak; the block
-    kernel and its plain version on one block at the run's shape."""
+    """Phase 13: sw_longpair on the one card (swissprot.LONGPAIR_RUNS)
+    against the long-query search (K2) of the same records; K2's block
+    instance alone, its launches (by steps), a CUDA-event timer, the
+    device-memory peak, the bound over the records' real cells (and over
+    the padded batch's)."""
     from seqalign_tpu_torch import pipeline
-    from seqalign_tpu_torch.convert import batch_windows, profile_stripes
-    from seqalign_tpu_torch.host import pack_batch
     from seqalign_tpu_torch.ops import swa_cuda
-    from seqalign_tpu_torch.ops.swa_torch import make_profile
     from seqalign_tpu_torch.parallel import sw_longpair
-    from seqalign_tpu_torch.swissprot import random_query
+    from seqalign_tpu_torch.swissprot import (
+        LONGPAIR_LQ, LONGPAIR_RUNS, longpair_case, longpair_mesh,
+    )
 
     tag = f"[longpair lq={LONGPAIR_LQ}]"
-    sc = scoring("PAM250")
+    query, profile, sc, sub, batch = longpair_case(db)
     go, ge = sc.gap_open_total, sc.gap_extend
-    query = random_query(LONGPAIR_LQ, LONGPAIR_LQ)
-    profile = make_profile(sc.table, query)
-    ids = np.argsort(-db.lengths, kind="stable")[:LONGPAIR_RECORDS]
-    sub = pipeline._db_from_encoded([db.seq[db.offsets[i]:db.offsets[i + 1]] for i in ids])
     lengths = sub.lengths
-    batch = pack_batch(sub, np.arange(sub.n), sub.n, int(lengths.max()))
     residues = int(lengths.sum())
     print(f"{tag} {sub.n} records of {int(lengths.min())}-{int(lengths.max())} residues, "
           f"{residues} residues, one ({batch.shape[0]}, {batch.shape[1]}) lane batch", flush=True)
@@ -2077,22 +2216,19 @@ def phase_longpair(torch, smi: str, db, loops, factor):
     want, k2_s = pipeline.search_database(query, sub, sc, device="cuda")
     k2_wall = time.perf_counter() - t0
     k2_counts = read_counts(swa_cuda)
-    if not k2_counts["sw_stream_striped_pass"] or k2_counts["sw_stream_striped_block"]:
+    if not k2_counts["sw_stream_striped_pass"] or k2_counts["sw_stream_striped_step"]:
         fail(f"{tag} the K2 search launched {k2_counts}")
     print(f"{tag} K2 search: {k2_counts['sw_stream_striped_pass']} passes, kernel timer "
           f"{k2_s} s, wall {k2_wall} s | {smi}", flush=True)
 
     cuda0 = torch.device("cuda", 0)
+    length = windows_length(batch)
     runs = []
-    for mesh_ids, jb in LONGPAIR_RUNS:
-        mesh = [[cuda0] * len(r) for r in mesh_ids] if isinstance(mesh_ids[0], list) \
-            else [cuda0] * len(mesh_ids)
-        two_d = isinstance(mesh[0], list)
-        name = (f"{len(mesh)}x{len(mesh[0])} data x seq" if two_d else f"x{len(mesh)}") \
-            + f" jb={jb}"
-        subs, n_blocks = longpair_layout(mesh, LONGPAIR_LQ, windows_length(batch), jb,
-                                         swa_cuda.STRIPE_ROWS)
-        expect = n_blocks * sum(len(s) for s in subs)
+    for entries, data, jb in LONGPAIR_RUNS:
+        mesh, axes, name = longpair_mesh(cuda0, entries, data)
+        name += f" jb={jb}"
+        subs, n_blocks, n_steps, expect = longpair_layout(mesh, LONGPAIR_LQ, length, jb,
+                                                          swa_cuda.STRIPE_ROWS)
         timers = []
         for _ in range(2):  # the second run is the one kept
             torch.cuda.synchronize()
@@ -2101,70 +2237,57 @@ def phase_longpair(torch, smi: str, db, loops, factor):
             reset_counts(swa_cuda)
             events = []
             t0 = time.perf_counter()
-            got = sw_longpair(profile, batch, go, ge, mesh, jb=jb, events=events,
-                              **({"axis": "seq", "data_axis": "data"} if two_d else {}))
+            got = sw_longpair(profile, batch, go, ge, mesh, jb=jb, events=events, **axes)
             got = got.cpu().numpy()
             wall = time.perf_counter() - t0
             counts = read_counts(swa_cuda)
             start, end = events[0]
             timers.append(start.elapsed_time(end))
             peak = torch.cuda.max_memory_allocated() - base
-        if counts["sw_stream_striped_block"] != expect or sum(counts.values()) != expect:
+        if counts["sw_stream_striped_step"] != expect or sum(counts.values()) != expect:
             fail(f"{tag} {name}: launches {counts}, not {expect} of K2's block instance alone")
         if got.shape != (sub.n,) or got.dtype != np.int32 or not np.array_equal(got, want):
             fail(f"{tag} {name}: {int(np.count_nonzero(got != want))} scores != the K2 search's")
-        length = windows_length(batch)
         win = batch.shape[1] // len(subs)  # lanes of a data slice
-        cells = sum(r for sl in subs for r, _, _ in sl) * win * length
-        keys = [swa_cuda.block_kernel_instance(r, i, o) for sl in subs for r, i, o in sl]
+        flat = [sp for sl in subs for entry in sl for sp in entry]
+        # The cells the answer needs: every query row against each record's
+        # real residues; the kernel also runs the padded batch's.
+        cells = LONGPAIR_LQ * residues
+        padded_cells = sum(r for r, _ in flat) * win * length
+        live_cells = longpair_live_cells(subs, lengths, win, length, jb)
+        keys = [swa_cuda.block_kernel_instance(r, out) for r, out in flat]
         if not set(keys) <= set(loops):
             fail(f"{tag} no SASS loop for the block instances {sorted(set(keys))}")
-        rows = [r for sl in subs for r, _, _ in sl]
+        rows = [r for r, _ in flat]
         ops = [n * loops[key]["pipe_per_cell"] for n, key in zip(rows, keys)]
         # The batch and profile read once, the scores written once.
         io_bytes = batch.size + profile.size * 4 + batch.shape[1] * 4
         bound_ms, bound_by = bound(io_bytes, cells, sum(ops) / sum(rows))
-        row = {"mesh": name, "launches": counts["sw_stream_striped_block"],
+        padded_ms, _ = bound(io_bytes, padded_cells, sum(ops) / sum(rows))
+        row = {"mesh": name, "launches": counts["sw_stream_striped_step"],
                "ms": timers[-1], "ms_first_run": timers[0], "search_wall_s": wall,
                "memory_peak_bytes": peak, "bound_ms": bound_ms, "bound_by": bound_by,
+               "bound_ms_padded": padded_ms, "live_cells": live_cells,
                "factor": sum(o * factor[key] for o, key in zip(ops, keys)) / sum(ops),
-               "cells": cells, "blocks": n_blocks,
-               "sub_passes": [len(sl) for sl in subs]}
+               "cells": cells, "padded_cells": padded_cells, "blocks": n_blocks,
+               "steps": n_steps,
+               "sub_passes": [sum(map(len, sl)) for sl in subs],
+               "instances": sorted(set(keys))}
         runs.append(row)
         print(f"{tag} {name}: all {sub.n} scores == the K2 search's; {row['launches']} "
-              f"launches of the block instance ({n_blocks} blocks x "
-              f"{sum(len(sl) for sl in subs)} sub-passes), nothing else; kernel timer "
-              f"(CUDA events, first launch to merged result) {timers} ms, call + fetch wall "
-              f"{wall} s; K2 search's kernel timer {k2_s * 1e3} ms; device-memory peak "
-              f"{peak} B; bound {bound_ms} ms by {bound_by} over {cells} cells | {smi}",
-              flush=True)
-
-    # One block at the run's shape: the kernel and its plain version.
-    windows = batch_windows(batch, batch.shape[1], swa_cuda.STREAM_JB, cuda0)
-    stripe = profile_stripes(profile[:swa_cuda.STRIPE_ROWS], go, swa_cuda.STRIPE_ROWS, cuda0)[0]
-    bnd = torch.zeros((2, *windows.shape), dtype=torch.int32, device=cuda0)
-    left = torch.empty((2, 1, stripe.shape[0], windows.shape[2]), dtype=torch.int32,
-                       device=cuda0)
-    blk = dict(j0=0, j1=min(128, windows.shape[1]), bnd_out=bnd, left_out=left)
-    block_ms = cuda_ms(torch, lambda: swa_cuda.sw_stream_striped_block(
-        stripe, windows, go, ge, **blk), 3)
-    k_out = swa_cuda.sw_stream_striped_block(stripe, windows, go, ge, **blk)[0].clone()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    p_out = swa_cuda.sw_stream_striped_block_reference(stripe, windows, go, ge, **blk)[0]
-    end.record()
-    torch.cuda.synchronize()
-    plain_ms = start.elapsed_time(end)
-    if not torch.equal(k_out, p_out):
-        fail(f"{tag} one block: kernel != plain version")
-    print(f"{tag} one block ({stripe.shape[0]} rows x {blk['j1']} positions x "
-          f"{windows.shape[2]} lanes): kernel "
-          f"{block_ms} ms, plain version {plain_ms} ms, equal | {smi}", flush=True)
+              f"launches of the block instance ({n_steps} steps of {n_blocks} blocks x "
+              f"{row['sub_passes']} sub-passes, instances {row['instances']}), nothing else; "
+              f"kernel timer (CUDA events, first launch to merged result) {timers} ms, call "
+              f"+ fetch wall {wall} s; K2 search's kernel timer {k2_s * 1e3} ms; "
+              f"device-memory peak {peak} B; bound {bound_ms} ms by {bound_by} over the "
+              f"{cells} real cells ({bound_ms / timers[-1]:.0%}), {padded_ms} ms over the "
+              f"{padded_cells} padded cells the kernel runs; {live_cells} of those in "
+              f"CTA-blocks where a lane's record reaches the block "
+              f"({live_cells / padded_cells:.1%}) | {smi}", flush=True)
     return {"runs": runs, "k2_search_kernel_s": k2_s, "k2_search_wall_s": k2_wall,
-            "k2_passes": k2_counts["sw_stream_striped_pass"], "block_ms": block_ms,
-            "plain_ms": plain_ms, "records": sub.n, "residues": residues,
-            "batch": list(batch.shape)}
+            "k2_passes": k2_counts["sw_stream_striped_pass"], "lq": LONGPAIR_LQ,
+            "records": sub.n,
+            "residues": residues, "batch": list(batch.shape)}
 
 
 def windows_length(batch) -> int:
@@ -2182,7 +2305,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--against", default=None,
                     help="another checkout whose K1 and K3 to time in turns")
+    ap.add_argument("--phases", default=None,
+                    help="run phases 1-2 and only these of 3, 6 and 13 (comma-separated)")
     args = ap.parse_args(argv)
+    only = None if args.phases is None else {int(x) for x in args.phases.split(",")}
+    if only is not None and (not only or not only <= {3, 6, 13} or args.against):
+        ap.error("--phases takes some of 3, 6 and 13, without --against")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs on a GPU",
               file=sys.stderr)
@@ -2192,10 +2320,11 @@ def main(argv=None) -> int:
     loops, usage, factor = phase_build()
     alu = {n: loops[key]["pipe_per_cell"] for key, n in BOUND_INSTANCES.items()}
     chk = Checker(torch)
-    phase_kernel(chk)
-    phase_kernel_multi(chk)
-    phase_kernel_striped(chk)
-    phase_kernel_windows(chk)
+    if only is None or 3 in only:
+        phase_kernel(chk)
+        phase_kernel_multi(chk)
+        phase_kernel_striped(chk)
+        phase_kernel_windows(chk)
 
     from seqalign_tpu_torch.swissprot import swissprot_db
 
@@ -2203,12 +2332,28 @@ def main(argv=None) -> int:
     query, db = swissprot_db()
     print(f"[main] database: {db.n} records, {int(db.offsets[-1])} residues, "
           f"generated in {time.perf_counter() - t0} s", flush=True)
+    if only is not None:
+        ran = {"max_abs_err": chk.max_abs_err}
+        if 6 in only:
+            ran["long_path"] = phase_striped_path(torch, chk, smi, db, loops, usage, factor)
+            ran["long_path"].pop("scores")
+            ran["step"] = phase_step(torch, chk, smi)
+        if 13 in only:
+            ran["longpair"] = phase_longpair(torch, smi, db, loops, factor)
+        print(f"[main] phases 1, 2 and {sorted(only)} in {time.perf_counter() - t_start} s",
+              flush=True)
+        print(json.dumps(ran, default=str))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),
+        }}))
+        return 0
     main_path, k1_pack, k1_scores = phase_main_path(torch, chk, smi, query, db, loops,
                                                     usage)
     multi8 = phase_multi_path(torch, chk, smi, db, k1_pack, 8, 17, 100, True, loops, usage)
     multi64 = phase_multi_path(torch, chk, smi, db, k1_pack, 64, 144, 200, False, loops,
                                usage)
     long_path = phase_striped_path(torch, chk, smi, db, loops, usage, factor)
+    step = phase_step(torch, chk, smi)
     del k1_pack
     from seqalign_tpu_torch.swissprot import random_query
 
@@ -2297,23 +2442,29 @@ def main(argv=None) -> int:
         "card": smi,
     }, {
         "name": "sw_stream_striped_block",
+        "wrapper": "sw_stream_striped_step (a step of tasks a launch)",
         "route": "cuda",
         "source": "seqalign_tpu_torch/csrc/sw_striped.cu",
         "replaces": "seqalign_tpu/parallel/longpair.py:139",
         "launches": longpair["runs"][0]["launches"],
         "max_abs_err": chk.max_abs_err["sw_stream_striped_block"],
         "ms": longpair["runs"][0]["ms"],
-        "plain_ms": longpair["plain_ms"],
-        "plain_ms_is": "the plain version on one block (1024 rows x 128 positions x all "
-                       "lanes), beside block_ms; the whole run's plain version is not run",
-        "block_ms": longpair["block_ms"],
+        "plain_ms": step["block_plain_ms"],
+        "plain_ms_is": f"the plain version on one block ({step['block']}), beside block_ms; "
+                       "the whole run's plain version is not run",
+        "block_ms": step["block_ms"],
+        "step_ms": step["step_ms"],
+        "step_plain_ms": step["plain_ms"],
+        "step": step,
         "bound_ms": longpair["runs"][0]["bound_ms"],
         "bound_by": longpair["runs"][0]["bound_by"],
+        "bound_is": "over the records' real cells (lq x residues); bound_ms_padded in "
+                    "longpair's runs is over the padded batch the kernel runs",
         "library_ms": None,
         "ms_is": "sw_longpair's kernel timer over [cuda:0] x 1, jb=128 (CUDA events, "
                  "first launch to merged result)",
         "longpair": longpair,
-        "shape": f"sw_longpair, lq={LONGPAIR_LQ}, the {longpair['records']} longest "
+        "shape": f"sw_longpair, lq={longpair['lq']}, the {longpair['records']} longest "
                  f"records ({longpair['residues']} residues) as one {longpair['batch']} "
                  "lane batch",
         "card": smi,

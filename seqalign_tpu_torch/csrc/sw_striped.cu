@@ -11,10 +11,11 @@
 // one's, and the same per-segment outputs, bit for bit.
 //
 // Its block instance (sw_striped_block_kernel, below) runs the same team
-// step over one block of positions [j0, j1) with the pass's left column
-// carried in and out: the work of one device at one step of the JAX
-// package's sequence-parallel long pair (seqalign_tpu/parallel/longpair.py,
-// whose lax.scan over a block's columns and rows it replaces).
+// step over blocks of positions [j0, j1) with each pass's left column
+// carried in and out, every (sub-pass, block) task of one pipeline step in
+// one launch: the work of one device at one step of the JAX package's
+// sequence-parallel long pair (seqalign_tpu/parallel/longpair.py, whose
+// lax.scan over a block's columns and rows it replaces).
 //
 // Layout of the work. A team of 32 threads (one warp) scores one lane of
 // one window, thread k holding the R rows k R .. k R + R - 1 of the pass in
@@ -199,45 +200,94 @@ int launch_rows(const void* prof, const void* streams, const void* fs,
                        nw, go, ge, s);
 }
 
-// K2's block instance (sw_longpair): positions [j0, j1) of every window
-// of one pass, each lane one sequence from position 0 (no segment table).
-// Each row's (Gg, E) at j0 - 1 comes from left_in (NULL: the boundary Gg =
-// go, E = 0) and goes out at j1 - 1 to left_out, (2, nw, lqp, win) row by
-// row; left_out may be left_in, since each thread reads its rows before
-// any step and writes the same rows after the last. Row -1 comes from
-// bnd_in inside [j0, j1) and its corner Gg(-1, j0 - 1) from bnd_in at j0 -
-// 1 (go at j0 = 0 or without bnd_in); the last row goes to bnd_out inside
-// [j0, j1). Each lane's best over the block goes to out (nw, win).
+// K2's block instance (sw_longpair): one launch runs a step of the long
+// pair's pipeline, every task of the step a z slice of the grid. A task is
+// one block of positions [j0, j1) of every window of one sub-pass (at most
+// 32 R rows of the query), each lane one sequence from position 0 (no
+// segment table). Each row's (Gg, E) at j0 - 1 comes from left_in (NULL:
+// the boundary Gg = go, E = 0) and goes out at j1 - 1 to left_out; left_out
+// may be left_in, since each thread reads its rows' words before any step
+// and writes the same words after the last. Row -1 comes from bnd_in
+// inside [j0, j1) and its corner Gg(-1, j0 - 1) from bnd_in at j0 - 1
+// (NULL: the boundary, Gg = go, F = 0, and the corner go); the last row goes
+// to bnd_out inside [j0, j1). Each lane's best over the block is max-merged
+// into best (nw, win) with atomicMax, so no elementwise launch follows.
+//
+// The task table. A task is 64 bytes on the device (BlockTask), built once
+// a sw_longpair call by the host (swa_cuda.BlockTable) and read by every
+// CTA of its z slice. The instance (R, kOut, kPartial) is one per launch:
+// the host launches each run of tasks of one instance, so a step of one
+// entry is one launch, or two where its last sub-pass needs another R or
+// writes no boundary. Row -1 is a run-time choice per task: without bnd_in
+// thread 0 shuffles the boundary values, which the kIn instance's step loop
+// does anyway, so the first sub-pass of the first entry shares the others'
+// instance and launch.
+//
+// Why no two tasks of a launch touch the same word. At step t, stage sigma
+// (the sub-passes of the entries before, plus p) runs block b = t - sigma,
+// so one entry's tasks (p, b) of a step lie on one anti-diagonal, p + b
+// constant: one task per sub-pass, each on another block.
+//   - (p, b) writes inner[p] (or the entry's edge out) at [j0, j1) of block
+//     b, left[p], and best through atomicMax. No other task of the step has
+//     sub-pass p, so left[p] and inner[p] have one writer.
+//   - It reads inner[p - 1] (or the edge in) at [j0 - 1, j1): written at
+//     step t - 1 by (p - 1, b) inside the block and at step t - 2 by
+//     (p - 1, b - 1) at j0 - 1. The task of this step on inner[p - 1],
+//     (p - 1, b + 1), writes only block b + 1, past j1 - 1.
+//   - It reads left[p], written at step t - 1 by (p, b - 1).
+// Launches of one entry run in order on its stream; entry k waits on entry
+// k - 1's event of step t - 1 before it copies block t - sigma_k of the edge.
 //
 // Thread k runs step s at position j0 + 2 (s - k), and only while that lies
 // in the block: the steps before (the warp's fill) and after (its drain)
 // skip the team step, so the carried column is loaded before thread k's
 // first position and stored after its last. Thread k's diagonal at j0 is
-// row k R - 1 of left_in, the last row of thread k - 1; thread 0's is the
-// corner. No step carries a fresh bit or a slot.
-template <int R, bool kIn, bool kOut, bool kPartial>
+// row k R - 1 of left_in, the last row of thread k - 1, which passes it
+// down the warp; thread 0's is the corner. No step carries a fresh bit or a
+// slot.
+//
+// The left column's layout. Row k R + r of lane l of window w is word
+// ((r nw + w) win + l) 32 + k of a plane, (Gg, E) two planes: (2, R, nw,
+// win, 32). The 32 threads of a warp load and store 32 consecutive words
+// for each r, one 128-byte line, where a row-major column put them R win
+// words apart.
+//
+// The profile. The host lays each sub-pass's biased rows out as shared
+// memory holds them (swa_cuda.team_profile: [c][r][k] = P'[k R + r][c], 0
+// past lqp), so a CTA loads its 4 KiB x R with one coalesced copy of 16
+// bytes a thread: a CTA scores only one block, so a gather from the rows'
+// own layout, 32 sectors a warp's load, would cost it about as much L2
+// traffic as its whole block.
+struct BlockTask {
+  const int32_t* prof;     // (32, R, 32) biased rows, the shared layout
+  const int32_t* bnd_in;   // (2, nw, len, win) or NULL
+  int32_t* bnd_out;        // (2, nw, len, win); read where kOut only
+  const int32_t* left_in;  // (2, R, nw, win, 32) or NULL
+  int32_t* left_out;       // (2, R, nw, win, 32) or NULL
+  int32_t lqp, j0;         // lqp a multiple of 4, at most 32 R
+  int32_t j1, unused;      // multiples of JB, 0 <= j0 < j1 <= len
+  int64_t pad;             // 64 bytes a task
+};
+static_assert(sizeof(BlockTask) == 64, "swa_cuda.BLOCK_TASK_WORDS x 8 bytes");
+
+template <int R, bool kOut, bool kPartial>
 __global__ void __launch_bounds__(team_warps<R>() * kTeam)
     sw_striped_block_kernel(
-        const int32_t* __restrict__ prof,    // (lqp, 32), lqp <= 32 R
-        const int8_t* __restrict__ streams,  // (nw, L, win) chars 0..31
-        int32_t* __restrict__ out,           // (nw, win) bests over the block
-        const int32_t* __restrict__ bnd_in,  // (2, nw, L, win)
-        int32_t* __restrict__ bnd_out,       // (2, nw, L, win)
-        const int32_t* left_in,              // (2, nw, lqp, win) or NULL
-        int32_t* left_out,                   // (2, nw, lqp, win) or NULL
-        int lqp, int len, int j0, int j1, int win, int nw, int go, int ge,
-        int one) {
+        const BlockTask* __restrict__ tasks,  // one per z slice
+        const int8_t* __restrict__ streams,   // (nw, L, win) chars 0..31
+        int32_t* __restrict__ best,           // (nw, win), max-merged
+        int len, int win, int nw, int go, int ge, int one) {
   static_assert(R % kRowAlign == 0, "a thread holds whole row groups");
   constexpr int kWarps = team_warps<R>();
-  extern __shared__ int32_t sprof[];  // [c][r][k] = P'[k R + r][c]
-  for (int idx = threadIdx.x; idx < kAlpha * R * kTeam; idx += blockDim.x) {
-    const int k = idx % kTeam;
-    const int r = (idx / kTeam) % R;
-    const int c = idx / (kTeam * R);
-    const int row = k * R + r;
-    sprof[idx] = row < lqp ? prof[row * kAlpha + c] : 0;
+  const BlockTask& task = tasks[blockIdx.z];
+  const int lqp = task.lqp;
+  extern __shared__ int4 sprof4[];  // [c][r][k] = P'[k R + r][c]
+  const int4* prof4 = reinterpret_cast<const int4*>(task.prof);
+  for (int idx = threadIdx.x; idx < kAlpha * R * kTeam / 4; idx += blockDim.x) {
+    sprof4[idx] = prof4[idx];
   }
   __syncthreads();
+  const int32_t* sprof = reinterpret_cast<const int32_t*>(sprof4);
 
   const int k = threadIdx.x % kTeam;
   const int lane = blockIdx.x * kWarps + threadIdx.x / kTeam;
@@ -245,34 +295,38 @@ __global__ void __launch_bounds__(team_warps<R>() * kTeam)
   const int w = blockIdx.y;
   const size_t col = (size_t)w * len * win + lane;
   const size_t plane = (size_t)nw * len * win;
-  // (w, row 0, lane) of the left column and its plane.
-  const size_t lcol = (size_t)w * lqp * win + lane;
-  const size_t lplane = (size_t)nw * lqp * win;
+  // Thread k's row k R + r of the left column; r + 1 is lrow words on.
+  const size_t lcol = ((size_t)w * win + lane) * kTeam + k;
+  const size_t lrow = (size_t)nw * win * kTeam;
+  const size_t lplane = lrow * R;
+  const int j0 = task.j0;
+  const int n = task.j1 - j0;  // positions of the block
+  const int32_t* bnd_in = task.bnd_in;
+  const int32_t* left_in = task.left_in;
   const int last = min(kTeam - 1, (lqp - 1) / R);
-  const int n = j1 - j0;  // positions of the block
-  const Pass ps{sprof + k, out, bnd_out + col + (size_t)j0 * win, plane, k,
-                last, lqp - 1 - last * R, n, win, lane, go, ge, one};
+  const Pass ps{sprof + k, best,
+                kOut ? task.bnd_out + col + (size_t)j0 * win : nullptr, plane,
+                k, last, lqp - 1 - last * R, n, win, lane, go, ge, one};
 
   Team<R> st;
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    const int row = k * R + r;
-    const bool carried = left_in != nullptr && row < lqp;
-    st.gg[r] = carried ? left_in[lcol + (size_t)row * win] : go;
-    st.e[r] = carried ? left_in[lplane + lcol + (size_t)row * win] : 0;
+    const bool carried = left_in != nullptr && k * R + r < lqp;
+    st.gg[r] = carried ? left_in[lcol + r * lrow] : go;
+    st.e[r] = carried ? left_in[lplane + lcol + r * lrow] : 0;
   }
   st.o_gg0 = st.o_gg1 = go;
   st.o_f0 = st.o_f1 = st.o_word = st.o_cm = 0;
-  st.diag = go;
-  if (k == 0) {
-    if (kIn && j0 > 0) st.diag = bnd_in[col + (size_t)(j0 - 1) * win];
-  } else if (left_in != nullptr && k * R - 1 < lqp) {
-    st.diag = left_in[lcol + (size_t)(k * R - 1) * win];
-  }
+  const int above = __shfl_up_sync(kFull, st.gg[R - 1], 1);
+  st.diag = k > 0 ? above
+                  : (bnd_in != nullptr && j0 > 0
+                         ? bnd_in[col + (size_t)(j0 - 1) * win]
+                         : go);
   st.best = 0;
   const int nsteps = n / 2 + last;
   for (int s0 = 0; s0 < nsteps; s0 += kTeam) {
-    // Thread 0's steps s0 .. s0 + 31, one per lane.
+    // Thread 0's steps s0 .. s0 + 31, one per lane; without bnd_in, row -1
+    // keeps the boundary the block starts with.
     Block b{0, go, 0, go, 0};
     {
       const int jr = 2 * (s0 + k);
@@ -280,7 +334,7 @@ __global__ void __launch_bounds__(team_warps<R>() * kTeam)
         const int8_t* c = streams + col + (size_t)(j0 + jr) * win;
         b.word = ((int)(uint8_t)c[0] & (kAlpha - 1)) |
                  (((int)(uint8_t)c[win] & (kAlpha - 1)) << kChar1Shift);
-        if constexpr (kIn) {
+        if (bnd_in != nullptr) {
           const int32_t* bi = bnd_in + col + (size_t)(j0 + jr) * win;
           b.gg0 = bi[0];
           b.f0 = bi[plane];
@@ -292,78 +346,56 @@ __global__ void __launch_bounds__(team_warps<R>() * kTeam)
     const int tn = min(kTeam, nsteps - s0);
 #pragma unroll 1
     for (int t = 0; t < tn; ++t) {
-      const Input in = receive<kIn, R, kTeam>(st, ps, t, b, kTeam);
+      const Input in = receive<true, R, kTeam>(st, ps, t, b, kTeam);
       const int j = 2 * (s0 + t - k);
       if ((unsigned)j < (unsigned)n) {
         team_step<R, kOut, kPartial, false>(st, in, ps, j);
       }
     }
   }
+  int32_t* left_out = task.left_out;
   if (left_out != nullptr) {
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      const int row = k * R + r;
-      if (row < lqp) {
-        left_out[lcol + (size_t)row * win] = st.gg[r];
-        left_out[lplane + lcol + (size_t)row * win] = st.e[r];
+      if (k * R + r < lqp) {
+        left_out[lcol + r * lrow] = st.gg[r];
+        left_out[lplane + lcol + r * lrow] = st.e[r];
       }
     }
   }
-  if (k == last) out[(size_t)w * win + lane] = st.best;
+  if (k == last) atomicMax(best + (size_t)w * win + lane, st.best);
 }
 
-template <int R, bool kIn, bool kOut, bool kPartial>
-int launch_block(const void* prof, const void* streams, void* out,
-                 const void* bnd_in, void* bnd_out, const void* left_in,
-                 void* left_out, int lqp, int len, int j0, int j1, int win,
-                 int nw, int go, int ge, cudaStream_t stream) {
+template <int R, bool kOut, bool kPartial>
+int launch_block(const void* tasks, int count, const void* streams,
+                 void* best, int len, int win, int nw, int go, int ge,
+                 cudaStream_t stream) {
   constexpr int kWarps = team_warps<R>();
   const size_t smem = (size_t)kAlpha * R * kTeam * sizeof(int32_t);
   cudaError_t err = cudaFuncSetAttribute(
-      sw_striped_block_kernel<R, kIn, kOut, kPartial>,
+      sw_striped_block_kernel<R, kOut, kPartial>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((win + kWarps - 1) / kWarps, nw);
-  sw_striped_block_kernel<R, kIn, kOut, kPartial>
+  const dim3 grid((win + kWarps - 1) / kWarps, nw, count);
+  sw_striped_block_kernel<R, kOut, kPartial>
       <<<grid, kWarps * kTeam, smem, stream>>>(
-          (const int32_t*)prof, (const int8_t*)streams, (int32_t*)out,
-          (const int32_t*)bnd_in, (int32_t*)bnd_out, (const int32_t*)left_in,
-          (int32_t*)left_out, lqp, len, j0, j1, win, nw, go, ge, 1);
+          (const BlockTask*)tasks, (const int8_t*)streams, (int32_t*)best,
+          len, win, nw, go, ge, 1);
   return (int)cudaGetLastError();
 }
 
-template <int R, bool kIn>
-int launch_block_out(const void* prof, const void* streams, void* out,
-                     const void* bnd_in, void* bnd_out, const void* left_in,
-                     void* left_out, int lqp, int len, int j0, int j1,
-                     int win, int nw, int go, int ge, cudaStream_t s) {
-  if (!bnd_out) {
-    return launch_block<R, kIn, false, false>(prof, streams, out, bnd_in,
-                                              bnd_out, left_in, left_out, lqp,
-                                              len, j0, j1, win, nw, go, ge, s);
-  }
-  return lqp % R != 0
-             ? launch_block<R, kIn, true, true>(prof, streams, out, bnd_in,
-                                                bnd_out, left_in, left_out,
-                                                lqp, len, j0, j1, win, nw, go,
-                                                ge, s)
-             : launch_block<R, kIn, true, false>(prof, streams, out, bnd_in,
-                                                 bnd_out, left_in, left_out,
-                                                 lqp, len, j0, j1, win, nw,
-                                                 go, ge, s);
-}
-
 template <int R>
-int launch_block_rows(const void* prof, const void* streams, void* out,
-                      const void* bnd_in, void* bnd_out, const void* left_in,
-                      void* left_out, int lqp, int len, int j0, int j1,
-                      int win, int nw, int go, int ge, cudaStream_t s) {
-  return bnd_in ? launch_block_out<R, true>(prof, streams, out, bnd_in,
-                                            bnd_out, left_in, left_out, lqp,
-                                            len, j0, j1, win, nw, go, ge, s)
-                : launch_block_out<R, false>(prof, streams, out, bnd_in,
-                                             bnd_out, left_in, left_out, lqp,
-                                             len, j0, j1, win, nw, go, ge, s);
+int launch_block_rows(const void* tasks, int count, const void* streams,
+                      void* best, int len, int win, int nw, int go, int ge,
+                      bool out, bool partial, cudaStream_t s) {
+  if (!out) {
+    return launch_block<R, false, false>(tasks, count, streams, best, len,
+                                         win, nw, go, ge, s);
+  }
+  return partial ? launch_block<R, true, true>(tasks, count, streams, best,
+                                               len, win, nw, go, ge, s)
+                 : launch_block<R, true, false>(tasks, count, streams, best,
+                                                len, win, nw, go, ge, s);
 }
 
 }  // namespace
@@ -406,40 +438,39 @@ int sw_stream_striped_launch(const void* prof, const void* streams,
   }
 }
 
-// Launch one block of one K2 pass on `stream` (sw_striped_block_kernel);
-// returns the CUDA error code (0 = launched). prof (lqp, 32) biased, lqp a
-// positive multiple of 4 and at most 32 x rows_per_thread; streams (nw,
-// len, win); out (nw, win); bnd_in / bnd_out (2, nw, len, win) or NULL;
-// left_in / left_out (2, nw, lqp, win) or NULL. 0 <= j0 < j1 <= len, both
-// multiples of the JB the kernel is built for.
-int sw_striped_block_launch(const void* prof, const void* streams, void* out,
-                            const void* bnd_in, void* bnd_out,
-                            const void* left_in, void* left_out, int lqp,
-                            int len, int j0, int j1, int win, int nw, int go,
-                            int ge, int rows_per_thread, void* stream) {
-  if (lqp <= 0 || lqp % kRowAlign || lqp > kTeam * rows_per_thread ||
-      win <= 0 || nw <= 0 || nw > 65535 || len <= 0 || len % JB || j0 < 0 ||
-      j0 % JB || j1 % JB || j1 <= j0 || j1 > len) {
+
+// Launch `count` tasks of K2's block instance on `stream`, one z slice of
+// the grid each (sw_striped_block_kernel); returns the CUDA error code (0 =
+// launched). tasks: `count` BlockTasks on the device, each checked by the
+// caller (swa_cuda.BlockTable): prof (lqp, 32) biased, lqp a positive
+// multiple of 4 and at most 32 x rows_per_thread (8, 16, 24 or 32, the
+// instances built); bnd_in, bnd_out (2, nw, len, win), bnd_out not NULL
+// where `out`; left_in, left_out (2, rows_per_thread, nw, win, 32); 0 <= j0
+// < j1 <= len, multiples of the JB the kernel is built for; `partial` where
+// each task's lqp is not a multiple of rows_per_thread (then `out`).
+// streams (nw, len, win); best (nw, win), max-merged.
+int sw_striped_block_launch(const void* tasks, int count, const void* streams,
+                            void* best, int len, int win, int nw, int go,
+                            int ge, int rows_per_thread, int out, int partial,
+                            void* stream) {
+  if (!tasks || count <= 0 || count > 65535 || win <= 0 || nw <= 0 ||
+      nw > 65535 || len <= 0 || len % JB || (partial && !out)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = (cudaStream_t)stream;
   switch (rows_per_thread) {
     case 8:
-      return launch_block_rows<8>(prof, streams, out, bnd_in, bnd_out,
-                                  left_in, left_out, lqp, len, j0, j1, win,
-                                  nw, go, ge, s);
+      return launch_block_rows<8>(tasks, count, streams, best, len, win, nw,
+                                  go, ge, out, partial, s);
     case 16:
-      return launch_block_rows<16>(prof, streams, out, bnd_in, bnd_out,
-                                   left_in, left_out, lqp, len, j0, j1, win,
-                                   nw, go, ge, s);
+      return launch_block_rows<16>(tasks, count, streams, best, len, win, nw,
+                                   go, ge, out, partial, s);
     case 24:
-      return launch_block_rows<24>(prof, streams, out, bnd_in, bnd_out,
-                                   left_in, left_out, lqp, len, j0, j1, win,
-                                   nw, go, ge, s);
+      return launch_block_rows<24>(tasks, count, streams, best, len, win, nw,
+                                   go, ge, out, partial, s);
     case 32:
-      return launch_block_rows<32>(prof, streams, out, bnd_in, bnd_out,
-                                   left_in, left_out, lqp, len, j0, j1, win,
-                                   nw, go, ge, s);
+      return launch_block_rows<32>(tasks, count, streams, best, len, win, nw,
+                                   go, ge, out, partial, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

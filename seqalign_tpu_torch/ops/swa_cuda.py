@@ -38,6 +38,13 @@ streams. A segment start resets a stripe's own rows and its diagonal seed
 (Gg = go), not its row -1: the boundary there already belongs to the new
 sequence.
 
+:func:`sw_stream_striped_step` runs K2's block instance for
+``parallel.sw_longpair``: tasks of a :class:`BlockTable`, each one block of
+positions of one sub-pass over fixed windows with the sub-pass's left
+column carried from block to block (one task's contract is its plain
+version's, :func:`sw_stream_striped_block_reference`), in one launch per
+instance, the lanes' bests max-merged.
+
 The fixed-batch kernel keeps the contract of ``sw_pallas_windows``:
 :func:`sw_windows` scores one query, or ``nq`` queries with a 3-D profile,
 against NW equal-length '*'-padded windows, one database sequence per
@@ -53,13 +60,16 @@ On a CUDA tensor each wrapper launches its kernel or raises: K1 and K3 the
 one-pass kernel of ``csrc/sw_stream.cuh`` (a team of T threads per lane, the
 query's rows in registers, no rolling-row scratch; :func:`stream_team`
 picks T and R), K2 ``csrc/sw_striped.cu`` (the same team step, a warp per
-lane, over row stripes), K4 and K5 ``csrc/sw_windows.cu``. On a CPU tensor
-it runs its plain version (:func:`sw_stream_reference`,
-:func:`sw_stream_multi_reference`, :func:`sw_stream_striped_pass_reference`,
-:func:`sw_windows_reference`).
+lane, over row stripes, and its block instance), K4 and K5
+``csrc/sw_windows.cu``. On a CPU tensor it runs its plain version
+(:func:`sw_stream_reference`, :func:`sw_stream_multi_reference`,
+:func:`sw_stream_striped_pass_reference`,
+:func:`sw_stream_striped_step_reference`, :func:`sw_windows_reference`).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -374,14 +384,10 @@ def stripe_kernel_instance(rows: int, bnd_in: bool, bnd_out: bool,
     kernel_key`` keys it: ``sw_stream_striped_kernel<R, kIn, kOut,
     kPartial>``, kPartial where the pass writes a last row that sits inside
     a thread."""
-    return _striped_instance("sw_stream_striped_kernel", rows, bnd_in, bnd_out,
-                             rows_per_thread)
-
-
-def _striped_instance(kernel, rows, bnd_in, bnd_out, rows_per_thread) -> str:
     r = rows_per_thread or stripe_rows_per_thread(rows)
     flags = (bnd_in, bnd_out, bnd_out and rows % r != 0)
-    return f"{kernel}<{r}, " + ", ".join("true" if f else "false" for f in flags) + ">"
+    return (f"sw_stream_striped_kernel<{r}, "
+            + ", ".join("true" if f else "false" for f in flags) + ">")
 
 
 def sw_stream_striped_pass(
@@ -432,13 +438,8 @@ def sw_stream_striped_pass(
         )
     _check_slots(nslots, "K2")
     rows = profile_biased.shape[0]
-    if rows_per_thread is not None and (
-            rows_per_thread not in STRIPE_ROWS_PER_THREAD_BUILT
-            or STRIPE_TEAM * rows_per_thread < rows):
-        raise ValueError(
-            f"rows_per_thread={rows_per_thread}: K2 is built for "
-            f"{STRIPE_ROWS_PER_THREAD_BUILT}, and a team must hold {rows} rows"
-        )
+    if rows_per_thread is not None:
+        _stripe_r(rows, rows_per_thread)
     if streams.device.type == "cpu":
         return sw_stream_striped_pass_reference(
             profile_biased, streams, fs, go, ge, nslots=nslots, jb=jb,
@@ -653,17 +654,60 @@ def sw_stream_striped_reference(
 sw_stream_striped_reference.calls = 0
 
 
-def block_kernel_instance(rows: int, bnd_in: bool, bnd_out: bool,
+def _stripe_r(rows: int, rows_per_thread: int | None) -> int:
+    """R of the K2 instance for ``rows`` rows: ``rows_per_thread``,
+    checked, or :func:`stripe_rows_per_thread`'s."""
+    if rows_per_thread is None:
+        return stripe_rows_per_thread(rows)
+    if rows_per_thread not in STRIPE_ROWS_PER_THREAD_BUILT or STRIPE_TEAM * rows_per_thread < rows:
+        raise ValueError(
+            f"rows_per_thread={rows_per_thread}: K2 is built for "
+            f"{STRIPE_ROWS_PER_THREAD_BUILT}, and a team must hold {rows} rows"
+        )
+    return rows_per_thread
+
+
+def block_kernel_instance(rows: int, bnd_out: bool,
                           rows_per_thread: int | None = None) -> str:
-    """The template instance of ``csrc/sw_striped.cu`` that a block of a
-    pass of ``rows`` rows launches (``launch_block_rows``' choice), keyed as
-    ``sass.kernel_key`` keys it: ``sw_striped_block_kernel<R, kIn, kOut,
-    kPartial>``."""
-    return _striped_instance("sw_striped_block_kernel", rows, bnd_in, bnd_out,
-                             rows_per_thread)
+    """The template instance of ``csrc/sw_striped.cu`` that a block task of
+    a sub-pass of ``rows`` rows launches (``launch_block_rows``' choice),
+    keyed as ``sass.kernel_key`` keys it: ``sw_striped_block_kernel<R,
+    kOut, kPartial>``, kPartial where the task writes a last row that sits
+    inside a thread. Row -1 is chosen at run time (no kIn)."""
+    r, out, partial = _block_key(rows, bnd_out, rows_per_thread)
+    return f"sw_striped_block_kernel<{r}, {str(out).lower()}, {str(partial).lower()}>"
 
 
-def _check_block(stripe, windows, go, ge, j0, j1, bnd_in, bnd_out, left_in, left_out):
+def _block_key(rows, bnd_out, rows_per_thread=None) -> tuple[int, bool, bool]:
+    r = _stripe_r(rows, rows_per_thread)
+    return r, bool(bnd_out), bool(bnd_out) and rows % r != 0
+
+
+def left_column(rows: int, windows: torch.Tensor,
+                rows_per_thread: int | None = None) -> torch.Tensor:
+    """An uninitialised left column for a sub-pass of ``rows`` rows over
+    ``windows``: ``(2, R, NW, win, 32)`` int32, row ``k R + r`` of window
+    ``w``, lane ``l`` at ``[:, r, w, l, k]`` (``(Gg, E)``), so the 32
+    threads of a warp touch 32 consecutive words. Words of rows past
+    ``rows`` are never read or written."""
+    nw, _, win = windows.shape
+    r = _stripe_r(rows, rows_per_thread)
+    return torch.empty((2, r, nw, win, STRIPE_TEAM), dtype=torch.int32, device=windows.device)
+
+
+def team_profile(stripe: torch.Tensor, rows_per_thread: int) -> torch.Tensor:
+    """``stripe`` ``(rows, 32)`` as a CTA of K2's block instance holds it in
+    shared memory: ``(32, R, 32)`` int32, ``[c, r, k] = stripe[k R + r,
+    c]``, 0 past the stripe's rows, so the CTA loads it with one coalesced
+    copy."""
+    r = rows_per_thread
+    padded = torch.zeros((STRIPE_TEAM * r, ALPHA), dtype=torch.int32, device=stripe.device)
+    padded[:stripe.shape[0]] = stripe
+    return padded.view(STRIPE_TEAM, r, ALPHA).permute(2, 1, 0).contiguous()
+
+
+def _check_block(stripe, windows, go, ge, j0, j1, bnd_in, bnd_out, left_in, left_out,
+                 rows_per_thread=None):
     if stripe.ndim != 2 or stripe.shape[1] != ALPHA:
         raise ValueError(f"stripe shape {tuple(stripe.shape)} != (rows, 32)")
     if stripe.shape[0] == 0:
@@ -681,7 +725,7 @@ def _check_block(stripe, windows, go, ge, j0, j1, bnd_in, bnd_out, left_in, left
     _check_rows_and_tensors(stripe, ("windows", windows), go=go, ge=ge)
     _check_bnd("bnd_in", bnd_in, windows)
     _check_bnd("bnd_out", bnd_out, windows)
-    want = (2, nw, stripe.shape[0], win)
+    want = (2, _stripe_r(stripe.shape[0], rows_per_thread), nw, win, STRIPE_TEAM)
     for name, t in (("left_in", left_in), ("left_out", left_out)):
         if t is None:
             continue
@@ -693,7 +737,129 @@ def _check_block(stripe, windows, go, ge, j0, j1, bnd_in, bnd_out, left_in, left
             raise ValueError(f"{name} is not contiguous")
 
 
-def sw_stream_striped_block(
+class BlockTask(NamedTuple):
+    """One task of K2's block instance: block ``[j0, j1)`` of one sub-pass,
+    the arguments of :func:`sw_stream_striped_block_reference` but the
+    windows and penalties, which a :class:`BlockTable` holds."""
+
+    stripe: torch.Tensor
+    j0: int
+    j1: int
+    bnd_in: torch.Tensor | None = None
+    bnd_out: torch.Tensor | None = None
+    left_in: torch.Tensor | None = None
+    left_out: torch.Tensor | None = None
+    rows_per_thread: int | None = None
+
+
+# Words of 64 bits a task takes in the table on the device (BlockTask of
+# csrc/sw_striped.cu): five pointers, (lqp, j0), (j1, 0), padding.
+BLOCK_TASK_WORDS = 8
+
+
+class BlockTable:
+    """Tasks of K2's block instance over one set of windows, checked once;
+    on a card also packed into one int64 tensor on the device
+    (``BLOCK_TASK_WORDS`` a task), which the kernel reads, with each
+    stripe's :func:`team_profile` (one per stripe and R, however many
+    blocks share it). ``keys[i]`` is task ``i``'s instance ``(R, kOut,
+    kPartial)``: one launch runs a run of tasks of one key."""
+
+    def __init__(self, windows: torch.Tensor, tasks: list[BlockTask], go: int, ge: int):
+        for t in tasks:
+            _check_block(t.stripe, windows, go, ge, t.j0, t.j1, t.bnd_in, t.bnd_out,
+                         t.left_in, t.left_out, t.rows_per_thread)
+        self.windows, self.tasks, self.go, self.ge = windows, list(tasks), int(go), int(ge)
+        self.keys = [_block_key(t.stripe.shape[0], t.bnd_out is not None, t.rows_per_thread)
+                     for t in tasks]
+        self.words, self.profiles = None, {}
+        if windows.device.type == "cuda" and tasks:
+            words = np.zeros((len(tasks), BLOCK_TASK_WORDS), dtype=np.int64)
+            for i, (t, (r, _, _)) in enumerate(zip(tasks, self.keys)):
+                key = (t.stripe.data_ptr(), t.stripe.shape[0], r)
+                if key not in self.profiles:
+                    self.profiles[key] = team_profile(t.stripe, r)
+                words[i, :5] = [0 if a is None else a.data_ptr() for a in (
+                    self.profiles[key], t.bnd_in, t.bnd_out, t.left_in, t.left_out)]
+            ints = words.view(np.int32)
+            ints[:, 10] = [t.stripe.shape[0] for t in tasks]
+            ints[:, 11] = [t.j0 for t in tasks]
+            ints[:, 12] = [t.j1 for t in tasks]
+            self.words = torch.from_numpy(words).to(windows.device)
+
+
+def _check_step(table, lo, hi, best):
+    if not 0 <= lo <= hi <= len(table.tasks):
+        raise ValueError(f"tasks [{lo}, {hi}) outside the table's {len(table.tasks)}")
+    nw, _, win = table.windows.shape
+    if tuple(best.shape) != (nw, win) or best.dtype != torch.int32 \
+            or best.device != table.windows.device or not best.is_contiguous():
+        raise ValueError(f"best must be a contiguous ({nw}, {win}) int32 tensor on "
+                         f"{table.windows.device}")
+
+
+def sw_stream_striped_step(table: BlockTable, lo: int, hi: int,
+                           best: torch.Tensor) -> torch.Tensor:
+    """Tasks ``lo .. hi - 1`` of ``table``, one step of ``sw_longpair``'s
+    pipeline: each task's block as :func:`sw_stream_striped_block_reference`
+    computes it, its lanes' bests max-merged into ``best`` ``(NW, win)`` int32 (in
+    place, returned). The tasks must not touch each other's words: no task
+    writes what another reads or writes (the bests aside), so the kernel
+    runs them at once and the plain version in table order, with one
+    result.
+
+    On a card, one launch of K2's block instance (``sw_striped_block_
+    kernel``) per run of tasks of one instance (``table.keys``), each task a
+    z slice of the grid; ``sw_stream_striped_step.launches`` counts them. On
+    the CPU, the plain version (:func:`sw_stream_striped_step_reference`).
+    """
+    _check_step(table, lo, hi, best)
+    dev = table.windows.device
+    if dev.type == "cpu":
+        return sw_stream_striped_step_reference(table, lo, hi, best)
+    if dev.type != "cuda":
+        raise ValueError(f"no block kernel for device {dev}")
+    nw, length, win = table.windows.shape
+    first = lo
+    while first < hi:
+        end = first + 1
+        while end < hi and table.keys[end] == table.keys[first]:
+            end += 1
+        r, out, partial = table.keys[first]
+        _call(
+            "sw_striped_block", dev,
+            table.words.data_ptr() + first * BLOCK_TASK_WORDS * 8, end - first,
+            table.windows.data_ptr(), best.data_ptr(), length, win, nw,
+            table.go, table.ge, r, int(out), int(partial),
+        )
+        sw_stream_striped_step.launches += 1
+        first = end
+    return best
+
+
+sw_stream_striped_step.launches = 0
+
+
+def sw_stream_striped_step_reference(table: BlockTable, lo: int, hi: int,
+                                     best: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`sw_stream_striped_step`, same
+    contract: :func:`sw_stream_striped_block_reference` over the tasks in
+    table order, each block's bests max-merged into ``best``."""
+    _check_step(table, lo, hi, best)
+    sw_stream_striped_step_reference.calls += 1
+    for t in table.tasks[lo:hi]:
+        out, _, _ = sw_stream_striped_block_reference(
+            t.stripe, table.windows, table.go, table.ge, j0=t.j0, j1=t.j1,
+            bnd_in=t.bnd_in, bnd_out=t.bnd_out, left_in=t.left_in, left_out=t.left_out,
+            rows_per_thread=t.rows_per_thread)
+        torch.maximum(best, out, out=best)
+    return best
+
+
+sw_stream_striped_step_reference.calls = 0
+
+
+def sw_stream_striped_block_reference(
     stripe: torch.Tensor,
     windows: torch.Tensor,
     go: int,
@@ -708,7 +874,9 @@ def sw_stream_striped_block(
     rows_per_thread: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor | None, torch.Tensor | None]:
     """One block of positions ``[j0, j1)`` of one row stripe against fixed
-    windows, in one launch (K2's block instance, ``sw_striped_block_kernel``).
+    windows: the plain PyTorch version of one task of K2's block instance
+    (``sw_striped_block_kernel``, launched by :func:`sw_stream_striped_step`
+    for a :class:`BlockTable` of tasks).
 
     Each lane of a window is one database sequence from position 0, as
     ``convert.batch_windows`` lays them out; there is no segment table. The
@@ -731,68 +899,19 @@ def sw_stream_striped_block(
         F = 0).
       bnd_out: ``(2, NW, L, win)`` int32, written with the last row's ``(Gg,
         F)`` inside ``[j0, j1)`` only; None writes nothing.
-      left_in: ``(2, NW, rows, win)`` int32 ``(Gg, E)`` of every row at
-        position ``j0 - 1`` (the previous block's ``left_out``); None: the
-        boundary Gg = go, E = 0, as at position 0.
-      left_out: ``(2, NW, rows, win)`` int32, written with every row's
+      left_in: the left column (:func:`left_column`: ``(2, R, NW, win,
+        32)`` int32, coalesced) holding every row's ``(Gg, E)`` at position
+        ``j0 - 1`` (the previous block's ``left_out``); None: the boundary
+        Gg = go, E = 0, as at position 0.
+      left_out: a left column of the same shape, written with every row's
         ``(Gg, E)`` at ``j1 - 1``; it may be ``left_in`` itself. None
         writes nothing.
       rows_per_thread: R of the instance, as :func:`sw_stream_striped_pass`
-        takes it.
+        takes it; it also sets the left column's shape.
 
     Returns:
       ``((NW, win)`` int32 best G of each lane over the block's cells,
-      ``bnd_out``, ``left_out)``. ``sw_stream_striped_block.launches``
-      counts the kernel's launches.
-    """
-    _check_block(stripe, windows, go, ge, j0, j1, bnd_in, bnd_out, left_in, left_out)
-    rows = stripe.shape[0]
-    if rows_per_thread is not None and (
-            rows_per_thread not in STRIPE_ROWS_PER_THREAD_BUILT
-            or STRIPE_TEAM * rows_per_thread < rows):
-        raise ValueError(
-            f"rows_per_thread={rows_per_thread}: K2 is built for "
-            f"{STRIPE_ROWS_PER_THREAD_BUILT}, and a team must hold {rows} rows"
-        )
-    if windows.device.type == "cpu":
-        return sw_stream_striped_block_reference(
-            stripe, windows, go, ge, j0=j0, j1=j1, bnd_in=bnd_in,
-            bnd_out=bnd_out, left_in=left_in, left_out=left_out,
-        )
-    if windows.device.type != "cuda":
-        raise ValueError(f"no block kernel for device {windows.device}")
-    nw, length, win = windows.shape
-    out = torch.empty((nw, win), dtype=torch.int32, device=windows.device)
-    _call(
-        "sw_striped_block", windows.device, stripe.data_ptr(), windows.data_ptr(),
-        out.data_ptr(),
-        *(None if t is None else t.data_ptr()
-          for t in (bnd_in, bnd_out, left_in, left_out)),
-        rows, length, j0, j1, win, nw, int(go), int(ge),
-        rows_per_thread or stripe_rows_per_thread(rows),
-    )
-    sw_stream_striped_block.launches += 1
-    return out, bnd_out, left_out
-
-
-sw_stream_striped_block.launches = 0
-
-
-def sw_stream_striped_block_reference(
-    stripe: torch.Tensor,
-    windows: torch.Tensor,
-    go: int,
-    ge: int,
-    *,
-    j0: int,
-    j1: int,
-    bnd_in: torch.Tensor | None = None,
-    bnd_out: torch.Tensor | None = None,
-    left_in: torch.Tensor | None = None,
-    left_out: torch.Tensor | None = None,
-) -> tuple[torch.Tensor, torch.Tensor | None, torch.Tensor | None]:
-    """Plain PyTorch version of :func:`sw_stream_striped_block`, same
-    contract.
+      ``bnd_out``, ``left_out)``.
 
     An anti-diagonal wavefront over the block: step ``d`` computes the cells
     ``(i, j0 + d - i)`` of every window and lane. A row keeps its state
@@ -800,25 +919,28 @@ def sw_stream_striped_block_reference(
     column, and after its last, so that it ends holding ``j1 - 1``'s.
     State is laid out ``(row, window, lane)``.
     """
-    _check_block(stripe, windows, go, ge, j0, j1, bnd_in, bnd_out, left_in, left_out)
+    _check_block(stripe, windows, go, ge, j0, j1, bnd_in, bnd_out, left_in, left_out,
+                 rows_per_thread)
     sw_stream_striped_block_reference.calls += 1
     dev = windows.device
     rows = stripe.shape[0]
     nw, length, win = windows.shape
     n = j1 - j0
     shape = (rows, nw, win)
+    # Row i of the left column at [:, i % R, :, :, i // R].
+    r_per = _stripe_r(rows, rows_per_thread)
+    iota = torch.arange(rows, device=dev)
+    at = (iota % r_per, slice(None), slice(None), iota // r_per)
     if left_in is None:
         gg1 = torch.full(shape, go, dtype=torch.int32, device=dev)
         e1 = torch.zeros(shape, dtype=torch.int32, device=dev)
     else:  # (Gg, E) at j0 - 1, as (row, window, lane)
-        gg1 = left_in[0].transpose(0, 1).clone()
-        e1 = left_in[1].transpose(0, 1).clone()
+        gg1, e1 = left_in[0][at].clone(), left_in[1][at].clone()
     f1 = torch.zeros(shape, dtype=torch.int32, device=dev)
     gg2 = gg1  # the state one diagonal earlier
     best = torch.zeros((nw, win), dtype=torch.int32, device=dev)
     go_row = torch.full((1, nw, win), go, dtype=torch.int32, device=dev)
     zero_row = torch.zeros((1, nw, win), dtype=torch.int32, device=dev)
-    iota = torch.arange(rows, device=dev)
     w_idx = torch.arange(nw, device=dev)[None, :]
     row_base = (iota * ALPHA)[:, None, None]
     prof_flat = stripe.reshape(-1)
@@ -856,8 +978,8 @@ def sw_stream_striped_block_reference(
         e1 = torch.where(v, e, e1)
         f1 = torch.where(v, f, f1)
     if left_out is not None:
-        left_out[0].copy_(gg1.transpose(0, 1))
-        left_out[1].copy_(e1.transpose(0, 1))
+        left_out[0][at] = gg1
+        left_out[1][at] = e1
     return best, bnd_out, left_out
 
 

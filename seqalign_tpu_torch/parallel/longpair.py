@@ -3,27 +3,35 @@
 The port of ``seqalign_tpu.parallel.longpair``. The query's DP rows are cut
 into one stripe per mesh entry, and the only coupling, each stripe's last
 row ``(Gg, F)`` at every database position, flows from entry ``k`` to entry
-``k + 1``. The entries march database blocks as a wavefront pipeline: at
-step ``t`` entry ``k`` scores block ``t - k`` of its stripe, so after the
-fill all entries compute at once on successive blocks. Entry 0 reads the
-local-alignment boundary (Gg = go, F = 0) above its stripe.
+``k + 1``. The entries march database blocks as a wavefront pipeline, so
+after the fill all entries compute at once on successive blocks. Entry 0
+reads the local-alignment boundary (Gg = go, F = 0) above its stripe.
 
-Each block of a stripe is one launch of K2's block instance
-(``ops.swa_cuda.sw_stream_striped_block``) per sub-pass of at most
-``STRIPE_ROWS`` rows: the sub-passes of a block chain their boundary
-within the entry, and each carries its own left column, ``(Gg, E)`` of
-its rows at the block's last position, to the entry's next block. Every
-entry runs on its own CUDA stream. At each step entry ``k`` waits on the
-event entry ``k - 1`` recorded after the block, and copies that block of
-the edge boundary to its own device on its own stream: a copy within one
-card, or a peer copy between cards. JAX's ``lax.ppermute`` is such a
-hand-off inside one program, so no collective library is involved (NCCL
-also refuses two ranks on one card). Each stripe edge has a full-length
-boundary array on each side, and each edge between two sub-passes one
-of its own, written one block at a time and never reused: no write races
-a read, and a block's first sub-pass finds its corner (the row above at
-the block's first position - 1) as the block before left it. On CPU entries the same blocks run
-their plain version, one after another, in the same order.
+The rows of a stripe run as sub-passes of at most ``STRIPE_ROWS`` rows,
+and every sub-pass of every entry of a data slice is a pipeline stage
+sigma, numbered in row order (the sub-passes of the entries before, plus
+its own index p). At step ``t`` stage sigma scores block ``t - sigma``, so
+an entry's tasks of a step, one (sub-pass, block) pair each, lie on an
+anti-diagonal of its grid and are independent: task (p, b) reads the
+boundary row that (p - 1, b) wrote and the left column, ``(Gg, E)`` of its
+rows at the block's last position, that (p, b - 1) wrote, both a step
+before, and its corner (the row above at the block's first position - 1)
+two steps before. One launch of K2's block instance (``ops.swa_cuda.
+sw_stream_striped_step``, or two where the entry's last sub-pass needs
+another instance) runs an entry's tasks of a step from a task table built
+once a call and put on the device once; each task max-merges its lanes'
+bests into the entry's best. Every entry runs on its own CUDA stream. At
+each step entry ``k`` waits on the event entry ``k - 1`` recorded a step
+before, and copies the block its first stage scores of the edge boundary
+to its own device on its own stream: a copy within one card, or a peer
+copy between cards. JAX's ``lax.ppermute`` is such a hand-off inside one
+program, so no collective library is involved (NCCL also refuses two ranks
+on one card). Each stripe edge has a full-length boundary array on each
+side, and each edge between two sub-passes one of its own, written one
+block at a time and never reused: no write races a read, and a block's
+first sub-pass finds its corner as the block before left it. On CPU
+entries the same steps run their plain version, task by task, in the same
+order.
 """
 
 from __future__ import annotations
@@ -36,7 +44,10 @@ import torch
 from ..convert import ROW_ALIGN, batch_windows, profile_stripes
 from ..host import PAD_INDEX
 from ..ops import swa_cuda
-from ..ops.swa_cuda import ALPHA, STREAM_JB, supported_scoring, sw_stream_striped_block
+from ..ops.swa_cuda import (
+    ALPHA, STREAM_JB, BlockTable, BlockTask, left_column, supported_scoring,
+    sw_stream_striped_step,
+)
 
 
 def _grid(mesh, data_axis) -> list[list[torch.device]]:
@@ -68,51 +79,111 @@ def _grid(mesh, data_axis) -> list[list[torch.device]]:
 
 class _Entry:
     """One mesh entry's stripe: its sub-passes, left columns, boundaries,
-    running best, stream and the events it records after each block."""
+    running best, stream, task table and the events it records after each
+    step."""
 
     def __init__(self, subs, windows, edge_in: bool, edge_out: bool):
         dev = windows.device
         _, length, win = windows.shape
         self.subs, self.windows = subs, windows
-        self.left = [torch.empty((2, 1, s.shape[0], win), dtype=torch.int32, device=dev)
-                     for s in subs]
+        self.left = [left_column(s.shape[0], windows) for s in subs]
         bnd = (2, 1, length, win)
         # One boundary array per edge between sub-passes: sub-pass p + 1
-        # reads its corner at j0 - 1, which sub-pass p wrote a block before.
+        # reads its corner at j0 - 1, which sub-pass p wrote with the block
+        # before.
         self.inner = [torch.empty(bnd, dtype=torch.int32, device=dev)
                       for _ in range(len(subs) - 1)]
         self.edge_in = torch.empty(bnd, dtype=torch.int32, device=dev) if edge_in else None
         self.edge_out = torch.empty(bnd, dtype=torch.int32, device=dev) if edge_out else None
         self.best = torch.zeros((1, win), dtype=torch.int32, device=dev)
         self.stream = torch.cuda.Stream(device=dev) if dev.type == "cuda" else None
-        self.events = []
+        self.events = {}
+
+    def plan(self, first_stage: int, n_steps: int, n_blocks: int, blk: int, go: int, ge: int):
+        """Build the entry's task table: its sub-pass ``p`` is stage
+        ``first_stage + p`` and scores block ``t - first_stage - p`` at step
+        ``t``. ``steps[t]`` is ``(lo, hi, edge)``: the step's tasks
+        ``[lo, hi)`` of the table, in row order (all sub-passes but the
+        last share an instance, so one or two launches), and the positions
+        ``(j0, j1)`` of the edge boundary to take from the entry before
+        first, or None."""
+        length = self.windows.shape[1]
+        last = len(self.subs) - 1
+        tasks, self.steps = [], []
+        for t in range(n_steps):
+            lo = len(tasks)
+            for p, sub in enumerate(self.subs):
+                b = t - first_stage - p
+                if 0 <= b < n_blocks:
+                    j0 = b * blk
+                    tasks.append(BlockTask(
+                        sub, j0, min(j0 + blk, length),
+                        bnd_in=self.edge_in if p == 0 else self.inner[p - 1],
+                        bnd_out=self.edge_out if p == last else self.inner[p],
+                        left_in=None if b == 0 else self.left[p],
+                        left_out=None if b == n_blocks - 1 else self.left[p]))
+            b = t - first_stage
+            edge = None
+            if self.edge_in is not None and 0 <= b < n_blocks:
+                edge = (b * blk, min((b + 1) * blk, length))
+            self.steps.append((lo, len(tasks), edge))
+        self.table = BlockTable(self.windows, tasks, go, ge)
 
     def on_stream(self):
         return torch.cuda.stream(self.stream) if self.stream else contextlib.nullcontext()
 
-    def run_block(self, prev, b, j0, j1, last_block, go, ge):
-        """Block ``b`` = positions ``[j0, j1)``: take the edge above from
-        ``prev`` (the entry before, or None), run every sub-pass, max-merge
-        the bests and record the block's event."""
+    def run_step(self, t: int, prev):
+        """Step ``t``: take the edge block from ``prev`` (the entry before,
+        which recorded its event a step before), launch the step's tasks
+        and record the step's event."""
+        lo, hi, edge = self.steps[t]
+        if lo == hi:
+            return
         with self.on_stream():
-            if prev is not None:
+            if edge is not None:
                 if self.stream:
-                    self.stream.wait_event(prev.events[b])
+                    self.stream.wait_event(prev.events[t - 1])
+                j0, j1 = edge
                 self.edge_in[:, :, j0:j1].copy_(prev.edge_out[:, :, j0:j1], non_blocking=True)
-            last = len(self.subs) - 1
-            for p, sub in enumerate(self.subs):
-                out, _, _ = sw_stream_striped_block(
-                    sub, self.windows, go, ge, j0=j0, j1=j1,
-                    bnd_in=self.edge_in if p == 0 else self.inner[p - 1],
-                    bnd_out=self.edge_out if p == last else self.inner[p],
-                    left_in=None if b == 0 else self.left[p],
-                    left_out=None if last_block else self.left[p],
-                )
-                torch.maximum(self.best, out, out=self.best)
+            sw_stream_striped_step(self.table, lo, hi, self.best)
             if self.stream:
                 ev = torch.cuda.Event()
                 ev.record(self.stream)
-                self.events.append(ev)
+                self.events[t] = ev
+
+
+def _pipeline(prof: np.ndarray, db: np.ndarray, go: int, ge: int, grid, jb: int):
+    """``sw_longpair``'s entries of each data slice, their arrays and task
+    tables planned (nothing launched), and the number of steps: stages +
+    blocks - 1, the stages every sub-pass of a data slice."""
+    lq = prof.shape[0]
+    lb, b = db.shape
+    seq_count, data_count = len(grid[0]), len(grid)
+    rows = -(-(-(-lq // seq_count)) // ROW_ALIGN) * ROW_ALIGN
+    shard = -(-b // data_count)
+    dbp = np.full((lb, shard * data_count), PAD_INDEX, dtype=np.int8)
+    dbp[:, :b] = db
+    blk = -(-jb // STREAM_JB) * STREAM_JB
+
+    slices = []
+    for d, row in enumerate(grid):
+        lanes = dbp[:, d * shard:(d + 1) * shard]
+        windows = {dev: batch_windows(lanes, shard, STREAM_JB, dev) for dev in set(row)}
+        starts = range(0, lq, rows)
+        slices.append([
+            _Entry(profile_stripes(prof[s:s + rows], go, swa_cuda.STRIPE_ROWS, dev),
+                   windows[dev], edge_in=k > 0, edge_out=k < len(starts) - 1)
+            for k, (s, dev) in enumerate(zip(starts, row))
+        ])
+    length = slices[0][0].windows.shape[1]
+    n_blocks = -(-length // blk)
+    n_steps = sum(len(ent.subs) for ent in slices[0]) + n_blocks - 1
+    for sl in slices:
+        first = 0
+        for ent in sl:
+            ent.plan(first, n_steps, n_blocks, blk, go, ge)
+            first += len(ent.subs)
+    return slices, n_steps
 
 
 def sw_longpair(
@@ -177,25 +248,7 @@ def sw_longpair(
     dev0 = grid[0][0]
     if lq == 0 or lb == 0 or b == 0:
         return torch.zeros(b, dtype=torch.int32, device=dev0)
-    seq_count, data_count = len(grid[0]), len(grid)
-    rows = -(-(-(-lq // seq_count)) // ROW_ALIGN) * ROW_ALIGN
-    shard = -(-b // data_count)
-    dbp = np.full((lb, shard * data_count), PAD_INDEX, dtype=np.int8)
-    dbp[:, :b] = db
-    blk = -(-jb // STREAM_JB) * STREAM_JB
-
-    slices = []
-    for d, row in enumerate(grid):
-        lanes = dbp[:, d * shard:(d + 1) * shard]
-        windows = {dev: batch_windows(lanes, shard, STREAM_JB, dev) for dev in set(row)}
-        starts = range(0, lq, rows)
-        slices.append([
-            _Entry(profile_stripes(prof[s:s + rows], go, swa_cuda.STRIPE_ROWS, dev),
-                   windows[dev], edge_in=k > 0, edge_out=k < len(starts) - 1)
-            for k, (s, dev) in enumerate(zip(starts, row))
-        ])
-    length = slices[0][0].windows.shape[1]
-    n_blocks = -(-length // blk)
+    slices, n_steps = _pipeline(prof, db, go, ge, grid, jb)
 
     cuda = dev0.type == "cuda"
     if cuda:
@@ -203,15 +256,10 @@ def sw_longpair(
         start.record(torch.cuda.current_stream(dev0))
         for ent in (e for sl in slices for e in sl):
             ent.stream.wait_stream(torch.cuda.current_stream(ent.windows.device))
-    active = len(slices[0])
-    for t in range(n_blocks + active - 1):
+    for t in range(n_steps):
         for sl in slices:
             for k, ent in enumerate(sl):
-                blk_k = t - k
-                if 0 <= blk_k < n_blocks:
-                    j0 = blk_k * blk
-                    ent.run_block(sl[k - 1] if k else None, blk_k, j0,
-                                  min(j0 + blk, length), blk_k == n_blocks - 1, go, ge)
+                ent.run_step(t, sl[k - 1] if k else None)
     if cuda:
         for ent in (e for sl in slices for e in sl):
             torch.cuda.current_stream(ent.windows.device).wait_stream(ent.stream)

@@ -79,6 +79,14 @@ QUERY_LEN = 144
 # the JAX package's TPU lane batch, a middle width, and 66 windows of 1,024
 # lanes (one wave of 2 CTAs x 256 threads on each of an H100's 132 SMs).
 FIXED_LANES = (4096, 16384, 67584)
+# The long pair's cells (chip_smoke's phase 13, ``turns --longpair``): one
+# titin-class query (the JAX tool's --lq 35000) against the LONGPAIR_RECORDS
+# longest records as one lane batch, through ``parallel.sw_longpair`` on
+# entries of one card: (entries, data slices, jb), a 1-D mesh for one data
+# slice, else data x seq.
+LONGPAIR_LQ = 35_000
+LONGPAIR_RECORDS = 1024
+LONGPAIR_RUNS = ((1, 1, 128), (2, 1, 128), (4, 1, 128), (2, 2, 128), (4, 1, 512))
 
 
 def swissprot_db(seed: int = 42):
@@ -109,6 +117,32 @@ def pam250() -> ScoringModel:
     return load_builtin(
         "PAM250", ScoringModel(gap_open=-2, gap_extend=-1, use_match_mismatch=False)
     )
+
+
+def longpair_case(db: EncodedDatabase):
+    """The long pair's inputs over ``db`` (``swissprot_db``'s): (the
+    encoded LONGPAIR_LQ-residue query, its profile, PAM250, the
+    LONGPAIR_RECORDS longest records as an EncodedDatabase, their ``(L,
+    records)`` lane batch)."""
+    from .host import pack_batch
+    from .ops.swa_torch import make_profile
+    from .pipeline import _db_from_encoded
+
+    sc = pam250()
+    query = random_query(LONGPAIR_LQ, LONGPAIR_LQ)
+    ids = np.argsort(-db.lengths, kind="stable")[:LONGPAIR_RECORDS]
+    sub = _db_from_encoded([db.seq[db.offsets[i]:db.offsets[i + 1]] for i in ids])
+    batch = pack_batch(sub, np.arange(sub.n), sub.n, int(sub.lengths.max()))
+    return query, make_profile(sc.table, query), sc, sub, batch
+
+
+def longpair_mesh(dev, entries: int, data: int):
+    """A run of LONGPAIR_RUNS on ``dev``: (the mesh, ``sw_longpair``'s axis
+    keywords, its name)."""
+    if data == 1:
+        return [dev] * entries, {}, f"x{entries}"
+    return ([[dev] * entries for _ in range(data)], {"axis": "seq", "data_axis": "data"},
+            f"{data}x{entries} data x seq")
 
 
 def write_fasta(db: EncodedDatabase, path: Path) -> None:

@@ -1,7 +1,8 @@
 """Time the stream kernels (K1, K3) of this checkout against another
-checkout's, in turns, on one card.
+checkout's, in turns, on one card; or, with ``--longpair``, its
+sequence-parallel long pair.
 
-    python -m seqalign_tpu_torch.turns --against DIR [--reps N] [--out FILE.json]
+    python -m seqalign_tpu_torch.turns --against DIR [--longpair] [--reps N] [--out FILE.json]
 
 ``DIR`` is the root of another checkout of the repo (for example the parent
 commit, unpacked with ``git archive`` into ``build/parent``). A worker
@@ -16,8 +17,16 @@ and 1536 (``search_database``), K3 at 8 x 17 and 64 x 144
 and replays them ``--reps`` times under CUDA events: the kernels' time as
 each checkout's pipeline launches them, with its own windows, query blocks
 and kernel instances; and the search's device-memory peak above what was
-held before it. The scores of every run must be equal. Each line
-names the card and its power limit; ``--out`` gets the same as JSON.
+held before it. With ``--longpair`` it runs the long pair's cells instead
+(``swissprot.LONGPAIR_RUNS``): ``parallel.sw_longpair`` at lq=35,000
+against the 1,024 longest records, as chip_smoke's phase 13 lays them out
+(``swissprot.longpair_case``, built once by this checkout and handed to
+both checkouts' workers in ``build/turns/longpair.npz``), on entries of the
+one card, each call once untimed and then ``--reps`` times under its own
+CUDA-event timer (``events=``: first launch to merged result), with the
+block kernel's launches and the call's device-memory peak. The scores of
+every run must be equal. Each line names the card and its power limit;
+``--out`` gets the same as JSON.
 """
 
 from __future__ import annotations
@@ -34,6 +43,70 @@ CELLS = (
     ("K1", 1, 17, 17), ("K1", 1, 144, None), ("K1", 1, 512, 512),
     ("K1", 1, 1536, 1536), ("K3", 8, 17, 100), ("K3", 64, 144, 200),
 )
+LONGPAIR_INPUTS = Path("build/turns/longpair.npz")
+
+
+def _longpair_inputs(this: Path) -> Path:
+    """The long pair's inputs (``swissprot.longpair_case``), written under
+    this checkout for both checkouts' workers."""
+    import numpy as np
+
+    from seqalign_tpu_torch.swissprot import (
+        LONGPAIR_RUNS, longpair_case, longpair_mesh, swissprot_db,
+    )
+
+    _, profile, sc, _, batch = longpair_case(swissprot_db()[1])
+    path = this / LONGPAIR_INPUTS
+    path.parent.mkdir(parents=True, exist_ok=True)
+    names = [f"longpair {longpair_mesh(None, e, d)[2]} jb={jb}" for e, d, jb in LONGPAIR_RUNS]
+    np.savez(path, profile=profile, batch=batch, runs=np.array(LONGPAIR_RUNS),
+             names=np.array(names), gaps=np.array([sc.gap_open_total, sc.gap_extend]))
+    return path
+
+
+def _longpair_worker(root: str, reps: int, inputs: str) -> dict:
+    """One checkout's long-pair cells on ``inputs``; imports its package
+    from ``root``."""
+    sys.path[0] = root
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from seqalign_tpu_torch.ops import swa_cuda
+    from seqalign_tpu_torch.parallel import sw_longpair
+    from seqalign_tpu_torch.swissprot import card
+
+    data = np.load(inputs)
+    profile, batch = data["profile"], data["batch"]
+    go, ge = (int(x) for x in data["gaps"])
+    # The block kernel's launch counter, under either checkout's name.
+    counters = [f for f in (getattr(swa_cuda, "sw_stream_striped_block", None),
+                            getattr(swa_cuda, "sw_stream_striped_step", None))
+                if f is not None and hasattr(f, "launches")]
+    out = {"root": root, "card": card(), "cells": {}}
+    dev = torch.device("cuda", 0)
+    for (entries, slices, jb), name in zip(data["runs"].tolist(), data["names"].tolist()):
+        mesh = [dev] * entries if slices == 1 else [[dev] * entries for _ in range(slices)]
+        kw = {} if slices == 1 else {"axis": "seq", "data_axis": "data"}
+        ms = []
+        for rep in range(reps + 1):  # the first call untimed
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            for f in counters:
+                f.launches = 0
+            events = []
+            scores = sw_longpair(profile, batch, go, ge, mesh, jb=jb, events=events,
+                                 **kw).cpu().numpy()
+            if rep:
+                ms.append(events[0][0].elapsed_time(events[0][1]))
+        out["cells"][name] = {
+            "launches": sum(f.launches for f in counters), "ms": ms,
+            "memory_peak_bytes": torch.cuda.max_memory_allocated() - base,
+            "scores_sha256": hashlib.sha256(scores.tobytes()).hexdigest(),
+        }
+    return out
 
 
 def _worker(root: str, reps: int) -> dict:
@@ -92,15 +165,17 @@ def _worker(root: str, reps: int) -> dict:
     return out
 
 
-def run(other: Path, reps: int = 3, say=print) -> dict:
+def run(other: Path, reps: int = 3, say=print, longpair: bool = False) -> dict:
     """The four turns (other, this, this, other) and, per cell, each run's
-    fastest replay, both checkouts' launches and other / this."""
+    fastest replay (call, for the long pair), both checkouts' launches and
+    other / this."""
     this = Path(__file__).resolve().parents[1]
+    extra = ["--longpair", "--inputs", str(_longpair_inputs(this))] if longpair else []
     runs = []
     for root in (other, this, this, other):
         proc = subprocess.run(
             [sys.executable, str(Path(__file__).resolve()), "--worker", str(root),
-             "--reps", str(reps)],
+             "--reps", str(reps)] + extra,
             cwd=root, capture_output=True, text=True, timeout=1200,
         )
         if proc.returncode:
@@ -131,17 +206,21 @@ def run(other: Path, reps: int = 3, say=print) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--against", help="the root of the other checkout")
+    ap.add_argument("--longpair", action="store_true",
+                    help="time sw_longpair (swissprot.LONGPAIR_RUNS) instead of K1 and K3")
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--out", default=None)
     ap.add_argument("--worker", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--inputs", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.worker:
-        print(json.dumps(_worker(args.worker, args.reps)))
+        print(json.dumps(_longpair_worker(args.worker, args.reps, args.inputs)
+                         if args.longpair else _worker(args.worker, args.reps)))
         return 0
     if not args.against:
         ap.error("--against DIR is required")
     result = run(Path(args.against).resolve(), args.reps,
-                 lambda msg: print(msg, flush=True))
+                 lambda msg: print(msg, flush=True), args.longpair)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(result, indent=1))

@@ -1,6 +1,6 @@
 """The port's sequence-parallel long pair (``seqalign_tpu_torch.parallel.
-sw_longpair``) and K2's block instance (``swa_cuda.sw_stream_striped_block``)
-against the JAX package on the CPU: the port runs on ``[cpu] * D`` (the
+sw_longpair``) and K2's block instance (``swa_cuda.sw_stream_striped_step``,
+one task's plain version ``sw_stream_striped_block_reference``) against the JAX package on the CPU: the port runs on ``[cpu] * D`` (the
 block's plain version), the JAX package on the 8 CPU devices ``conftest.py``
 forces. Every comparison is exact (int32, tolerance 0). The tests marked
 ``cuda`` run the kernel and skip without a card."""
@@ -19,7 +19,7 @@ from seqalign_tpu.parallel.sharding import make_mesh as jax_make_mesh
 from seqalign_tpu_torch import parallel
 from seqalign_tpu_torch.convert import batch_windows, profile_stripes
 from seqalign_tpu_torch.ops import swa_cuda
-from seqalign_tpu_torch.parallel import make_mesh, sw_longpair
+from seqalign_tpu_torch.parallel import longpair, make_mesh, sw_longpair
 
 from _torch_cases import SCORINGS, make_scoring
 from conftest import random_protein
@@ -137,13 +137,252 @@ def test_stripes_run_as_sub_passes(monkeypatch, stripe_rows, subs):
     prof, db = _case(sc, np.random.default_rng(44), 43, 90, 7)
     go, ge = sc.gap_open_total, sc.gap_extend
     calls = swa_cuda.sw_stream_striped_block_reference.calls
+    steps = swa_cuda.sw_stream_striped_step_reference.calls
     got = _port(prof, db, sc, [CPU] * 2, jb=32)
-    # 3 blocks (L = 96) x the entries' sub-passes.
+    # 3 blocks (L = 96) x the entries' sub-passes, in one plain step call
+    # per entry and step it has tasks in: sub-passes + blocks - 1 an entry.
     assert swa_cuda.sw_stream_striped_block_reference.calls - calls == 3 * sum(subs)
+    assert swa_cuda.sw_stream_striped_step_reference.calls - steps == sum(n + 2 for n in subs)
     np.testing.assert_array_equal(got, np.asarray(sw_wavefront(prof, db, go, ge)))
     np.testing.assert_array_equal(
         got, np.asarray(jax_sw_longpair(prof, db, go, ge, jax_make_mesh(jax.devices()[:2]),
                                         jb=32)))
+
+
+# Query rows per STRIPE_ROWS and seq entries: 5-6 sub-passes an entry
+# (at 4 rows: 22 rows on one entry, 24 + 21 on two, 24 x 3 + 18 on four).
+_STAGED_LQ = {1: 22, 2: 45, 4: 90}
+
+
+def _mesh(shape):
+    """[cpu] x s for (s,), a d x s data x seq mesh for (d, s)."""
+    if len(shape) == 1:
+        return [CPU] * shape[0], {}, jax_make_mesh(jax.devices()[:shape[0]])
+    d, s = shape
+    return ([[CPU] * s for _ in range(d)], dict(axis="seq", data_axis="data"),
+            Mesh(np.array(jax.devices()[:d * s]).reshape(d, s), ("data", "seq")))
+
+
+@pytest.mark.parametrize("stripe_rows", [4, 8])
+@pytest.mark.parametrize("shape", [(1,), (2,), (4,), (2, 2)])
+def test_staged_schedule_matches_jax(monkeypatch, stripe_rows, shape):
+    """The staged schedule with 5-6 sub-passes an entry, on 1-, 2- and
+    4-entry meshes and the 2 x 2 data x seq mesh: every score equals JAX's
+    sw_longpair on the same mesh and sw_wavefront; every task runs once,
+    in one plain step call per entry and step it has tasks in."""
+    monkeypatch.setattr(swa_cuda, "STRIPE_ROWS", stripe_rows)
+    sc = make_scoring("BLOSUM62")
+    lq = _STAGED_LQ[shape[-1]] * stripe_rows // 4
+    prof, db = _case(sc, np.random.default_rng(lq + len(shape)), lq, 90, 13)
+    go, ge = sc.gap_open_total, sc.gap_extend
+    mesh, kw, jmesh = _mesh(shape)
+    grid = mesh if len(shape) == 2 else [mesh]
+    slices, _ = longpair._pipeline(prof, db, go, ge, grid, 32)
+    subs = [len(ent.subs) for sl in slices for ent in sl]
+    assert all(5 <= n <= 6 for n in subs)
+    calls = swa_cuda.sw_stream_striped_block_reference.calls
+    steps = swa_cuda.sw_stream_striped_step_reference.calls
+    got = _port(prof, db, sc, mesh, jb=32, **kw)
+    assert swa_cuda.sw_stream_striped_block_reference.calls - calls == 3 * sum(subs)
+    assert swa_cuda.sw_stream_striped_step_reference.calls - steps == sum(n + 2 for n in subs)
+    np.testing.assert_array_equal(got, np.asarray(sw_wavefront(prof, db, go, ge)))
+    np.testing.assert_array_equal(
+        got, np.asarray(jax_sw_longpair(prof, db, go, ge, jmesh, jb=32, **kw)))
+
+
+@pytest.mark.parametrize("shape,stripe_rows,jb", [
+    ((1,), 8, 32), ((2,), 4, 32), ((4,), 4, 16), ((2, 2), 8, 48), ((3,), 1024, 16),
+])
+def test_task_table_schedule(monkeypatch, shape, stripe_rows, jb):
+    """sw_longpair's plan, host only (nothing launched): steps = stages +
+    blocks - 1 for each data slice; at each step no two tasks or edge
+    copies write the same words, and none reads what another writes;
+    every word a task or copy reads was written at an earlier step (a
+    task's edge block by its entry's copy of the same step, which runs
+    before the step's launch on the entry's stream); each boundary word is
+    written once, all of them by the end; an entry's tasks of a step form
+    at most two runs of one instance (launches)."""
+    monkeypatch.setattr(swa_cuda, "STRIPE_ROWS", stripe_rows)
+    sc = make_scoring("PAM250")
+    lq = _STAGED_LQ.get(shape[-1], 50)
+    prof, db = _case(sc, np.random.default_rng(7), lq, 90, 6)
+    mesh, _, _ = _mesh(shape)
+    grid = mesh if len(shape) == 2 else [mesh]
+    slices, n_steps = longpair._pipeline(prof, db, sc.gap_open_total, sc.gap_extend, grid, jb)
+    length = 96
+    n_blocks = -(-length // (-(-jb // 16) * 16))
+    for sl in slices:
+        assert n_steps == sum(len(ent.subs) for ent in sl) + n_blocks - 1
+
+    def span(arr, j0, j1):
+        return {(arr.data_ptr(), j) for j in range(j0, j1)}
+
+    def left(arr):
+        return set() if arr is None else {(arr.data_ptr(), "left")}
+
+    written = set()
+    for t in range(n_steps):
+        ops = []  # (reads, writes, the words the op's entry copied first)
+        for sl in slices:
+            for k, ent in enumerate(sl):
+                lo, hi, edge = ent.steps[t]
+                copied = set()
+                if edge is not None:
+                    copied = span(ent.edge_in, *edge)
+                    ops.append((span(sl[k - 1].edge_out, *edge), copied, set()))
+                keys = ent.table.keys[lo:hi]
+                assert sum(i == 0 or keys[i] != keys[i - 1] for i in range(len(keys))) <= 2
+                for task in ent.table.tasks[lo:hi]:
+                    reads = left(task.left_in)
+                    if task.bnd_in is not None:
+                        reads |= span(task.bnd_in, max(task.j0 - 1, 0), task.j1)
+                    writes = left(task.left_out)
+                    if task.bnd_out is not None:
+                        writes |= span(task.bnd_out, task.j0, task.j1)
+                    ops.append((reads, writes, copied))
+        for i, (reads, writes, copied) in enumerate(ops):
+            assert reads <= written | copied
+            bnd = {w for w in writes if w[1] != "left"}
+            assert not bnd & written
+            for j, (reads2, writes2, copied2) in enumerate(ops):
+                if i != j:
+                    assert not writes & writes2
+                    assert not (writes - copied2) & reads2
+        written |= set().union(*(w for _, w, _ in ops))
+    for sl in slices:
+        for ent in sl:
+            for arr in ent.inner + [a for a in (ent.edge_in, ent.edge_out) if a is not None]:
+                assert span(arr, 0, length) <= written
+
+
+def test_left_column_layout():
+    """Row k R + r of window w, lane l sits at word ((r NW + w) win + l) 32
+    + k of each plane: one block's left column at R = 8 and at R = 16 holds
+    the same rows there, and words past the stripe's rows stay as they
+    were."""
+    sc = make_scoring("BLOSUM62")
+    go, ge = sc.gap_open_total, sc.gap_extend
+    prof, db = _case(sc, np.random.default_rng(9), 40, 48, 6)
+    windows = batch_windows(db.astype(np.int8), 3, swa_cuda.STREAM_JB, CPU)  # 2 x 3 lanes
+    nw, _, win = windows.shape
+    (stripe,) = profile_stripes(prof, go, 40, CPU)
+    flat = {}
+    for r in (8, 16):
+        col = swa_cuda.left_column(40, windows, rows_per_thread=r)
+        assert col.shape == (2, r, nw, win, 32)
+        col.fill_(-99)
+        swa_cuda.sw_stream_striped_block_reference(stripe, windows, go, ge, j0=0, j1=48,
+                                                   left_out=col, rows_per_thread=r)
+        i = torch.arange(40)[:, None, None]
+        w = torch.arange(nw)[None, :, None]
+        lane = torch.arange(win)[None, None, :]
+        word = (((i % r) * nw + w) * win + lane) * 32 + i // r
+        flat[r] = col.reshape(2, -1)[:, word]
+        untouched = torch.ones(col.reshape(2, -1).shape[1], dtype=torch.bool)
+        untouched[word.reshape(-1)] = False
+        assert (col.reshape(2, -1)[:, untouched] == -99).all()
+    assert torch.equal(flat[8], flat[16])
+    assert (flat[8] != -99).all()
+
+
+@pytest.mark.parametrize("rows,r", [(40, 8), (92, 8), (1024, 32), (560, 24)])
+def test_team_profile_is_the_shared_layout(rows, r):
+    """The profile a block task's CTA copies into shared memory: row k R +
+    r of char c at word (c R + r) 32 + k, zero past the stripe's rows."""
+    stripe = torch.from_numpy(np.random.default_rng(rows).integers(
+        -9, 9, (rows, 32), dtype=np.int32))
+    team = swa_cuda.team_profile(stripe, r)
+    assert team.shape == (32, r, 32) and team.is_contiguous()
+    flat = team.reshape(-1)
+    i = torch.arange(32 * r)[:, None]
+    c = torch.arange(32)[None, :]
+    want = torch.zeros((32 * r, 32), dtype=torch.int32)
+    want[:rows] = stripe
+    assert torch.equal(flat[(c * r + i % r) * 32 + i // r], want)
+
+
+def _step_tasks(dev, rng):
+    """Four independent tasks over one set of windows, of three instances
+    (K2 block tasks at R = 8 with and without a partial last row, one at R
+    = 16 without a boundary out), and copies of their outputs: a first
+    sub-pass without a boundary in, a block with a carried left column in
+    place, a partial sub-pass of 12 rows, a last sub-pass of 40 rows."""
+    sc = make_scoring("PAM250")
+    go, ge = sc.gap_open_total, sc.gap_extend
+    prof, db = _case(sc, rng, 76, 64, 6)
+    windows = batch_windows(db.astype(np.int8), 6, swa_cuda.STREAM_JB, dev)
+    a, b, c = profile_stripes(prof[:24], go, 24, dev)[0], \
+        profile_stripes(prof[24:36], go, 12, dev)[0], profile_stripes(prof[36:], go, 40, dev)[0]
+
+    def rand(shape):
+        return torch.from_numpy(rng.integers(-4, 40, shape, dtype=np.int32)).to(dev)
+
+    bnd = (2, *windows.shape)
+
+    def make():
+        return [
+            swa_cuda.BlockTask(a, 0, 32, None, rand(bnd), None, rand((2, 8, 1, 6, 32))),
+            swa_cuda.BlockTask(a, 32, 64, rand(bnd), rand(bnd), *[rand((2, 8, 1, 6, 32))] * 2),
+            swa_cuda.BlockTask(b, 16, 48, rand(bnd), rand(bnd), *[rand((2, 8, 1, 6, 32))] * 2),
+            swa_cuda.BlockTask(c, 0, 64, rand(bnd), None, None, rand((2, 16, 1, 6, 32)),
+                               rows_per_thread=16),
+        ]
+    return windows, go, ge, make()
+
+
+def _clone(tasks):
+    """The tasks with every tensor they write cloned (in-place columns
+    stay in place)."""
+    out = []
+    for t in tasks:
+        left = t.left_out.clone() if t.left_out is not None else None
+        out.append(t._replace(
+            bnd_out=None if t.bnd_out is None else t.bnd_out.clone(),
+            left_in=left if t.left_in is t.left_out else t.left_in, left_out=left))
+    return out
+
+
+def test_step_wrapper_on_cpu_is_the_plain_version():
+    """sw_stream_striped_step on CPU tensors is its plain version, no
+    launch: one step of four tasks of three instances, each block's bests
+    max-merged into one best; the independent tasks give the same result
+    in any table order."""
+    windows, go, ge, tasks = _step_tasks(CPU, np.random.default_rng(12))
+    results = []
+    for order in (tasks, _clone(tasks)[::-1], _clone(tasks)):
+        table = swa_cuda.BlockTable(windows, order, go, ge)
+        best = torch.zeros((1, 6), dtype=torch.int32)
+        launches = swa_cuda.sw_stream_striped_step.launches
+        calls = swa_cuda.sw_stream_striped_step_reference.calls
+        blocks = swa_cuda.sw_stream_striped_block_reference.calls
+        fn = (swa_cuda.sw_stream_striped_step if len(results) < 2
+              else swa_cuda.sw_stream_striped_step_reference)
+        assert fn(table, 0, 4, best) is best
+        assert swa_cuda.sw_stream_striped_step.launches == launches
+        assert swa_cuda.sw_stream_striped_step_reference.calls - calls == 1
+        assert swa_cuda.sw_stream_striped_block_reference.calls - blocks == 4
+        by_task = sorted(order, key=lambda t: (t.stripe.shape[0], t.j0))
+        results.append([best] + [x for t in by_task for x in (t.bnd_out, t.left_out)
+                                 if x is not None])
+    assert [k for k in swa_cuda.BlockTable(windows, tasks, go, ge).keys] == [
+        (8, True, False), (8, True, False), (8, True, True), (16, False, False)]
+    for other in results[1:]:
+        assert all(torch.equal(x, y) for x, y in zip(results[0], other))
+    # The bests are the blocks' own, max-merged.
+    assert results[0][0].max() > 0
+
+
+def test_step_rejects_malformed_input():
+    windows, go, ge, tasks = _step_tasks(CPU, np.random.default_rng(13))
+    table = swa_cuda.BlockTable(windows, tasks, go, ge)
+    for lo, hi, best in ((0, 5, torch.zeros((1, 6), dtype=torch.int32)),
+                         (2, 1, torch.zeros((1, 6), dtype=torch.int32)),
+                         (0, 4, torch.zeros((6,), dtype=torch.int32)),
+                         (0, 4, torch.zeros((1, 6), dtype=torch.int64))):
+        with pytest.raises(ValueError):
+            swa_cuda.sw_stream_striped_step(table, lo, hi, best)
+    with pytest.raises(ValueError, match="left_out"):
+        swa_cuda.BlockTable(windows, [tasks[0]._replace(rows_per_thread=16)], go, ge)
 
 
 @pytest.mark.parametrize("scoring", SCORINGS)
@@ -165,12 +404,23 @@ def _segment_per_lane_fs(nw, length):
     return fs
 
 
+def _one_task(stripe, windows, go, ge, *, j0, j1, bnd_in=None, bnd_out=None,
+              left_in=None, left_out=None, rows_per_thread=None):
+    """One block as a step of one task (a one-task BlockTable): the
+    block's bests."""
+    nw, _, win = windows.shape
+    table = swa_cuda.BlockTable(windows, [swa_cuda.BlockTask(
+        stripe, j0, j1, bnd_in, bnd_out, left_in, left_out, rows_per_thread)], go, ge)
+    best = torch.zeros((nw, win), dtype=torch.int32, device=windows.device)
+    return swa_cuda.sw_stream_striped_step(table, 0, 1, best)
+
+
 @pytest.mark.parametrize("scoring", ["BLOSUM45", "PAM250", "random"])
 @pytest.mark.parametrize("blk", [16, 48, 112])
 def test_blocks_chain_to_one_pass(scoring, blk):
-    """Blocks of a stripe, each carrying the left column (in place) and
-    reading the stripe above, equal one plain pass over the whole length:
-    bests and the boundary row."""
+    """Blocks of a stripe, each carrying the left column (in place, in its
+    coalesced layout) and reading the stripe above, equal one plain pass
+    over the whole length: bests and the boundary row."""
     sc = make_scoring(scoring)
     go, ge = sc.gap_open_total, sc.gap_extend
     prof, db = _case(sc, np.random.default_rng(blk), 50, 100, 12)
@@ -187,11 +437,11 @@ def test_blocks_chain_to_one_pass(scoring, blk):
                                                         bnd_in=above, bnd_out=below, **kw)
     for rows_prof, bnd_in, want_best, want_bnd in ((top, None, want_top, above),
                                                    (stripe, above, want, below)):
-        left = torch.empty((2, nw, rows_prof.shape[0], win), dtype=torch.int32)
+        left = swa_cuda.left_column(rows_prof.shape[0], windows)
         bnd = torch.full_like(above, -7)
         best = torch.zeros((nw, win), dtype=torch.int32)
         for j0 in range(0, length, blk):
-            out, _, _ = swa_cuda.sw_stream_striped_block(
+            out = _one_task(
                 rows_prof, windows, go, ge, j0=j0, j1=min(j0 + blk, length),
                 bnd_in=bnd_in, bnd_out=bnd, left_in=None if j0 == 0 else left,
                 left_out=left)
@@ -208,7 +458,7 @@ def test_block_left_out_is_the_column_at_j1():
     prof, db = _case(sc, np.random.default_rng(3), 12, 64, 5)
     windows = batch_windows(db.astype(np.int8), 5, swa_cuda.STREAM_JB, CPU)
     (stripe,) = profile_stripes(prof, go, 12, CPU)
-    left = torch.empty((2, 1, 12, 5), dtype=torch.int32)
+    left = swa_cuda.left_column(12, windows)
     one, _, _ = swa_cuda.sw_stream_striped_block_reference(
         stripe, windows, go, ge, j0=0, j1=32, left_out=left)
     two, _, _ = swa_cuda.sw_stream_striped_block_reference(
@@ -216,25 +466,27 @@ def test_block_left_out_is_the_column_at_j1():
     whole, _, _ = swa_cuda.sw_stream_striped_block_reference(stripe, windows, go, ge, j0=0, j1=64)
     assert torch.equal(torch.maximum(one, two), whole)
     # The boundary column at j0 = 0 is what left_in=None means.
-    boundary = torch.stack([torch.full((1, 12, 5), go, dtype=torch.int32),
-                            torch.zeros((1, 12, 5), dtype=torch.int32)])
+    boundary = swa_cuda.left_column(12, windows)
+    boundary[0], boundary[1] = go, 0
     again, _, _ = swa_cuda.sw_stream_striped_block_reference(
         stripe, windows, go, ge, j0=0, j1=64, left_in=boundary)
     assert torch.equal(again, whole)
 
 
 def test_block_wrapper_on_cpu_is_the_plain_version():
+    """A one-task step on CPU tensors is the block's plain version and
+    launches nothing."""
     sc = make_scoring("PAM250")
     go, ge = sc.gap_open_total, sc.gap_extend
     prof, db = _case(sc, np.random.default_rng(8), 20, 40, 3)
     windows = batch_windows(db.astype(np.int8), 3, swa_cuda.STREAM_JB, CPU)
     (stripe,) = profile_stripes(prof, go, 20, CPU)
-    launches = swa_cuda.sw_stream_striped_block.launches
+    launches = swa_cuda.sw_stream_striped_step.launches
     calls = swa_cuda.sw_stream_striped_block_reference.calls
-    got, _, _ = swa_cuda.sw_stream_striped_block(stripe, windows, go, ge, j0=16, j1=48)
+    got = _one_task(stripe, windows, go, ge, j0=16, j1=48)
     want, _, _ = swa_cuda.sw_stream_striped_block_reference(stripe, windows, go, ge, j0=16, j1=48)
     assert torch.equal(got, want)
-    assert swa_cuda.sw_stream_striped_block.launches == launches
+    assert swa_cuda.sw_stream_striped_step.launches == launches
     assert swa_cuda.sw_stream_striped_block_reference.calls - calls == 2
 
 
@@ -249,34 +501,41 @@ def _block_args():
     dict(stripe=torch.zeros((6, 32), dtype=torch.int32)),
     dict(stripe=torch.zeros((0, 32), dtype=torch.int32)),
     dict(windows=torch.zeros((2, 24, 4), dtype=torch.int8)),
-    dict(left_in=torch.zeros((2, 2, 4, 4), dtype=torch.int32)),
-    dict(left_out=torch.zeros((2, 2, 8, 4), dtype=torch.int64)),
+    dict(left_in=torch.zeros((2, 2, 8, 4), dtype=torch.int32)),  # rows, not coalesced
+    dict(left_out=torch.zeros((2, 8, 2, 4, 32), dtype=torch.int64)),
+    dict(left_in=torch.zeros((2, 8, 2, 4, 32), dtype=torch.int32), rows_per_thread=16),
+    dict(left_out=torch.zeros((2, 8, 2, 4, 32), dtype=torch.int32)[:, :, :, :, :16]),
     dict(bnd_in=torch.zeros((2, 2, 16, 4), dtype=torch.int32)),
     dict(go=-1, ge=-2),
     dict(rows_per_thread=12),
     dict(windows=torch.zeros((2, 32, 4), dtype=torch.int8, device="meta")),
 ])
 def test_block_rejects_malformed_input(bad):
+    """A task is checked when its table is built, and by the plain version."""
     stripe, windows = _block_args()
     kw = dict(stripe=stripe, windows=windows, go=-3, ge=-1, j0=0, j1=32) | bad
+    args = kw.pop("stripe"), kw.pop("windows"), kw.pop("go"), kw.pop("ge")
     with pytest.raises(ValueError):
-        swa_cuda.sw_stream_striped_block(
-            kw.pop("stripe"), kw.pop("windows"), kw.pop("go"), kw.pop("ge"), **kw)
+        _one_task(*args, **kw)
+    with pytest.raises(ValueError):
+        swa_cuda.sw_stream_striped_block_reference(*args, **kw)
 
 
-@pytest.mark.parametrize("rows,bnd_in,bnd_out,key", [
-    (1024, True, True, "sw_striped_block_kernel<32, true, true, false>"),
-    (560, True, False, "sw_striped_block_kernel<24, true, false, false>"),
-    (300, False, True, "sw_striped_block_kernel<16, false, true, true>"),
-    (8, False, False, "sw_striped_block_kernel<8, false, false, false>"),
+@pytest.mark.parametrize("rows,bnd_out,key", [
+    (1024, True, "sw_striped_block_kernel<32, true, false>"),
+    (560, False, "sw_striped_block_kernel<24, false, false>"),
+    (300, True, "sw_striped_block_kernel<16, true, true>"),
+    (8, False, "sw_striped_block_kernel<8, false, false>"),
 ])
-def test_block_kernel_instance(rows, bnd_in, bnd_out, key):
+def test_block_kernel_instance(rows, bnd_out, key):
+    """Row -1 is a run-time choice of the block instance: a task's instance
+    is (R, kOut, kPartial) whether or not it reads a boundary in."""
     from seqalign_tpu_torch import sass
 
-    assert swa_cuda.block_kernel_instance(rows, bnd_in, bnd_out) == key
-    mangled = ("_ZN12_GLOBAL__N_123sw_striped_block_kernelILi32ELb1ELb0ELb0EEEvPKiPKaPiS3_S4_"
-               "S3_S4_iiiiiiiii")
-    assert sass.kernel_key(mangled) == "sw_striped_block_kernel<32, true, false, false>"
+    assert swa_cuda.block_kernel_instance(rows, bnd_out) == key
+    mangled = ("_ZN12_GLOBAL__N_123sw_striped_block_kernelILi32ELb1ELb0EEEvPKNS_9BlockTaskEPKaPi"
+               "iiiiii")
+    assert sass.kernel_key(mangled) == "sw_striped_block_kernel<32, true, false>"
     assert sass.expected_cells(key) == 2 * int(key.split("<")[1].split(",")[0])
 
 
@@ -344,13 +603,35 @@ def test_block_kernel_matches_plain_version_on_the_card(lq):
     windows = batch_windows(db.astype(np.int8), 40, swa_cuda.STREAM_JB, dev)
     (stripe,) = profile_stripes(prof, go, 1024, dev)
     bnd_in = torch.randint(-5, 30, (2, *windows.shape), dtype=torch.int32, device=dev)
-    left = torch.randint(-5, 30, (2, 1, stripe.shape[0], 40), dtype=torch.int32, device=dev)
+    left = torch.randint(-5, 30, swa_cuda.left_column(stripe.shape[0], windows).shape,
+                         dtype=torch.int32, device=dev)
     outs = []
-    for fn in (swa_cuda.sw_stream_striped_block, swa_cuda.sw_stream_striped_block_reference):
+    for fn in (_one_task, lambda *a, **kw: swa_cuda.sw_stream_striped_block_reference(
+            *a, **kw)[0]):
         bnd = torch.zeros_like(bnd_in)
         lo = left.clone()
         outs.append((fn(stripe, windows, go, ge, j0=32, j1=112, bnd_in=bnd_in, bnd_out=bnd,
-                        left_in=lo, left_out=lo)[0], bnd, lo))
+                        left_in=lo, left_out=lo), bnd, lo))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_step_kernel_matches_plain_version_on_the_card():
+    """One launch per instance run of a step of four tasks (three
+    instances, a partial sub-pass among them) against the plain version."""
+    _needs_card()
+    windows, go, ge, tasks = _step_tasks(torch.device("cuda"), np.random.default_rng(14))
+    outs = []
+    for fn, order in ((swa_cuda.sw_stream_striped_step, tasks),
+                      (swa_cuda.sw_stream_striped_step_reference, _clone(tasks))):
+        best = torch.zeros((1, 6), dtype=torch.int32, device="cuda")
+        launches = swa_cuda.sw_stream_striped_step.launches
+        fn(swa_cuda.BlockTable(windows, order, go, ge), 0, 4, best)
+        if fn is swa_cuda.sw_stream_striped_step:
+            assert swa_cuda.sw_stream_striped_step.launches - launches == 3
+        outs.append([best] + [x for t in order for x in (t.bnd_out, t.left_out) if x is not None])
+    torch.cuda.synchronize()
     for a, b in zip(*outs):
         assert torch.equal(a, b)
 
