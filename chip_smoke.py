@@ -9,11 +9,15 @@ Phases, each printing its own lines; any failure exits nonzero:
 2. build: compile csrc/*.cu (sw_stream.cu and sw_stream_solo.cu: K1 and
    K3, the one-pass team kernel of sw_stream.cuh, an instance per R built
    and solo instances; sw_striped.cu: K2; both on the team step of
-   sw_team.cuh, with K2's block instance; sw_windows.cu: K4, K5; isa_probe.cu: the issue-rate probe), one nvcc each in parallel, for sm_90a into build/;
+   sw_team.cuh, with K2's block instance; sw_windows.cu and
+   sw_windows_const_s.cu: K4 and K5, the team kernel of sw_windows.cuh;
+   isa_probe.cu: the issue-rate probe), one nvcc each in parallel, for
+   sm_90a into build/;
    read every instance's registers and local memory (no spills) and the
    inner DP loop of its SASS (integer instructions per cell, for the
    bound): K1 and K3 (a step of R rows, one instance per R built), K2, the
-   fixed-batch kernel K4 and its constant-S mode K5 (a loop without LDS);
+   fixed-batch kernel K4 and its constant-S mode K5 (a step of R rows, four
+   a loop for K4's solo instances; K5's loop without LDS);
    then measure the card's issue rate of VIADDMNMX, VIMNMX3, IADD3, IMNMX,
    IMAD, LDS and SHFL, alone and in pairs (seqalign_tpu_torch.probe), and
    the bound those rates give each kernel;
@@ -40,9 +44,16 @@ Phases, each printing its own lines; any failure exits nonzero:
    then the fixed-batch kernel (K4) and its constant-S mode (K5) against
    their plain versions, over the six scoring systems, windows of 256 and
    1,024 lanes, 1 to 8 windows, lq = 1 to MAX_QUERY_ROWS, 3-D profiles of
-   unequal lengths (an empty query, 64 queries), a batch whose length needs
-   '*' padding through the engine interface, one window (sw_window), and
-   K5 against K4 on a biased profile of 7s;
+   unequal lengths (an empty query, 64 queries), ragged batches sorted and
+   unsorted, records with '*' inside and at their ends and all-'*' lanes,
+   4,096-lane batches, every (T, R) built (solo instances included),
+   warps whose ends fall on every residue of a step, a BLOSUM62 query
+   holding '*' (its '*' row scores +1, so the kernel runs every warp to
+   the batch's length; stopping at the warps' ends would change a best,
+   which the plain version shows), a 3-D profile with '*' in one query
+   only, a batch whose length needs '*' padding through the engine
+   interface, one window (sw_window), and K5 against K4 on a biased
+   profile of 7s;
 4. main path: a Swiss-Prot-scale search (565,247 records, about 205 M
    residues, bench.py's generator, seed 42, PAM250, gaps -2/-1, a
    144-residue query) through seqalign_tpu_torch.pipeline.search_database on
@@ -75,9 +86,13 @@ Phases, each printing its own lines; any failure exits nonzero:
    lanes, one call of pipeline.get_engine("windows") each; the counters
    prove each B launched K4 once per batch and nothing else, and all
    565,247 scores equal phase 4's K1 scores; K4 and K5 are timed in turns
-   over each B's batches on the card (swissprot.fixed_breakdown); at 67,584
-   lanes K4 and K5 equal their plain versions on every batch, and 8 queries
-   of 17 residues through K4 with a 3-D profile equal phase 5's K3 scores;
+   over each B's batches on the card (swissprot.fixed_breakdown), with each
+   B's (T, R), the cells K4 runs (each warp to its own end: below 1.2x the
+   real cells at 67,584, or the phase fails) beside the real and the
+   batches' cells, and K4's bound over the real cells at its instance's
+   SASS count; at 67,584 lanes K4 and K5 equal their plain versions on
+   every batch, and 8 queries of 17 residues through K4 with a 3-D profile
+   equal phase 5's K3 scores;
 8. CLI: the port's CLI with the stream kernels against the same CLI with
    --engine wavefront on a 3,000-record FASTA, for one query, an 8-record
    query file, a 2000-residue query and a 3-record file holding one;
@@ -252,16 +267,6 @@ def phase_device(torch):
     return name, smi
 
 
-# The SASS instance each kernel's bound reads: K4's and K5's single-query
-# ones. K1's and K3's bounds read the instance of the (T, R) their launch
-# runs (swa_cuda.stream_kernel_instance, phases 4-5); K2's weighs the
-# instances its passes launch (phase 6).
-BOUND_INSTANCES = {
-    "sw_windows_kernel<false, false>": "sw_windows",
-    "sw_windows_kernel<false, true>": "sw_windows_const_s",
-}
-
-
 def phase_build():
     """Build the kernels; return the inner DP loop of every instance's SASS
     (``sass.inner_loop``: integer instructions per cell on the busier pipe,
@@ -284,7 +289,7 @@ def phase_build():
         key = sass.kernel_key(mangled)
         if key is None:
             continue
-        loop = sass.inner_loop(instrs)
+        loop = sass.inner_loop(instrs, key)
         if loop is None:
             fail(f"no DP loop found in the SASS of {mangled}")
         res = usage.get(key, {})
@@ -298,8 +303,8 @@ def phase_build():
         if res.get("LOCAL", 0):
             fail(f"{key}: {res['LOCAL']} B of local memory (spills)")
         # Only K5 (constant S) has a DP loop without the profile gather; a
-        # gather's LDS count must be the loop's cells: K4's unroll, which
-        # K5's cells are taken from, or a team kernel's 2 R cells a step.
+        # gather's LDS count must be the loop's cells: a team kernel's 2 R
+        # a step (four steps an iteration for a solo instance of K4).
         const_s = key.startswith("sw_windows_kernel<") and key.endswith("true>")
         if const_s != (loop["cells_from"] != "LDS"):
             fail(f"{key}: the DP loop {'has' if const_s else 'lacks'} a profile gather")
@@ -309,7 +314,8 @@ def phase_build():
         loops[key] = loop
     from seqalign_tpu_torch.ops.swa_cuda import (
         STREAM_ROWS_PER_THREAD_BUILT, STREAM_SOLO_ROWS, STRIPE_ROWS_PER_THREAD_BUILT,
-        block_kernel_instance,
+        WINDOWS_ROWS_PER_THREAD_BUILT, WINDOWS_SOLO_ROWS, block_kernel_instance,
+        team_threads, windows_kernel_instance,
     )
 
     team = {f"sw_stream_kernel<{r}, false>" for r in STREAM_ROWS_PER_THREAD_BUILT}
@@ -317,8 +323,15 @@ def phase_build():
     team |= {block_kernel_instance(32 * r - 4 * partial, b_out, r)
              for r in STRIPE_ROWS_PER_THREAD_BUILT for b_out in (False, True)
              for partial in ((0, 1) if b_out else (0,))}
-    if not (set(BOUND_INSTANCES) | team) <= set(loops):
+    team |= {windows_kernel_instance(t * r, 1, const_s, (t, r))
+             for r in WINDOWS_ROWS_PER_THREAD_BUILT for const_s in (False, True)
+             for t in ((1, 2) if r in WINDOWS_SOLO_ROWS else (2,))}
+    if not team <= set(loops):
         fail(f"SASS of the kernels not all found: {sorted(loops)}")
+    # windows_team's fill rule counts a CTA as the C++ side builds it.
+    built = {r: _build.load().sw_windows_team_threads(r) for r in WINDOWS_ROWS_PER_THREAD_BUILT}
+    if built != {r: team_threads(r) for r in built}:
+        fail(f"swa_cuda.team_threads != the built instances' team_threads<R>(): {built}")
 
     rates = probe.rates()
     for name, r in rates.items():
@@ -477,34 +490,41 @@ class Checker:
               f"L={length} win={win} blocks {blocks} bests, left columns"
               f"{', boundary row' if bnd_out else ''} equal, max_abs_err={err}", flush=True)
 
-    def compare_windows(self, label, prof, dbw, go, ge, const_s=False, kernel=None):
-        """K4 (K5 with ``const_s``) against its plain version on the same
-        card tensors; ``kernel`` is the kernel's output where a caller ran
-        it (through the engine interface). Returns (the kernel's scores,
-        the plain version's ms)."""
+    def compare_windows(self, label, prof, dbw, go, ge, const_s=False, kernel=None,
+                        team=None, plain=None):
+        """K4 (K5 with ``const_s``) at ``team`` or its wrapper's (T, R)
+        against its plain version on the same card tensors; ``kernel`` is
+        the kernel's output where a caller ran it (through the engine
+        interface), ``plain`` the plain version's (scores, ms) where the
+        caller has them. Returns (the kernel's scores, the plain version's
+        ms)."""
         from seqalign_tpu_torch.ops import swa_cuda
 
         torch = self.torch
         name = "sw_windows_const_s" if const_s else "sw_windows"
+        team = team or swa_cuda.windows_launch_team(prof, dbw)
         if kernel is None:
-            kernel = swa_cuda.sw_windows(prof, dbw, go, ge, const_s=const_s)
+            kernel = swa_cuda.sw_windows(prof, dbw, go, ge, const_s=const_s, team=team)
         torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        r = swa_cuda.sw_windows_reference(prof, dbw, go, ge, const_s=const_s)
-        end.record()
-        torch.cuda.synchronize()
+        if plain is None:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            r = swa_cuda.sw_windows_reference(prof, dbw, go, ge, const_s=const_s)
+            end.record()
+            torch.cuda.synchronize()
+            plain = (r, start.elapsed_time(end))
+        r = plain[0]
         err = int((kernel.long() - r.long()).abs().max()) if kernel.numel() else 0
         self.max_abs_err[name] = max(self.max_abs_err[name], err)
         equal = torch.equal(kernel, r)
         nw, length, win = dbw.shape
         queries = f"nq={prof.shape[0]} " if prof.ndim == 3 else ""
-        print(f"[kernel] {name} {label}: {queries}rows={prof.shape[-2]} nw={nw} "
-              f"Lb={length} win={win} equal={equal} max_abs_err={err}", flush=True)
+        print(f"[kernel] {name} {label}: {queries}rows={prof.shape[-2]} (T, R)={team} "
+              f"nw={nw} Lb={length} win={win} equal={equal} max_abs_err={err}", flush=True)
         if not equal:
             fail(f"{name} != plain version for {label}")
-        return kernel, start.elapsed_time(end)
+        return kernel, plain[1]
 
 
 def stream_case(name, lq, n, lo, hi, nw, win, seed, encoded=None, order=None,
@@ -776,13 +796,15 @@ def phase_kernel_block(chk: Checker):
                           b_out, left_first=left, rows_per_thread=rpt)
 
 
-def windows_case(name, lq, nw, win, hi, seed, lb=None):
+def windows_case(name, lq, nw, win, hi, seed, lb=None, sort=False, stars=False):
     """One fixed batch of ``nw * win`` random records (lengths in [1, hi),
     one of length ``lb`` if given) as pipeline.lane_batches makes it but
     unpadded, and the kernel's arguments for it on the card. A tuple ``lq``
-    gives one query of each length and a 3-D profile."""
+    gives one query of each length and a 3-D profile. ``sort`` orders the
+    records longest first, as lane_batches does; ``stars`` puts '*' inside
+    some records and at the end of others, and makes some lanes all '*'."""
     from seqalign_tpu_torch.convert import batch_windows, profile_to_torch
-    from seqalign_tpu_torch.host import encode, pack_batch
+    from seqalign_tpu_torch.host import PAD_INDEX, encode, pack_batch
     from seqalign_tpu_torch.ops.swa_cuda import STREAM_JB
     from seqalign_tpu_torch.ops.swa_torch import make_profile
     from seqalign_tpu_torch.pipeline import _db_from_encoded, multi_profile
@@ -797,7 +819,18 @@ def windows_case(name, lq, nw, win, hi, seed, lb=None):
     lengths = rng.integers(1, hi, size=nw * win)
     if lb is not None:
         lengths[int(rng.integers(nw * win))] = lb
-    db = _db_from_encoded([encode(random_protein(rng, int(k))) for k in lengths])
+    if sort:
+        lengths = np.sort(lengths)[::-1]
+    recs = [encode(random_protein(rng, int(k))) for k in lengths]
+    if stars:
+        for k, rec in enumerate(recs):
+            if k % 3 == 0 and len(rec) > 2:
+                rec[rng.integers(0, len(rec) - 1)] = PAD_INDEX
+            if k % 5 == 1:
+                rec[-1] = PAD_INDEX
+            if k % 97 == 5:
+                rec[:] = PAD_INDEX
+    db = _db_from_encoded(recs)
     batch = pack_batch(db, np.arange(db.n), nw * win, int(lengths.max()))
     go, ge = sc.gap_open_total, sc.gap_extend
     args = (profile_to_torch(profile, go, "cuda"),
@@ -805,16 +838,40 @@ def windows_case(name, lq, nw, win, hi, seed, lb=None):
     return profile, batch, args
 
 
+def warp_end_windows(torch, rng, lb, win, per_warp):
+    """One window of ``win`` random lanes, each shorter than ``lb - 32``
+    but one a warp (of ``per_warp`` lanes), at a random place in it, of
+    ``lb - (w % 32)`` residues for warp ``w``: the warps' ends cover every
+    residue of a step and of a 16-position block."""
+    from seqalign_tpu_torch.host import PAD_INDEX
+
+    lengths = rng.integers(1, lb - 32, size=win)
+    longest = np.arange(0, win, per_warp) + rng.integers(0, per_warp, size=-(-win // per_warp))
+    longest = np.minimum(longest, win - 1)
+    lengths[longest] = lb - np.arange(len(longest)) % 32
+    db = np.full((1, lb, win), PAD_INDEX, np.int8)
+    for lane, n in enumerate(lengths):
+        db[0, :n, lane] = rng.integers(0, 20, size=n)
+    return torch.from_numpy(db).cuda()
+
+
 def phase_kernel_windows(chk: Checker):
+    from seqalign_tpu_torch.convert import profile_to_torch
+    from seqalign_tpu_torch.host import PAD_INDEX
     from seqalign_tpu_torch.ops import swa_cuda
-    from seqalign_tpu_torch.ops.swa_cuda import CONST_S, MAX_QUERY_ROWS
+    from seqalign_tpu_torch.ops.swa_cuda import (
+        CONST_S, MAX_QUERY_ROWS, STREAM_TEAMS, WINDOWS_ROWS_PER_THREAD_BUILT,
+    )
+    from seqalign_tpu_torch.ops.oracle import sw_score_batch
+    from seqalign_tpu_torch.ops.swa_torch import make_profile
+    from seqalign_tpu_torch.pipeline import multi_profile
 
     torch = chk.torch
 
     rng = np.random.default_rng(70)
     lq64 = tuple(int(k) for k in rng.integers(1, 40, size=64))
     cases = [
-        # name, lq (a tuple: a 3-D profile), nw, win, hi, seed
+        # name, lq (a tuple: a 3-D profile), nw, win, hi, seed[, options]
         ("BLOSUM45", 144, 4, 256, 200, 61),
         ("BLOSUM62", 17, 1, 1024, 300, 62),
         ("PAM250", 512, 3, 256, 150, 63),
@@ -825,12 +882,83 @@ def phase_kernel_windows(chk: Checker):
         ("BLOSUM62", (17, 9, 0), 3, 256, 300, 71),
         ("PAM250", lq64, 2, 1024, 100, 72),
         ("BLOSUM62", (MAX_QUERY_ROWS, 700), 1, 1024, 64, 73),
+        # Ragged batches sorted as lane_batches sorts them, and with '*'
+        # inside records, at their ends and in whole lanes.
+        ("PAM250", 144, 4, 1024, 300, 77, dict(sort=True)),
+        ("BLOSUM62", 40, 2, 1024, 200, 78, dict(sort=True, stars=True)),
+        ("BLOSUM45", 17, 3, 256, 150, 79, dict(stars=True)),
+        # 4,096-lane batches (wide teams: windows_team fills the card).
+        ("PAM250", 144, 4, 1024, 400, 80, dict(sort=True)),
+        ("PAM250", 17, 4, 1024, 400, 81, dict(sort=True, stars=True)),
     ]
-    for name, lq, nw, win, hi, seed in cases:
-        _, _, args = windows_case(name, lq, nw, win, hi, seed)
+    for name, lq, nw, win, hi, seed, *opt in cases:
+        _, _, args = windows_case(name, lq, nw, win, hi, seed, **(opt[0] if opt else {}))
         label = f"{name} lq={'/'.join(map(str, lq)) if isinstance(lq, tuple) else lq}"[:80]
+        if opt:
+            label += " " + " ".join(k for k in opt[0])
         chk.compare_windows(label, *args)
         chk.compare_windows(label, *args, const_s=True)
+
+    # Every (T, R) windows_team can pick, the solo instances included: each
+    # team at the largest of these row counts it holds, against one plain
+    # run a row count, over a ragged window with '*' in it.
+    sc = scoring("BLOSUM62")
+    go, ge = sc.gap_open_total, sc.gap_extend
+    _, _, (_, dbw, _, _) = windows_case("BLOSUM62", 8, 1, 512, 64, 82, stars=True)
+    plains, profs = {}, {}
+    for t in STREAM_TEAMS:
+        for r in WINDOWS_ROWS_PER_THREAD_BUILT:
+            rows = max(n for n in (8, 20, 40, 144, 500, 1000, MAX_QUERY_ROWS) if n <= t * r)
+            if rows not in profs:
+                profs[rows] = profile_to_torch(make_profile(
+                    sc.table, sc.query_indices(random_protein(rng, rows))), go, "cuda")
+            for const_s in (False, True):
+                key = (rows, const_s)
+                _, ms = chk.compare_windows(f"team ({t}, {r})", profs[rows], dbw, go, ge,
+                                            const_s=const_s, team=(t, r),
+                                            plain=plains.get(key))
+                if key not in plains:
+                    plains[key] = (swa_cuda.sw_windows_reference(
+                        profs[rows], dbw, go, ge, const_s=const_s), ms)
+
+    # Warps that end at every residue of a step (and of a 16-position
+    # block), at teams of 32, 8 and 1 lanes a warp.
+    for team in ((1, 20), (4, 10), (32, 10)):
+        dbw = warp_end_windows(torch, rng, 96, 1024, 32 // team[0])
+        ends = swa_cuda.warp_ends(dbw, team)[0].reshape(-1, 32 // team[0])[:, 0]
+        if set((ends % 32).tolist()) != set(range(0, 32, 2)):
+            fail(f"warp-end case at {team}: warp ends {sorted(set(ends.tolist()))}")
+        chk.compare_windows(f"warps ending at every residue, team {team}", profs[20], dbw,
+                            go, ge, team=team)
+
+    # A BLOSUM62 query holding '*': ('*', '*') scores +1, so the kernel
+    # runs every warp to the batch's length, and the padding raises a best
+    # above the record's scored alone at its own length.
+    # The batch's last lane (in its shortest warp) holds the query's first
+    # 28 residues: the cell of the query's '*' row at the lane's first pad
+    # position, 28, adds +1 to the best, and a warp ending at 28 stops
+    # before it.
+    q = np.concatenate([sc.query_indices(random_protein(rng, 28)), [PAD_INDEX]])
+    prof = profile_to_torch(make_profile(sc.table, q), go, "cuda")
+    _, batch, (_, dbw, _, _) = windows_case("BLOSUM62", 8, 2, 1024, 60, 83, sort=True)
+    dbw[-1, :28, -1] = torch.from_numpy(q[:28].astype(np.int8)).cuda()
+    dbw[-1, 28:, -1] = PAD_INDEX
+    full, _ = chk.compare_windows("query with '*' (the skip is off)", prof, dbw, go, ge)
+    alone = int(sw_score_batch(q, [q[:28]], sc.table, sc.gap_open, sc.gap_extend)[0])
+    if int(full[-1]) != alone + 1:
+        fail(f"query with '*': the last lane's best {int(full[-1])} != its record's "
+             f"alone ({alone}) + 1; the case shows nothing")
+    print(f"[kernel] sw_windows query with '*': its '*' row scores +1, so the skip is "
+          f"off and every warp runs to Lb={dbw.shape[1]}; the last lane's best "
+          f"{int(full[-1])} is its record's alone ({alone}, the NumPy oracle) + 1, "
+          "which a warp stopping at its end would miss", flush=True)
+    # A 3-D profile with '*' in its second query only: that query's CTAs
+    # run to the batch's length, the others stop at their warps' ends.
+    qs = [sc.query_indices(random_protein(rng, n)) for n in (17, 40, 6)]
+    qs[1][11] = PAD_INDEX
+    prof3 = profile_to_torch(multi_profile(sc.table, qs), go, "cuda")
+    chk.compare_windows("3-D profile, '*' in one query", prof3, dbw, go, ge)
+    chk.compare_windows("3-D profile, '*' in one query", prof3, dbw, go, ge, const_s=True)
 
     # The engine interface pads a batch of Lb = 37 with '*' to 48.
     profile, batch, (prof, dbw, go, ge) = windows_case("PAM250", 144, 3, 1024, 30, 74, lb=37)
@@ -1414,15 +1542,17 @@ def phase_step(torch, chk: Checker, smi: str):
             "block": block}
 
 
-def phase_fixed_path(torch, chk: Checker, smi: str, query, db, alu, k1, multi8):
+def phase_fixed_path(torch, chk: Checker, smi: str, query, db, loops, usage, factor, k1,
+                     multi8):
     """The fixed-batch engine over the whole database at each lane-batch
     width of swissprot.FIXED_LANES, through pipeline.get_engine("windows"):
     K4 alone, once per batch, every score equal to K1's (``k1``: phase 4's
-    scores and its kernel ms). The times come from
-    swissprot.fixed_breakdown at lq=144 (K4 and K5 in turns at each width).
-    At the widest: K4 and K5 against their plain versions on every batch,
-    and the 8 x 17 batch through K4's 3-D form against K3's scores
-    (``multi8``)."""
+    scores and its kernel ms). The times, the (T, R) of each width and the
+    cells K4 runs come from swissprot.fixed_breakdown at lq=144 (K4 and K5
+    in turns at each width); each width's bound reads its instance's SASS
+    loop (``loops``). At the widest: K4 and K5 against their plain versions
+    on every batch, and the 8 x 17 batch through K4's 3-D form against K3's
+    scores (``multi8``)."""
     from seqalign_tpu_torch import pipeline
     from seqalign_tpu_torch.convert import batch_windows, profile_to_torch
     from seqalign_tpu_torch.ops import swa_cuda
@@ -1499,42 +1629,71 @@ def phase_fixed_path(torch, chk: Checker, smi: str, query, db, alu, k1, multi8):
     print(f"{tag} 8 x 17 through K4's 3-D form: all {len(queries8)} x {db.n} "
           "scores == K3's", flush=True)
 
+    # Bounds: K4 over the real cells (query rows x real residues: the skip
+    # runs what the data needs), the primary share; over the batches' cells
+    # beside it. K5 runs every batch cell by its contract. Each width's
+    # instance is the (T, R) windows_team gave it.
+    out_bytes = 4 * db.n
+    real = QUERY_LEN * residues
+    for b, r in per_b.items():
+        key = swa_cuda.windows_kernel_instance(prof.shape[0], b, team=tuple(r["team"]))
+        k5_key = swa_cuda.windows_kernel_instance(prof.shape[0], b, True, tuple(r["team"]))
+        r.update(instance=key, registers=usage.get(key, {}).get("REG"),
+                 pipe_per_cell=loops[key]["pipe_per_cell"],
+                 k5_instance=k5_key, k5_registers=usage.get(k5_key, {}).get("REG"),
+                 k5_pipe_per_cell=loops[k5_key]["pipe_per_cell"])
+        r["bound_real_ms"], r["bound_by"] = bound(
+            residues + out_bytes + nbytes(prof), real, r["pipe_per_cell"])
+        r["bound_batch_ms"] = bound(residues + out_bytes + nbytes(prof), r["cells_batch"],
+                                    r["pipe_per_cell"])[0]
+        r["k5_bound_ms"] = bound(out_bytes, r["cells_batch"], r["k5_pipe_per_cell"])[0]
+        print(f"[fixed B={b}] (T, R) {tuple(r['team'])} ({key}, {r['registers']} registers, "
+              f"{r['pipe_per_cell']} per cell): K4 {r['ms']} ms; cells run (a model, "
+              f"counted from the batch: windows_cells) {r['model_cells_run']}, "
+              f"{r['model_run_over_real']} of the real {r['cells_real']}, the batches' "
+              f"{r['cells_batch']}; bound over the real cells {r['bound_real_ms']} ms "
+              f"({r['bound_real_ms'] / r['ms']} of K4's time), over the batches' cells "
+              f"{r['bound_batch_ms']} ms ({r['bound_batch_ms'] / r['ms']}); K5 "
+              f"{min(r['k5_ms'])} ms ({k5_key}, {r['k5_pipe_per_cell']} per cell), bound "
+              f"over every batch cell {r['k5_bound_ms']} ms "
+              f"({r['k5_bound_ms'] / min(r['k5_ms'])}) | {smi}", flush=True)
+    # The skip, measured: K5 runs every batch cell (2.03x the real ones) at
+    # about K4's rate a cell, so K4 is well below it only where its warps
+    # stop at their ends.
+    if k4_ms >= 0.75 * k5_ms:
+        fail(f"{tag} K4 {k4_ms} ms is not below 0.75 x K5's {k5_ms} ms: the warps did "
+             "not stop at their ends")
+    print(f"{tag} K4/K5 {k4_ms / k5_ms} (measured; below 0.75: the warps stop at "
+          "their ends)", flush=True)
     shape = (f"{len(wins)} batches of {widest} lanes ({widest // FIXED_WINDOW_LANES} "
              f"windows of {FIXED_WINDOW_LANES}), Lb={'/'.join(str(w.shape[1]) for w in wins)}, "
-             f"rows={prof.shape[0]}")
-    # Bounds over the batches' cells (K4's contract: the fixed batch is its
-    # input), and over the real cells (query rows x real residues, the
-    # search's own work), which the layout's padding does not count.
-    out_bytes = sum(w.shape[0] * w.shape[2] * 4 for w in wins)
-    cells = QUERY_LEN * sum(w.numel() for w in wins)
-    real = QUERY_LEN * residues
-    k4_bound = bound(sum(nbytes(w) for w in wins) + out_bytes + nbytes(prof), cells,
-                     alu["sw_windows"])
-    k4_real = bound(residues + 4 * db.n + nbytes(prof), real, alu["sw_windows"])
-    # K5's result depends on no input: its bytes are its output alone.
-    k5_bound = bound(out_bytes, cells, alu["sw_windows_const_s"])
-    k5_real = bound(4 * db.n, real, alu["sw_windows_const_s"])
-    print(f"{tag} bounds over the batches' cells: K4 {k4_bound[0]} ms by {k4_bound[1]} "
-          f"({k4_bound[0] / k4_ms} of its time), K5 {k5_bound[0]} ms by {k5_bound[1]} "
-          f"({k5_bound[0] / k5_ms}); over the real cells: K4 {k4_real[0]} ms "
-          f"({k4_real[0] / k4_ms}), K5 {k5_real[0]} ms ({k5_real[0] / k5_ms}) | {smi}",
-          flush=True)
+             f"rows={prof.shape[0]}, (T, R)={tuple(res['team'])}")
     common = {"shape": f"fixed-batch path, {db.n} records, lq={QUERY_LEN}, {shape}",
               "card": smi}
     return {
         "sw_windows": {
             "launches": res["launches"], "ms": k4_ms, "plain_ms": plain[False],
-            "bound_ms": k4_bound[0], "bound_by": k4_bound[1],
-            "bound_real_cells_ms": k4_real[0],
+            "bound_ms": res["bound_real_ms"], "bound_by": res["bound_by"],
+            "bound_is": "over the real cells (query rows x real residues), at the "
+                        "widest B's instance; bound_batch_ms beside it over the batches' cells",
+            "bound_batch_ms": res["bound_batch_ms"],
+            "instance": res["instance"], "registers": res["registers"],
+            "factor": factor[res["instance"]],
+            "cells_real": res["cells_real"], "cells_batch": res["cells_batch"],
+            "k4_over_k5": k4_ms / k5_ms,
             "gcups_real": res["gcups_real"], "gcups_batch_cells": res["gcups_batch_cells"],
             "padded_over_real": res["padded_over_real"],
-            "per_lanes": {str(b): r for b, r in per_b.items()},
+            "per_lanes": {str(b): {k: v for k, v in r.items() if not k.startswith("model_")}
+                          for b, r in per_b.items()},
             **common,
         },
         "sw_windows_const_s": {
             "launches": k5_launches, "ms": k5_ms, "plain_ms": plain[True],
-            "bound_ms": k5_bound[0], "bound_by": k5_bound[1],
-            "bound_real_cells_ms": k5_real[0],
+            "bound_ms": res["k5_bound_ms"], "bound_by": "operations",
+            "bound_is": "over every batch cell, which K5 runs",
+            "bound_real_cells_ms": bound(out_bytes, real, res["k5_pipe_per_cell"])[0],
+            "instance": res["k5_instance"], "registers": res["k5_registers"],
+            "factor": factor[res["k5_instance"]],
             "k4_ms_in_turns": res["k4_ms"], "k5_ms_in_turns": res["k5_ms"],
             **common,
         },
@@ -2318,7 +2477,6 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     name, smi = phase_device(torch)
     loops, usage, factor = phase_build()
-    alu = {n: loops[key]["pipe_per_cell"] for key, n in BOUND_INSTANCES.items()}
     chk = Checker(torch)
     if only is None or 3 in only:
         phase_kernel(chk)
@@ -2359,7 +2517,8 @@ def main(argv=None) -> int:
 
     batch8 = (multi8.pop("scores"), [random_query(17, 100 + k) for k in range(8)])
     fixed = phase_fixed_path(
-        torch, chk, smi, query, db, alu, (k1_scores, main_path["ms"]), batch8)
+        torch, chk, smi, query, db, loops, usage, factor, (k1_scores, main_path["ms"]),
+        batch8)
     phase_cli()
     fasta, ingest = phase_ingest(smi, db)
     long_query, long_scores = random_query(2000, 2000), long_path.pop("scores")
@@ -2471,7 +2630,7 @@ def main(argv=None) -> int:
     }] + [{
         "name": name,
         "route": "cuda",
-        "source": "seqalign_tpu_torch/csrc/sw_windows.cu",
+        "source": "seqalign_tpu_torch/csrc/sw_windows.cuh",
         "replaces": replaces,
         "max_abs_err": chk.max_abs_err[name],
         "library_ms": None,
@@ -2482,7 +2641,7 @@ def main(argv=None) -> int:
     )]
     # The bound at the issue rates measured on this card, beside the data
     # sheet's (bound_ms, which the ranking of kernels keeps).
-    kfactor = {n: factor[key] for key, n in BOUND_INSTANCES.items()}
+    kfactor = {n: fixed[n]["factor"] for n in ("sw_windows", "sw_windows_const_s")}
     kfactor["sw_stream"] = factor[main_path["instance"]]
     kfactor["sw_stream_multi"] = factor[multi8["instance"]]
     kfactor["sw_stream_striped"] = long_path["factor"]

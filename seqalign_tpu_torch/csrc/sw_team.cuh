@@ -1,6 +1,7 @@
 // The team step of the Smith-Waterman kernels that keep a lane's query rows
-// in registers: K2, the row stripes of a long query (sw_striped.cu), and
-// the one-pass kernel of K1 and K3 (sw_stream.cuh).
+// in registers: K2, the row stripes of a long query (sw_striped.cu), the
+// one-pass kernel of K1 and K3 (sw_stream.cuh), and the fixed-batch kernel
+// of K4 and K5 (sw_windows.cuh).
 //
 // A team of threads scores one lane of one window; thread k holds the R
 // consecutive rows k R .. k R + R - 1, and their Gg(i, j - 1) and
@@ -152,11 +153,19 @@ __device__ __forceinline__ Input receive(const Team<R>& st, const Pass& ps,
   return in;
 }
 
+// The S = P'[i][c] of K5 (sw_windows.cu with kConstS): a constant on every
+// row and position.
+constexpr int kConstScore = 7;
+
 // One step: this thread's R rows at j0 and at j1. kReset: some thread of
 // the warp starts a segment at this step (the rare, cold path). kOut writes
 // the last row to K2's bnd_out; kPartial takes that row from inside the
 // last thread. kCS: the profile's char stride, or 0 for the pass's ps.cs.
-template <int R, bool kOut, bool kPartial, bool kReset, int kCS = R * kWarp>
+// kConstS (K5): S = kConstScore in place of the profile gather, and the
+// column max stops at row ps.rlast, the thread's last real row, since a
+// constant row past the query's would raise it where a P' = 0 row does not.
+template <int R, bool kOut, bool kPartial, bool kReset, int kCS = R * kWarp,
+          bool kConstS = false>
 __device__ __forceinline__ void team_step(Team<R>& st, const Input& in,
                                           const Pass& ps, int j0) {
   int d0 = st.diag;  // Gg(i - 1, j0 - 1), the diagonal at j0
@@ -180,21 +189,27 @@ __device__ __forceinline__ void team_step(Team<R>& st, const Input& in,
   int up_gg0 = in.gg0, up_f0 = in.f0;  // row i - 1 at j0
   int up_gg1 = in.gg1, up_f1 = in.f1;  // row i - 1 at j1
   int cm = in.cm;
+  int cm_rows = in.cm;  // kConstS: the column max down to row ps.rlast
   int last_gg0 = 0, last_f0 = 0, last_gg1 = 0, last_f1 = 0;  // kPartial
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     // j0.
-    const int hp0 = d0 * ps.one + p0[r * kWarp];
+    const int hp0 = d0 * ps.one + (kConstS ? kConstScore : p0[r * kWarp]);
     const int e0 = __viaddmax_s32(st.e[r], ps.ge, st.gg[r]);
     const int f0 = __viaddmax_s32(up_f0, ps.ge, up_gg0);
     const int g0 = __vimax3_s32_relu(hp0, e0, f0);
     const int gg0 = g0 + ps.go;
     // j1, one cell behind on the E chain.
-    const int hp1 = d1 * ps.one + p1[r * kWarp];
+    const int hp1 = d1 * ps.one + (kConstS ? kConstScore : p1[r * kWarp]);
     const int e1 = __viaddmax_s32(e0, ps.ge, gg0);
     const int f1 = __viaddmax_s32(up_f1, ps.ge, up_gg1);
     const int g1 = __vimax3_s32_relu(hp1, e1, f1);
     cm = __vimax3_s32(cm, g0, g1);
+    if constexpr (kConstS) {
+      // A thread's rows start on an even row and the query's rows are a
+      // multiple of kRowAlign, so its last real row is odd.
+      if (r % 2 == 1 && r == ps.rlast) cm_rows = cm;
+    }
     d0 = st.gg[r];  // Gg(i, j0 - 1), row i + 1's diagonal at j0
     d1 = gg0;       // Gg(i, j0), its diagonal at j1
     st.gg[r] = g1 + ps.go;
@@ -224,6 +239,7 @@ __device__ __forceinline__ void team_step(Team<R>& st, const Input& in,
   st.o_gg1 = up_gg1;
   st.o_f1 = up_f1;
   st.o_word = in.word;
+  if constexpr (kConstS) cm = cm_rows;
   st.o_cm = cm;
   // len is a multiple of 16, so j1 < len wherever j0 < len.
   if (ps.k == ps.last && (unsigned)j0 < (unsigned)ps.len) {

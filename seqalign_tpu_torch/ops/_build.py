@@ -118,8 +118,10 @@ def load() -> ctypes.CDLL:
         )
         lib.sw_windows_launch.restype = ctypes.c_int
         lib.sw_windows_launch.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
         )
+        lib.sw_windows_team_threads.restype = ctypes.c_int
+        lib.sw_windows_team_threads.argtypes = [ctypes.c_int]
         lib.isa_probe_launch.restype = ctypes.c_int
         lib.isa_probe_launch.argtypes = (
             [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p]

@@ -51,19 +51,22 @@ against NW equal-length '*'-padded windows, one database sequence per
 lane; the DP state starts fresh at position 0 only, and each lane's best
 comes out once, window-major (lane ``w * win + l``). With ``const_s`` (K5)
 every substitution score is the biased constant 7, on every row the kernel
-runs, padded rows included: the DP loop alone, for timing; its scores mean
-nothing. :func:`sw_windows_engine` is the lane-batch engine interface over
-it (``sw_pallas_multi``: an unbiased profile and an ``(Lb, B)`` batch),
-:func:`sw_window` its one-window form (``sw_pallas``).
+runs (the ``lqp`` rows of the profile, padded rows included): the DP loop
+alone, for timing; its scores mean nothing. :func:`sw_windows_engine` is
+the lane-batch engine interface over it (``sw_pallas_multi``: an unbiased
+profile and an ``(Lb, B)`` batch), :func:`sw_window` its one-window form
+(``sw_pallas``).
 
 On a CUDA tensor each wrapper launches its kernel or raises: K1 and K3 the
 one-pass kernel of ``csrc/sw_stream.cuh`` (a team of T threads per lane, the
 query's rows in registers, no rolling-row scratch; :func:`stream_team`
 picks T and R), K2 ``csrc/sw_striped.cu`` (the same team step, a warp per
 lane, over row stripes, and its block instance), K4 and K5
-``csrc/sw_windows.cu``. On a CPU tensor it runs its plain version
-(:func:`sw_stream_reference`, :func:`sw_stream_multi_reference`,
-:func:`sw_stream_striped_pass_reference`,
+``csrc/sw_windows.cuh`` (K1's team design over fixed windows, each warp
+stopping after its own lanes' last residue where that is exact;
+:func:`windows_team` picks T and R for the batch's width). On a CPU
+tensor it runs its plain version (:func:`sw_stream_reference`,
+:func:`sw_stream_multi_reference`, :func:`sw_stream_striped_pass_reference`,
 :func:`sw_stream_striped_step_reference`, :func:`sw_windows_reference`).
 """
 
@@ -76,6 +79,7 @@ import torch
 
 from ..convert import ROW_ALIGN, batch_windows, profile_to_torch
 from ..device import resolve_device
+from ..host import PAD_INDEX
 
 # The port's query-row limit for one launch: a team of 32 threads holds 32 x
 # 48 rows, and its profile (4 KiB x R) 192 KiB of the 227 KiB a Hopper block
@@ -117,9 +121,21 @@ STREAM_JB = 16
 
 ALPHA = 32
 
-# Lanes of one window of the fixed-batch engine (sw_windows_engine): four
-# 256-thread CTAs, the JAX package's 1024-lane window.
+# Lanes of one window of the fixed-batch engine (sw_windows_engine): the
+# JAX package's 1024-lane window.
 FIXED_WINDOW_LANES = 1024
+
+# The fixed-batch kernel of K4 and K5 (csrc/sw_windows.cuh) is K1's team
+# design, built for the same R, with solo instances at the same R; a launch
+# runs windows_team's (T, R), which fits the team to the batch's width.
+WINDOWS_ROWS_PER_THREAD_BUILT = STREAM_ROWS_PER_THREAD_BUILT
+WINDOWS_SOLO_ROWS = STREAM_SOLO_ROWS
+# The SMs of an H100 SXM, the card windows_team fills unless told another,
+# and the share of them a grid's full CTAs must reach to fill it: 4,096
+# lanes in teams of 16 make 128 CTAs of 512 threads (97%), which ran
+# fastest there on an H100 (PERF.md).
+H100_SMS = 132
+FILL_SHARE = 0.9
 
 # K5's biased substitution score, on every row and position
 # (swa_pallas.py:363).
@@ -202,6 +218,68 @@ def stream_team(rows: int) -> tuple[int, int]:
         )
     _, t, r = min(fits)
     return t, r
+
+
+def team_threads(rows_per_thread: int) -> int:
+    """Threads of a full CTA of the one-pass team kernels (K1, K3, K4, K5)
+    at R rows a thread: ``team_threads<R>()`` of ``csrc/sw_stream.cuh``, one
+    CTA an SM."""
+    return 384 if rows_per_thread >= 40 else 512
+
+
+def windows_team(rows: int, lanes: int, sms: int = H100_SMS) -> tuple[int, int]:
+    """``(T, R)`` of a K4 or K5 launch over ``rows`` query rows and
+    ``lanes`` lanes (queries x windows x lanes a window).
+
+    Among the built ``(T, R)`` that hold the rows, the fewest padded rows
+    ``T R`` (then the smallest team) whose grid fills the card: ``lanes x
+    T`` threads reach ``FILL_SHARE`` of ``sms`` CTAs of
+    :func:`team_threads`. Where none does, every SM the grid reaches runs
+    one CTA, and a lane's steps take R rows a thread: the fewest rows a
+    thread (the R of the largest team), then the fewest padded rows. A
+    wide batch takes K1's team (:func:`stream_team`); a narrow one wider
+    teams of fewer rows a thread, so that its lanes still reach every SM.
+    On an H100 this took the fastest team measured at each of 4,096,
+    16,384 and 67,584 lanes and lq = 17, 144, 512 and 1536 (PERF.md).
+    """
+    fits = [(t, r) for t in STREAM_TEAMS for r in WINDOWS_ROWS_PER_THREAD_BUILT
+            if t * r >= rows]
+    if not fits:
+        raise ValueError(
+            f"a query of {rows} rows exceeds the {STREAM_TEAMS[-1]} x "
+            f"{WINDOWS_ROWS_PER_THREAD_BUILT[-1]} rows the K4/K5 kernel holds"
+        )
+    full = [(t * r, t, r) for t, r in fits
+            if lanes * t >= FILL_SHARE * sms * team_threads(r)]
+    if full:
+        _, t, r = min(full)
+    else:
+        _, _, t, r = min((r, t * r, t, r) for t, r in fits)
+    return t, r
+
+
+def windows_launch_team(profile_biased: torch.Tensor,
+                        db_windows: torch.Tensor) -> tuple[int, int]:
+    """:func:`windows_team`'s ``(T, R)`` for a :func:`sw_windows` launch on
+    these tensors: all the profile's rows, every lane of every window and
+    query, the SMs of the windows' card."""
+    nq = profile_biased.shape[0] if profile_biased.ndim == 3 else 1
+    nw, _, win = db_windows.shape
+    sms = (torch.cuda.get_device_properties(db_windows.device).multi_processor_count
+           if db_windows.device.type == "cuda" else H100_SMS)
+    return windows_team(profile_biased.shape[-2], nq * nw * win, sms)
+
+
+def windows_kernel_instance(rows: int, lanes: int, const_s: bool = False,
+                            team: tuple[int, int] | None = None) -> str:
+    """The template instance of ``csrc/sw_windows.cuh`` that a K4 (K5 with
+    ``const_s``) launch over ``rows`` query rows and ``lanes`` lanes runs
+    (``team`` or :func:`windows_team`'s choice), keyed as ``sass.kernel_key``
+    keys it: ``sw_windows_kernel<R, kSolo, kConstS>``."""
+    t, r = team or windows_team(rows, lanes)
+    solo = t == 1 and r in WINDOWS_SOLO_ROWS
+    flag = {False: "false", True: "true"}
+    return f"sw_windows_kernel<{r}, {flag[solo]}, {flag[bool(const_s)]}>"
 
 
 def stream_kernel_instance(rows: int, team: tuple[int, int] | None = None) -> str:
@@ -542,12 +620,6 @@ def _launch_stream(prof, streams, fs, go, ge, nslots, jb, team, rows) -> torch.T
         t, r,
     )
     return out
-
-
-def _rows(nq, nw, lqp, win, dev) -> torch.Tensor:
-    """K4's and K5's rolling (Gg, E) rows, ``[q][w][i][lane]``; the kernels
-    write them before they read them."""
-    return torch.empty((2, nq, nw, lqp, win), dtype=torch.int32, device=dev)
 
 
 def _call(name, dev, *args) -> None:
@@ -1016,6 +1088,7 @@ def sw_windows(
     ge: int,
     *,
     const_s: bool = False,
+    team: tuple[int, int] | None = None,
 ) -> torch.Tensor:
     """Score one query, or a batch, against fixed windows in one launch (K4;
     K5 with ``const_s``).
@@ -1027,36 +1100,55 @@ def sw_windows(
       db_windows: ``(NW, Lb, win)`` int8 windows, chars in 0..31,
         '*'-padded, ``Lb`` a positive multiple of ``STREAM_JB``
         (``convert.batch_windows``).
-      go, ge: total gap-open and gap-extend penalties, ``ge >= go``.
+      go, ge: total gap-open and gap-extend penalties, ``ge >= go``; the
+        kernel also needs ``ge <= 0`` (each of a team's rows past ``lqp``
+        would add ``ge`` to K4's best).
       const_s: K5: every substitution score is the biased ``CONST_S`` = 7
         on all ``lqp`` rows and every position.
+      team: ``(T, R)`` of the kernel launch, one of ``STREAM_TEAMS`` and one
+        of ``WINDOWS_ROWS_PER_THREAD_BUILT`` whose team holds the rows; None
+        for :func:`windows_team`'s. The plain version has no team.
 
     Returns:
       ``(NW * win,)`` int32 best scores in window-major lane order, or
       ``(nq, NW * win)`` for a 3-D profile. ``sw_windows.launches`` counts
       K4's launches, ``sw_windows.launches_const_s`` K5's.
+
+    The kernel stops each warp after the last residue of its own lanes
+    where that is exact (every row's '*' score at most 0; never for K5),
+    and keeps no DP state in device memory.
     """
     _check_windows(profile_biased, db_windows, go, ge)
+    lqp = profile_biased.shape[-2]
+    if team is not None:
+        t, r = team
+        if t not in STREAM_TEAMS or r not in WINDOWS_ROWS_PER_THREAD_BUILT or t * r < lqp:
+            raise ValueError(
+                f"team={team}: K4/K5 run teams of {STREAM_TEAMS} threads of "
+                f"{WINDOWS_ROWS_PER_THREAD_BUILT} rows, and a team must hold {lqp} rows"
+            )
     if db_windows.device.type == "cpu":
         return sw_windows_reference(
             profile_biased, db_windows, go, ge, const_s=const_s
         )
+    if ge > 0:
+        raise ValueError(
+            f"the fixed-batch kernel needs ge <= 0 (got {ge=}): each of a team's "
+            "rows past the query's would add ge to the best"
+        )
     dev = db_windows.device
     if dev.type != "cuda":
         raise ValueError(f"no fixed-batch kernel for device {dev}")
-    multi = profile_biased.ndim == 3
-    nq = profile_biased.shape[0] if multi else 1
-    lqp = profile_biased.shape[-2]
+    nq = profile_biased.shape[0] if profile_biased.ndim == 3 else 1
     nw, length, win = db_windows.shape
+    t, r = team or windows_launch_team(profile_biased, db_windows)
     out = torch.empty(
         (*profile_biased.shape[:-2], nw * win), dtype=torch.int32, device=dev
     )
-    rows = _rows(nq, nw, lqp, win, dev)
     _call(
         "sw_windows", dev, profile_biased.data_ptr(), db_windows.data_ptr(),
-        out.data_ptr(), rows[0].data_ptr(), rows[1].data_ptr(),
-        lqp, length, win, nw, nq, int(multi), int(const_s), STREAM_JB,
-        int(go), int(ge),
+        out.data_ptr(), lqp, length, win, nw, nq, int(const_s), STREAM_JB,
+        int(go), int(ge), t, r,
     )
     if const_s:
         sw_windows.launches_const_s += 1
@@ -1067,6 +1159,45 @@ def sw_windows(
 
 sw_windows.launches = 0
 sw_windows.launches_const_s = 0
+
+
+def lane_ends(db_windows: torch.Tensor) -> torch.Tensor:
+    """``(NW, win)`` int64: 1 + each lane's last position holding a char
+    other than '*' (0 for an all-'*' lane)."""
+    live = db_windows != PAD_INDEX
+    last = db_windows.shape[1] - live.flip(1).to(torch.uint8).argmax(dim=1).long()
+    return torch.where(live.any(dim=1), last, 0)
+
+
+def warp_ends(db_windows: torch.Tensor, team: tuple[int, int]) -> torch.Tensor:
+    """``(NW, win)`` int64: the end at which the kernel stops each lane, as
+    modelled from the batch (the kernel reports none), its warp's end: the
+    largest :func:`lane_ends` of the ``32 / T`` lanes of its
+    warp (lanes past the window's last add nothing), rounded up to a step's
+    2 positions."""
+    ends = lane_ends(db_windows)
+    nw, win = ends.shape
+    per_warp = max(1, 32 // team[0])
+    pad = -win % per_warp
+    warp = torch.nn.functional.pad(ends, (0, pad)).reshape(nw, -1, per_warp)
+    warp = (warp.amax(dim=2, keepdim=True) + 1) // 2 * 2
+    return warp.expand(-1, -1, per_warp).reshape(nw, -1)[:, :win]
+
+
+def windows_cells(db_windows: torch.Tensor, rows: int, team: tuple[int, int],
+                  skip: bool = True) -> dict[str, int]:
+    """The DP cells of a K4 or K5 launch over ``db_windows`` at ``rows``
+    query rows (one query) and ``team`` ``(T, R)``, a model counted from
+    the batch (the kernel counts none; its time shows whether it skips):
+    ``real``, rows x each lane's end (:func:`lane_ends`); ``run``, rows x
+    each lane's warp end (:func:`warp_ends`), or the batch's length where
+    the kernel does not ``skip`` (K5, or a '*' score above 0); and
+    ``batch``, rows x every batch cell. The team's fill and drain steps,
+    ``T - 1`` a lane, are not counted."""
+    nw, length, win = db_windows.shape
+    run = int(warp_ends(db_windows, team).sum()) if skip else nw * length * win
+    return {"real": rows * int(lane_ends(db_windows).sum()), "run": rows * run,
+            "batch": rows * nw * length * win}
 
 
 def sw_windows_reference(

@@ -124,8 +124,8 @@ def search_database(
     engine: str | None = None,
     lanes: int | None = None,
     sort: bool = True,
-    device: torch.device | str | None = None,
     checkpoint_dir: str | None = None,
+    device: torch.device | str | None = None,
 ) -> tuple[np.ndarray, float]:
     """Score an encoded query against an EncodedDatabase.
 
@@ -597,6 +597,23 @@ def _db_from_encoded(encoded: Sequence[np.ndarray], names=None) -> EncodedDataba
     )
 
 
+def search_encoded(
+    query_idx: np.ndarray,
+    encoded_db: Sequence[np.ndarray],
+    scoring: ScoringModel,
+    engine: str | None = None,
+    lanes: int | None = None,
+    sort: bool = True,
+    device: torch.device | str | None = None,
+) -> tuple[np.ndarray, float]:
+    """Score an encoded query against a list of encoded sequences:
+    :func:`search_database` over them, scores in list order."""
+    return search_database(
+        query_idx, _db_from_encoded(encoded_db), scoring,
+        engine=engine, lanes=lanes, sort=sort, device=device,
+    )
+
+
 def _warn_padding(scoring: ScoringModel, query_idx: np.ndarray) -> None:
     if not scoring.padding_safe_for_query(query_idx):
         print(
@@ -623,9 +640,8 @@ def search(
         seqs.append(rec.seq)
         encoded.append(encode(rec.seq))
     _warn_padding(scoring, query_idx)
-    scores, kernel_time = search_database(
-        query_idx, _db_from_encoded(encoded), scoring,
-        engine=engine, lanes=lanes, sort=sort,
+    scores, kernel_time = search_encoded(
+        query_idx, encoded, scoring, engine=engine, lanes=lanes, sort=sort
     )
     return SearchResult(
         query_name=query.name,
@@ -645,9 +661,9 @@ def search_files(
     engine: str | None = None,
     lanes: int | None = None,
     keep_seqs: bool = False,
+    checkpoint_dir: str | None = None,
     db_cache: str | None = None,
     sort: bool = True,
-    checkpoint_dir: str | None = None,
 ) -> SearchResult:
     """Search a query FASTA (first record) against a database FASTA.
 

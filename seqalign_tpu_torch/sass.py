@@ -5,21 +5,20 @@
 builds ``csrc/*.cu`` as ``ops/_build.py`` does and prints, for each kernel
 function: the registers and spills ptxas reports (``-Xptxas -v``), its
 number of SASS instructions (``cuobjdump -sass``), and its innermost DP
-loop (K4's row loop; the team kernels' step loop, R rows at two
-positions: K1 and K3's ``sw_stream_kernel<R>``, K2's
-``sw_stream_striped_kernel`` and its block instance
-``sw_striped_block_kernel``): the instructions of the loop body, the DP
-cells one iteration computes (one ``LDS``, the profile gather
-``P'[i][c]``, each; a loop without a gather, K5's, computes
-``CELLS_PER_ITERATION``) and the integer
+loop (every kernel's step loop, R rows at two positions: K1 and K3's
+``sw_stream_kernel<R>``, K2's ``sw_stream_striped_kernel`` and its block
+instance ``sw_striped_block_kernel``, K4 and K5's ``sw_windows_kernel``):
+the instructions of the loop body, the DP cells one iteration computes
+(one ``LDS``, the profile gather ``P'[i][c]``, each; a loop without a
+gather, K5's, computes the 2 R of a step) and the integer
 ALU instructions per cell; of those, the ``IMAD`` family issues on the FMA
 pipe beside the ALU pipe that takes the rest (``seqalign_tpu_torch.probe``
 measures the two side by side), so ``pipe_per_cell`` counts the busier
 pipe's. The team kernels' shuffles (``SHFL``) are not ALU work: the probe runs them
 beside ``VIADDMNMX`` at twice the rate of either, and beside ``LDS`` at
 the rate of one, so they take the shared-memory path with ``LDS``. A template kernel's instances
-are keyed apart by their arguments (``sw_windows_kernel<false, true>``,
-``sw_stream_kernel<36>``, ``sw_stream_striped_kernel<16, true, true,
+are keyed apart by their arguments (``sw_windows_kernel<36, false, true>``,
+``sw_stream_kernel<36, false>``, ``sw_stream_striped_kernel<16, true, true,
 false>``). With ``--against DIR`` it builds
 ``DIR/seqalign_tpu_torch/csrc/*.cu`` (another checkout, for example the
 parent commit) the same way and says, kernel by kernel, whether both builds
@@ -38,22 +37,21 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-from .convert import ROW_ALIGN
 from .ops import _build
-from .ops.swa_cuda import STREAM_JB
 
 KERNELS = ("sw_stream_kernel", "sw_stream_striped_kernel", "sw_striped_block_kernel",
            "sw_windows_kernel")
-# Cells of one iteration of K4's row loop: kRowUnroll (= ROW_ALIGN) rows x
-# JB (= STREAM_JB) positions of csrc/sw_windows.cu. Where the loop gathers
-# the profile it holds one LDS per cell, and the count of LDS must equal
-# this (expected_cells; the team kernels' step loop holds 2 R).
-CELLS_PER_ITERATION = ROW_ALIGN * STREAM_JB
 # Positions one step of a team kernel (csrc/sw_team.cuh) covers, R rows
-# each.
+# each. Where the step loop gathers the profile it holds one LDS per cell,
+# and the count of LDS must equal 2 R (expected_cells).
 STRIPED_POSITIONS_PER_STEP = 2
-# The team kernels, whose first template argument is R.
-TEAM_KERNELS = ("sw_stream_kernel<", "sw_stream_striped_kernel<", "sw_striped_block_kernel<")
+# The team kernels, whose first template argument is R: every kernel.
+TEAM_KERNELS = ("sw_stream_kernel<", "sw_stream_striped_kernel<", "sw_striped_block_kernel<",
+                "sw_windows_kernel<")
+# Steps one iteration of a solo instance of the fixed-batch kernel
+# (sw_windows_kernel<R, true, ...>) runs: the kSoloWords steps of its
+# block, unrolled (csrc/sw_windows.cuh).
+SOLO_WINDOWS_STEPS = 4
 # Opcodes that are not integer ALU work: memory (SHFL shares LDS's path),
 # control, conversion.
 _NOT_ALU = ("LD", "ST", "SHFL", "BRA", "BAR", "NOP", "EXIT", "RET", "CALL",
@@ -84,13 +82,16 @@ def kernel_key(mangled: str) -> str | None:
 
 
 def expected_cells(key: str) -> int:
-    """The ``LDS`` (cells) one iteration of a gathering kernel's DP loop
-    holds: ``STRIPED_POSITIONS_PER_STEP`` x R (the first template argument)
-    for a team kernel's step loop (K1, K3, K2); ``CELLS_PER_ITERATION`` for
-    K4's row loop."""
-    if key.startswith(TEAM_KERNELS):
-        return STRIPED_POSITIONS_PER_STEP * int(re.match(r"[^<]*<(\d+)", key).group(1))
-    return CELLS_PER_ITERATION
+    """The cells one iteration of a team kernel's step loop computes (K1,
+    K3, K2, K4, K5): ``STRIPED_POSITIONS_PER_STEP`` x R, the first template
+    argument, a step; ``SOLO_WINDOWS_STEPS`` steps for a solo instance of
+    the fixed-batch kernel. Where the loop gathers the profile, its
+    ``LDS``. Raises for a key without R."""
+    m = re.match(r"[^<]*<(\d+)(, true)?", key)
+    if not key.startswith(TEAM_KERNELS) or not m:
+        raise ValueError(f"{key!r} names no team kernel instance")
+    steps = SOLO_WINDOWS_STEPS if key.startswith("sw_windows_kernel<") and m.group(2) else 1
+    return STRIPED_POSITIONS_PER_STEP * int(m.group(1)) * steps
 
 
 def resource_usage(lib: Path, text: str | None = None) -> dict[str, dict[str, int]]:
@@ -194,44 +195,56 @@ def loop_bodies(instrs) -> list[list[str]]:
     return bodies
 
 
-def inner_loop(instrs) -> dict | None:
+def inner_loop(instrs, key: str | None = None) -> dict | None:
     """The innermost DP loop, the shortest backward branch whose body holds
     DP work (``VIADDMNMX``, the E and F updates): its size, its cells and
     integer ALU instructions per cell. The cells are its ``LDS`` (the
     profile gather), one each; only a kernel with no DP loop that gathers
-    (K5) takes a loop without ``LDS``, of ``CELLS_PER_ITERATION`` cells."""
-    loops = []
+    (K5) takes a loop without ``LDS``, of :func:`expected_cells` of its
+    instance ``key`` (2 R a step)."""
+    bodies = []
     for body in loop_bodies(instrs):
-        if not any(op.startswith("VIADDMNMX") for op in body):
-            continue
-        hist = collections.Counter(op.split(".")[0] for op in body)
-        cells = hist["LDS"] or CELLS_PER_ITERATION
-        alu = sum(n for op, n in hist.items() if not op.startswith(_NOT_ALU))
-        loops.append({"instructions": len(body), "cells": cells,
-                      "cells_from": "LDS" if hist["LDS"] else "CELLS_PER_ITERATION",
-                      "alu_per_cell": alu / cells,
-                      "imad_per_cell": hist["IMAD"] / cells,
-                      "pipe_per_cell": max(alu - hist["IMAD"], hist["IMAD"]) / cells,
-                      "instructions_per_cell": len(body) / cells,
-                      "opcodes": dict(hist.most_common())})
+        if any(op.startswith("VIADDMNMX") for op in body):
+            bodies.append(collections.Counter(op.split(".")[0] for op in body))
+    if not bodies:
+        return None
     # A loop that gathers beats any that does not; then the shortest.
-    return min(loops, key=lambda lp: (lp["cells_from"] != "LDS", lp["instructions"]),
-               default=None)
+    hist = min(bodies, key=lambda h: (not h["LDS"], sum(h.values())))
+    if not hist["LDS"] and key is None:
+        raise ValueError("a DP loop without a profile gather needs its instance key")
+    cells = hist["LDS"] or expected_cells(key)
+    alu = sum(n for op, n in hist.items() if not op.startswith(_NOT_ALU))
+    size = sum(hist.values())
+    return {"instructions": size, "cells": cells,
+            "cells_from": "LDS" if hist["LDS"] else "step",
+            "alu_per_cell": alu / cells,
+            "imad_per_cell": hist["IMAD"] / cells,
+            "pipe_per_cell": max(alu - hist["IMAD"], hist["IMAD"]) / cells,
+            "instructions_per_cell": size / cells,
+            "opcodes": dict(hist.most_common())}
 
 
-def report(lib: Path, ptxas: str) -> dict:
-    """Per kernel: ptxas usage, SASS size, inner loop, and the SASS."""
+def report(lib: Path, ptxas: str, strict: bool = True) -> dict:
+    """Per kernel: ptxas usage, SASS size, inner loop, and the SASS. Not
+    ``strict`` (another checkout's kernels), a loop this module cannot count
+    (an older kernel's instance key) is reported as None."""
     usage = ptxas_usage(ptxas)
     out = {}
     for name, instrs in sass_functions(lib).items():
         key = kernel_key(name)
         if key is None:
             continue
+        try:
+            loop = inner_loop(instrs, key)
+        except ValueError:
+            if strict:
+                raise
+            loop = None
         out[key] = {
             "mangled": name,
             "ptxas": next((v for k, v in usage.items() if k == name), None),
             "sass_instructions": len(instrs),
-            "inner_loop": inner_loop(instrs),
+            "inner_loop": loop,
             "sass": [ins for _, ins, _ in instrs],
         }
     return out
@@ -255,7 +268,7 @@ def main(argv=None) -> int:
         if args.against:
             csrc = Path(args.against) / "seqalign_tpu_torch" / "csrc"
             olib, optxas = build_lib(csrc, tmp / "other")
-            other = report(olib, optxas)
+            other = report(olib, optxas, strict=False)
     result = {"kernels": {}}
     for key, r in this.items():
         row = {k: v for k, v in r.items() if k != "sass"}

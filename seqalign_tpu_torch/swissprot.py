@@ -7,7 +7,7 @@ the same stream.
 
     python -m seqalign_tpu_torch.swissprot [--lq 17,144,512,1536,2000]
         [--stripe-rows 256,512,768] [--windows 132,264,396,528,1056]
-        [--nq N] [--fixed] [--stream-chunk N] [--out FILE.json]
+        [--nq N] [--fixed [--teams]] [--stream-chunk N] [--out FILE.json]
 
 times each layer of a search over it on the GPU, PAM250, gaps -2/-1: the
 FASTA parse and ``pack_streams``, each native (the fastio library that
@@ -40,9 +40,13 @@ With ``--fixed`` it times the fixed-batch kernel (K4) and its constant-S
 mode (K5) instead: the database, length-sorted, cut into the lane batches
 of ``pipeline.lane_batches`` at each width of ``FIXED_LANES``, every batch one
 launch on device-resident windows, for each query length of ``--lq``; K4
-and K5 in turns (K4, K5, K5, K4), and K1 over the pipeline's streams at the
-same query length beside them. K5/K4 is the share of K4's time that the DP
-loop takes without the profile gather.
+and K5 in turns (K4, K5, K5, K4), the (T, R) the launches run and the cells
+K4 runs (each warp to its own end, as ``swa_cuda.windows_cells`` models
+them from the batch) beside the real and the batches' cells,
+and K1 over the pipeline's streams at the same query length beside them.
+K5 runs every batch cell. With ``--teams`` it also times K4 at each team
+size that holds the rows (at its smallest R), the measurements
+``swa_cuda.windows_team``'s rule rests on.
 
 With ``--stream-chunk N`` it times the bounded-memory search instead
 (``pipeline.search_files_streaming``, parts of N records, the 144-residue
@@ -384,13 +388,17 @@ def stream_k1_ms(db, profs) -> dict[int, float]:
             for lq, p in profs.items()}
 
 
-def fixed_breakdown(db, profs, k1_ms, say) -> list[dict]:
+def fixed_breakdown(db, profs, k1_ms, say, teams: bool = False) -> list[dict]:
     """K4 and K5 over the fixed lane batches at each width of FIXED_LANES
     and each profile of ``profs`` (keyed by query length), in turns (K4,
-    K5, K5, K4), beside ``k1_ms``, K1's time at each length."""
+    K5, K5, K4), beside ``k1_ms``, K1's time at each length; with
+    ``teams``, K4 at each team size's smallest R that holds the rows too."""
     from . import pipeline
     from .convert import batch_windows
-    from .ops.swa_cuda import FIXED_WINDOW_LANES, STREAM_JB, sw_windows
+    from .ops.swa_cuda import (
+        FIXED_WINDOW_LANES, STREAM_JB, STREAM_TEAMS, WINDOWS_ROWS_PER_THREAD_BUILT,
+        sw_windows, windows_cells, windows_launch_team,
+    )
 
     dev = torch.device("cuda")
     sc = pam250()
@@ -413,17 +421,37 @@ def fixed_breakdown(db, profs, k1_ms, say) -> list[dict]:
                 turns[const_s].append(cuda_ms(lambda: [
                     sw_windows(p, w, go, ge, const_s=const_s) for w in wins], 1))
             k4, k5 = min(turns[False]), min(turns[True])
-            row = {"lanes": lanes, "lq": lq, "batches": len(batches),
+            # The PAM250 query holds no '*': K4 stops each warp at its end.
+            # The cells that runs are modelled from the batch (windows_cells);
+            # the kernel counts none.
+            team = windows_launch_team(p, wins[0])
+            rows = p.shape[0]
+            run = sum(windows_cells(w, rows, team)["run"] for w in wins)
+            row = {"lanes": lanes, "lq": lq, "batches": len(batches), "team": team,
                    "k4_ms": turns[False], "k5_ms": turns[True], "k5_over_k4": k5 / k4,
                    "k1_ms": k1_ms[lq], "k4_over_k1": k4 / k1_ms[lq],
                    "gcups_real": lq * residues / k4 / 1e6,
-                   "gcups_batch_cells": p.shape[0] * cells_per_row / k4 / 1e6,
-                   "padded_over_real": cells_per_row / residues}
+                   "gcups_batch_cells": rows * cells_per_row / k4 / 1e6,
+                   "padded_over_real": cells_per_row / residues,
+                   "model_cells_run": run, "cells_real": rows * residues,
+                   "cells_batch": rows * cells_per_row,
+                   "model_run_over_real": run / (rows * residues)}
+            if teams:
+                row["teams_ms"] = {}
+                for t in STREAM_TEAMS:
+                    r = min((r for r in WINDOWS_ROWS_PER_THREAD_BUILT if t * r >= rows),
+                            default=None)
+                    if r is not None:
+                        row["teams_ms"][f"{t}x{r}"] = cuda_ms(lambda: [
+                            sw_windows(p, w, go, ge, team=(t, r)) for w in wins], 2)
+                say(f"{tag} lq={lq}: K4 at each team (T x R: ms) {row['teams_ms']}")
             out.append(row)
-            say(f"{tag} lq={lq}: K4 {turns[False]} ms ({row['gcups_real']} GCUPS over "
-                f"real residues, {row['gcups_batch_cells']} over the batches' cells), "
-                f"K5 {turns[True]} ms, K5/K4 {row['k5_over_k4']}; K1 {k1_ms[lq]} ms, "
-                f"K4/K1 {row['k4_over_k1']}")
+            say(f"{tag} lq={lq}: (T, R) {team}; K4 {turns[False]} ms ({row['gcups_real']} "
+                f"GCUPS over real residues), cells run (model) {run} = "
+                f"{row['model_run_over_real']} of "
+                f"the real {rows * residues} (the batches' {rows * cells_per_row}); K5 "
+                f"{turns[True]} ms over every batch cell, K5/K4 {row['k5_over_k4']}; K1 "
+                f"{k1_ms[lq]} ms, K4/K1 {row['k4_over_k1']}")
         del wins
     return out
 
@@ -529,6 +557,8 @@ def main(argv=None) -> int:
                     help="time the multi-query search of this many queries")
     ap.add_argument("--fixed", action="store_true",
                     help="time the fixed-batch kernel (K4) and K5 instead")
+    ap.add_argument("--teams", action="store_true",
+                    help="with --fixed, time K4 at every team size too")
     ap.add_argument("--stream-chunk", type=int, default=0,
                     help="time the bounded-memory search in parts of this many records")
     ap.add_argument("--out", default=None)
@@ -557,7 +587,8 @@ def main(argv=None) -> int:
         return 0
     if args.fixed:
         profs = fixed_profiles(query, lqs, dev)
-        result["fixed"] = fixed_breakdown(db, profs, stream_k1_ms(db, profs), say)
+        result["fixed"] = fixed_breakdown(db, profs, stream_k1_ms(db, profs), say,
+                                          args.teams)
         _write(args.out, result)
         return 0
     build = Path(__file__).resolve().parent.parent / "build"

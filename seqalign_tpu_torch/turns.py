@@ -1,8 +1,9 @@
 """Time the stream kernels (K1, K3) of this checkout against another
 checkout's, in turns, on one card; or, with ``--longpair``, its
-sequence-parallel long pair.
+sequence-parallel long pair; or, with ``--fixed``, its fixed-batch kernel.
 
-    python -m seqalign_tpu_torch.turns --against DIR [--longpair] [--reps N] [--out FILE.json]
+    python -m seqalign_tpu_torch.turns --against DIR [--longpair | --fixed] [--reps N]
+        [--out FILE.json]
 
 ``DIR`` is the root of another checkout of the repo (for example the parent
 commit, unpacked with ``git archive`` into ``build/parent``). A worker
@@ -24,8 +25,16 @@ against the 1,024 longest records, as chip_smoke's phase 13 lays them out
 both checkouts' workers in ``build/turns/longpair.npz``), on entries of the
 one card, each call once untimed and then ``--reps`` times under its own
 CUDA-event timer (``events=``: first launch to merged result), with the
-block kernel's launches and the call's device-memory peak. The scores of
-every run must be equal. Each line names the card and its power limit;
+block kernel's launches and the call's device-memory peak. With
+``--fixed`` it runs K4 and K5 (``sw_windows``, ``const_s``) over the lane
+batches of ``pipeline.lane_batches`` at each width of
+``swissprot.FIXED_LANES`` with the 144-residue query, each checkout's
+windows on the card before the clock starts: every batch's launch once
+untimed, then ``--reps`` passes under CUDA events, with each pass's
+device-memory peak above the windows and the cells K4 runs, as
+``swa_cuda.windows_cells`` models them from the batch (a checkout without
+it is taken to run every batch cell). The scores of every run must be equal. Each line names the card
+and its power limit;
 ``--out`` gets the same as JSON.
 """
 
@@ -109,6 +118,65 @@ def _longpair_worker(root: str, reps: int, inputs: str) -> dict:
     return out
 
 
+def _fixed_worker(root: str, reps: int) -> dict:
+    """One checkout's fixed-batch cells (K4 and K5 at each width of
+    ``FIXED_LANES``); imports its package from ``root``."""
+    sys.path[0] = root
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from seqalign_tpu_torch import pipeline
+    from seqalign_tpu_torch.convert import batch_windows, profile_to_torch
+    from seqalign_tpu_torch.ops import swa_cuda
+    from seqalign_tpu_torch.ops.swa_torch import make_profile
+    from seqalign_tpu_torch.swissprot import FIXED_LANES, card, pam250, swissprot_db
+
+    query, db = swissprot_db()
+    sc = pam250()
+    go, ge = sc.gap_open_total, sc.gap_extend
+    dev = torch.device("cuda", 0)
+    prof = profile_to_torch(make_profile(sc.table, query), go, dev)
+    order = np.argsort(-db.lengths, kind="stable")
+    out = {"root": root, "card": card(), "cells": {}}
+    for lanes in FIXED_LANES:
+        wins = [batch_windows(b, swa_cuda.FIXED_WINDOW_LANES, swa_cuda.STREAM_JB, dev)
+                for _, b in pipeline.lane_batches(db, order, lanes)]
+        rows = prof.shape[0]
+        batch_cells = rows * sum(w.numel() for w in wins)
+        for const_s in (False, True):
+            run = batch_cells
+            if not const_s and hasattr(swa_cuda, "windows_cells"):
+                team = swa_cuda.windows_launch_team(prof, wins[0])
+                run = sum(swa_cuda.windows_cells(w, rows, team)["run"] for w in wins)
+
+            def one_pass():
+                return [swa_cuda.sw_windows(prof, w, go, ge, const_s=const_s) for w in wins]
+
+            scores = torch.cat(one_pass()).cpu().numpy()  # untimed
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            ms = []
+            for _ in range(reps):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                one_pass()
+                end.record()
+                torch.cuda.synchronize()
+                ms.append(start.elapsed_time(end))
+            out["cells"][f"{'K5' if const_s else 'K4'} B={lanes}"] = {
+                "launches": len(wins), "ms": ms, "model_cells_run": run,
+                "cells_batch": batch_cells,
+                "memory_peak_bytes": torch.cuda.max_memory_allocated() - base,
+                "scores_sha256": hashlib.sha256(scores.tobytes()).hexdigest(),
+            }
+        del wins
+    return out
+
+
 def _worker(root: str, reps: int) -> dict:
     """One checkout's cells; imports its package from ``root``."""
     sys.path[0] = root
@@ -165,12 +233,14 @@ def _worker(root: str, reps: int) -> dict:
     return out
 
 
-def run(other: Path, reps: int = 3, say=print, longpair: bool = False) -> dict:
+def run(other: Path, reps: int = 3, say=print, longpair: bool = False,
+        fixed: bool = False) -> dict:
     """The four turns (other, this, this, other) and, per cell, each run's
-    fastest replay (call, for the long pair), both checkouts' launches and
-    other / this."""
+    fastest replay (call, for the long pair; pass over the batches, for the
+    fixed-batch kernel), both checkouts' launches and other / this."""
     this = Path(__file__).resolve().parents[1]
     extra = ["--longpair", "--inputs", str(_longpair_inputs(this))] if longpair else []
+    extra += ["--fixed"] if fixed else []
     runs = []
     for root in (other, this, this, other):
         proc = subprocess.run(
@@ -196,10 +266,18 @@ def run(other: Path, reps: int = 3, say=print, longpair: bool = False) -> dict:
             "this_memory_peak_bytes": got[1]["memory_peak_bytes"],
             "other_over_this": sum(other_ms) / sum(this_ms),
         }
+        for k in ("model_cells_run", "cells_batch"):
+            if k in got[0]:
+                cells[cell][f"other_{k}"] = got[0][k]
+                cells[cell][f"this_{k}"] = got[1][k]
         say(f"[turns] {cell}: other {other_ms} ms ({got[0]['launches']} launches, "
             f"peak {got[0]['memory_peak_bytes']} B), this {this_ms} ms "
             f"({got[1]['launches']} launches, peak {got[1]['memory_peak_bytes']} B), "
-            f"other/this {cells[cell]['other_over_this']}; scores equal | {runs[0]['card']}")
+            f"other/this {cells[cell]['other_over_this']}; scores equal"
+            + (f"; cells run (model, windows_cells): other {got[0]['model_cells_run']}, "
+               f"this {got[1]['model_cells_run']} of the batches' {got[1]['cells_batch']}"
+               if "model_cells_run" in got[0] else "")
+            + f" | {runs[0]['card']}")
     return {"other": str(other), "card": runs[0]["card"], "cells": cells}
 
 
@@ -208,19 +286,25 @@ def main(argv=None) -> int:
     ap.add_argument("--against", help="the root of the other checkout")
     ap.add_argument("--longpair", action="store_true",
                     help="time sw_longpair (swissprot.LONGPAIR_RUNS) instead of K1 and K3")
+    ap.add_argument("--fixed", action="store_true",
+                    help="time K4 and K5 over the fixed lane batches instead")
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--out", default=None)
     ap.add_argument("--worker", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--inputs", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.worker:
-        print(json.dumps(_longpair_worker(args.worker, args.reps, args.inputs)
-                         if args.longpair else _worker(args.worker, args.reps)))
+        if args.longpair:
+            print(json.dumps(_longpair_worker(args.worker, args.reps, args.inputs)))
+        elif args.fixed:
+            print(json.dumps(_fixed_worker(args.worker, args.reps)))
+        else:
+            print(json.dumps(_worker(args.worker, args.reps)))
         return 0
     if not args.against:
         ap.error("--against DIR is required")
     result = run(Path(args.against).resolve(), args.reps,
-                 lambda msg: print(msg, flush=True), args.longpair)
+                 lambda msg: print(msg, flush=True), args.longpair, args.fixed)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(result, indent=1))

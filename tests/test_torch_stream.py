@@ -204,11 +204,11 @@ def test_sass_inner_loop_counts_cells():
     assert loop["alu_per_cell"] == 1.0  # VIADDMNMX and VIMNMX3 over 2 cells
     assert loop["cells_from"] == "LDS"
 
-    # K5's loop gathers nothing: its cells are the loop's unroll, rows x
-    # positions per iteration; a shorter gatherless loop loses to one that
-    # gathers where both exist.
+    # K5's loop gathers nothing: its cells are its instance's step, 2 R
+    # (R = 20 here), which the loop cannot tell without the instance's key;
+    # a shorter gatherless loop loses to one that gathers where both exist.
     k5 = "\n".join([
-        "\t\tFunction : _ZN12_GLOBAL__N_117sw_windows_kernelILb0ELb1EEEvPKi",
+        "\t\tFunction : _ZN12_GLOBAL__N_117sw_windows_kernelILi20ELb0ELb1EEEvPKiPKaPiiiiiiiii",
         "        /*0000*/                   S2R R0, SR_TID.X ;",
         "        /*0010*/                   VIADDMNMX R5, R5, R3, R4, !PT ;",
         "        /*0020*/                   VIADD R6, R5, 0x7 ;",
@@ -216,16 +216,19 @@ def test_sass_inner_loop_counts_cells():
         "        /*0040*/               @P0 BRA 0x10 ;",
         "        /*0050*/                   EXIT ;",
     ])
-    name = "_ZN12_GLOBAL__N_117sw_windows_kernelILb0ELb1EEEvPKi"
-    loop = sass.inner_loop(sass.sass_functions(None, k5)[name])
-    assert (loop["instructions"], loop["cells"]) == (4, sass.CELLS_PER_ITERATION)
-    assert loop["cells_from"] == "CELLS_PER_ITERATION"
-    assert loop["alu_per_cell"] == 3 / sass.CELLS_PER_ITERATION
+    name = "_ZN12_GLOBAL__N_117sw_windows_kernelILi20ELb0ELb1EEEvPKiPKaPiiiiiiiii"
+    key = sass.kernel_key(name)
+    loop = sass.inner_loop(sass.sass_functions(None, k5)[name], key)
+    assert (loop["instructions"], loop["cells"]) == (4, 40)
+    assert loop["cells_from"] == "step"
+    assert loop["alu_per_cell"] == 3 / 40
+    with pytest.raises(ValueError, match="instance key"):
+        sass.inner_loop(sass.sass_functions(None, k5)[name])
     both = sass.sass_functions(None, text + "\n" + k5.split("\n", 1)[1].replace(
         "0x10", "0x100").replace("/*00", "/*01"))
     loop = sass.inner_loop(both["_ZN12_GLOBAL__N_116sw_stream_kernelEv"])
     assert (loop["instructions"], loop["cells"]) == (5, 2)
-    assert sass.kernel_key(name) == "sw_windows_kernel<false, true>"
+    assert sass.kernel_key(name) == "sw_windows_kernel<20, false, true>"
     assert sass.kernel_key("_ZN12_GLOBAL__N_116sw_stream_kernelEv") == "sw_stream_kernel"
     assert sass.kernel_key("_Z3foov") is None
 
@@ -402,7 +405,10 @@ def test_sass_keys_and_cells_of_the_stream_kernel(r, solo):
     key = sass.kernel_key(name)
     assert key == f"sw_stream_kernel<{r}, {'true' if solo else 'false'}>"
     assert sass.expected_cells(key) == 2 * r == r * sass.STRIPED_POSITIONS_PER_STEP
-    assert sass.expected_cells("sw_windows_kernel<false, false>") == sass.CELLS_PER_ITERATION
+    # K4's instance of the same R and kSolo: a solo one unrolls the four
+    # steps of its block into one loop iteration.
+    windows = f"sw_windows_kernel<{r}, {'true' if solo else 'false'}, false>"
+    assert sass.expected_cells(windows) == 2 * r * (sass.SOLO_WINDOWS_STEPS if solo else 1)
 
 
 @pytest.mark.parametrize("multi", [False, True])

@@ -484,7 +484,8 @@ def test_sass_keys_and_cells_of_the_striped_kernel():
     key = sass.kernel_key(name)
     assert key == "sw_stream_striped_kernel<32, true, true, false>"
     assert sass.expected_cells(key) == 32 * sass.STRIPED_POSITIONS_PER_STEP
-    assert sass.expected_cells("sw_stream_kernel") == sass.CELLS_PER_ITERATION
+    with pytest.raises(ValueError, match="no team kernel instance"):
+        sass.expected_cells("sw_stream_kernel")  # no R
     text = "\n".join([
         "Resource usage:",
         " Common:",
