@@ -13,7 +13,7 @@ Phases, each printing its own lines; any failure exits nonzero:
    sw_windows_const_s.cu: K4 and K5, the team kernel of sw_windows.cuh;
    isa_probe.cu: the issue-rate probe), one nvcc each in parallel, for
    sm_90a into build/;
-   read every instance's registers and local memory (no spills) and the
+   read every instance's registers, local memory and stack (no spills) and the
    inner DP loop of its SASS (integer instructions per cell, for the
    bound): K1 and K3 (a step of R rows, one instance per R built), K2, the
    fixed-batch kernel K4 and its constant-S mode K5 (a step of R rows, four
@@ -40,7 +40,10 @@ Phases, each printing its own lines; any failure exits nonzero:
    kernel) block by block against its plain version: bests, the carried
    left column (its coalesced layout) and the boundary row, at j0 = 0 and
    j0 > 0, every R built, kPartial passes, with and without a boundary in,
-   lanes that are not a multiple of a CTA's warps;
+   lanes that are not a multiple of a CTA's warps; each case running every
+   cell and again with the lanes' ends (lanes sorted by length too; the
+   cases must hold dead CTAs, dead warps and stops inside a block, counted
+   from the ends), word for word on filled tensors;
    then the fixed-batch kernel (K4) and its constant-S mode (K5) against
    their plain versions, over the six scoring systems, windows of 256 and
    1,024 lanes, 1 to 8 windows, lq = 1 to MAX_QUERY_ROWS, 3-D profiles of
@@ -79,8 +82,9 @@ Phases, each printing its own lines; any failure exits nonzero:
    lanes): five tasks of three instances (a first sub-pass without a
    boundary in, sub-passes with a carried left column, a partial sub-pass
    of 92 rows at R = 8, a last one of 184 rows without a boundary out) in
-   three launches, exact against the step's plain version, both timed,
-   and its first task alone (one block) beside the block's plain version;
+   three launches, exact against the step's plain version word for word,
+   both timed, and its first task alone (one block) beside the block's
+   plain version; all of it again with the lanes' ends;
 7. fixed-batch path: the same database and 144-residue query, length-
    sorted and cut into pipeline.lane_batches of 4,096, 16,384 and 67,584
    lanes, one call of pipeline.get_engine("windows") each; the counters
@@ -144,7 +148,14 @@ Phases, each printing its own lines; any failure exits nonzero:
    version; every score equals the long-query search's (K2) of the same
    records; the launches, a CUDA-event kernel timer, the device-memory
    peak and the bound of each run, over the records' real cells (lq x
-   residues) and over the padded batch the kernel runs.
+   residues) and over the padded batch, with the share of the batch's
+   cells a CTA-level skip would leave (a model from the lengths); then the
+   x1, jb=128 run in turns with the same run through tables without the
+   lanes' ends (every cell, as a query with a positive '*' score runs):
+   the same scores, and with ends at most SKIP_SHARE_MAX (0.8) of its
+   time, measured; the same records shuffled, as sw_longpair sorts them
+   and scored in the shuffled order (timed, scores checked, not gated);
+   and that run's device busy share under torch.profiler.
 
 With ``--phases`` only phases 1-2 and the named ones of 3, 6 and 13 run
 (those that need no other phase's results), for a quick check of the
@@ -294,14 +305,17 @@ def phase_build():
             fail(f"no DP loop found in the SASS of {mangled}")
         res = usage.get(key, {})
         print(f"[build] SASS {key}: {res.get('REG')} registers, {res.get('LOCAL')} B "
-              f"local memory; {len(instrs)} instructions; inner loop "
+              f"local memory, {res.get('STACK')} B of stack; {len(instrs)} instructions; "
+              f"inner loop "
               f"{loop['instructions']} instructions for {loop['cells']} cells "
               f"(from {loop['cells_from']}), {loop['alu_per_cell']} integer per "
               f"cell, {loop['imad_per_cell']} of them IMAD (FMA pipe), "
               f"{loop['pipe_per_cell']} on the busier pipe; {loop['opcodes']}",
               flush=True)
-        if res.get("LOCAL", 0):
-            fail(f"{key}: {res['LOCAL']} B of local memory (spills)")
+        # ptxas spills to the stack frame, which LOCAL does not count.
+        if res.get("LOCAL", 0) or res.get("STACK", 0):
+            fail(f"{key}: {res.get('LOCAL')} B of local memory, {res.get('STACK')} B of "
+                 "stack (spills)")
         # Only K5 (constant S) has a DP loop without the profile gather; a
         # gather's LDS count must be the loop's cells: a team kernel's 2 R
         # a step (four steps an iteration for a solo instance of K4).
@@ -438,14 +452,16 @@ class Checker:
         return whole, plain_ms
 
     def compare_block(self, label, stripe, windows, go, ge, blocks, bnd_in, bnd_out,
-                      left_first=False, rows_per_thread=None):
+                      left_first=False, rows_per_thread=None, ends=None):
         """K2's block instance, a step of one task, against the block's
         plain version on the same card tensors, block by block over
         ``blocks`` ([(j0, j1)]): each block's
         bests and left column, both taking the plain version's left column
         of the block before (the kernel in place), none before the first
         block unless ``left_first`` (then a random column); then the whole
-        boundary row written (``bnd_out``), outside the blocks too."""
+        boundary row written (``bnd_out``), outside the blocks too. With
+        ``ends`` (the lanes' ends) each lane stops at its end, and the words
+        both sides leave unwritten keep their fill, word for word."""
         from seqalign_tpu_torch.ops import swa_cuda
 
         torch = self.torch
@@ -466,12 +482,12 @@ class Checker:
             k = torch.zeros((nw, win), dtype=torch.int32, device=windows.device)
             table = swa_cuda.BlockTable(windows, [swa_cuda.BlockTask(
                 stripe, j0, j1, bnd_in, outs[0], None if left is None else k_left, k_left,
-                rows_per_thread)], go, ge)
+                rows_per_thread)], go, ge, ends)
             swa_cuda.sw_stream_striped_step(table, 0, 1, k)
             p_left = base.clone()
             r, _, _ = swa_cuda.sw_stream_striped_block_reference(
                 stripe, windows, go, ge, j0=j0, j1=j1, bnd_in=bnd_in, bnd_out=outs[1],
-                left_in=left, left_out=p_left, rows_per_thread=rows_per_thread)
+                left_in=left, left_out=p_left, rows_per_thread=rows_per_thread, ends=ends)
             torch.cuda.synchronize()
             err = max(err, *(int((a.long() - b.long()).abs().max())
                              for a, b in ((k, r), (k_left, p_left))))
@@ -486,8 +502,11 @@ class Checker:
         self.max_abs_err["sw_stream_striped_block"] = max(
             self.max_abs_err["sw_stream_striped_block"], err)
         key = swa_cuda.block_kernel_instance(stripe.shape[0], bnd_out, rows_per_thread)
-        print(f"[kernel] sw_stream_striped_block {label}: {key} rows={stripe.shape[0]} nw={nw} "
-              f"L={length} win={win} blocks {blocks} bests, left columns"
+        lanes = "" if ends is None else (
+            f" with ends (lanes dead at the last block: "
+            f"{int((ends <= blocks[-1][0]).sum())} of {ends.numel()})")
+        print(f"[kernel] sw_stream_striped_block {label}{lanes}: {key} rows={stripe.shape[0]} "
+              f"nw={nw} L={length} win={win} blocks {blocks} bests, left columns"
               f"{', boundary row' if bnd_out else ''} equal, max_abs_err={err}", flush=True)
 
     def compare_windows(self, label, prof, dbw, go, ge, const_s=False, kernel=None,
@@ -755,45 +774,87 @@ def phase_kernel_striped(chk: Checker):
 
 # K2's block instance (sw_longpair): name, rows, rows_per_thread (None: the
 # chooser's), nw, L, win, blocks, a boundary in, a boundary row out, a left
-# column before the first block, seed. Covers j0 = 0 and j0 > 0, chained
-# left columns, every R built, kPartial passes, no boundary in, lanes that
-# are not a multiple of a CTA's warps, and threads without rows.
+# column before the first block, seed, lanes sorted longest first (as
+# sw_longpair scores them). Covers j0 = 0 and j0 > 0, chained left columns,
+# every R built, kPartial passes, no boundary in, lanes that are not a
+# multiple of a CTA's warps, threads without rows, and (with the lanes'
+# ends) CTAs whose lanes have all ended before a block.
 BLOCK_CASES = [
-    ("BLOSUM62", 200, None, 1, 160, 77, [(0, 48), (48, 112), (112, 160)], True, True, False, 61),
-    ("PAM250", 500, None, 2, 256, 256, [(0, 128), (128, 256)], False, True, False, 62),
-    ("BLOSUM45", 700, None, 1, 96, 1000, [(0, 32), (32, 96)], True, False, False, 63),
-    ("PAM250", 1024, None, 1, 128, 100, [(0, 64), (64, 128)], True, True, False, 64),
+    ("BLOSUM62", 200, None, 1, 160, 77, [(0, 48), (48, 112), (112, 160)], True, True, False, 61,
+     False),
+    ("PAM250", 500, None, 2, 256, 256, [(0, 128), (128, 256)], False, True, False, 62, False),
+    ("BLOSUM45", 700, None, 1, 96, 1000, [(0, 32), (32, 96)], True, False, False, 63, False),
+    ("PAM250", 1024, None, 1, 128, 100, [(0, 64), (64, 128)], True, True, False, 64, False),
     ("random", 300, None, 2, 96, 77, [(0, 16), (16, 32), (32, 64), (64, 96)], True, True,
-     False, 65),
-    ("match/mismatch", 1000, None, 2, 64, 64, [(0, 32), (32, 64)], False, True, False, 66),
-    ("go==ge", 40, 32, 1, 80, 33, [(32, 48), (48, 80)], True, True, True, 67),
-    ("BLOSUM62", 96, 8, 3, 48, 20, [(16, 48)], False, False, True, 68),
+     False, 65, False),
+    ("match/mismatch", 1000, None, 2, 64, 64, [(0, 32), (32, 64)], False, True, False, 66,
+     False),
+    ("go==ge", 40, 32, 1, 80, 33, [(32, 48), (48, 80)], True, True, True, 67, False),
+    ("BLOSUM62", 96, 8, 3, 48, 20, [(16, 48)], False, False, True, 68, False),
+    ("BLOSUM62", 800, None, 2, 256, 200, [(0, 64), (64, 128), (128, 256)], True, True, False,
+     69, True),
+    ("PAM250", 150, None, 1, 128, 100, [(32, 64), (64, 128)], True, True, True, 70, True),
 ]
+
+
+def lane_kinds(ends, rows_per_thread: int, blocks) -> dict:
+    """Over ``blocks`` ([(j0, j1)]) and the lanes' ``ends`` ``(nw, win)``:
+    the CTAs none of whose lanes reaches j0 (they return before the profile
+    copy), the lanes that end before j0 in a CTA that runs (dead warps),
+    and the lanes that stop inside the block."""
+    cl = cta_lanes(rows_per_thread)
+    e = ends.cpu().numpy()
+    pad = -e.shape[1] % cl
+    e = np.pad(e, ((0, 0), (0, pad)))  # lanes past win: end 0
+    real = np.arange(e.shape[1]) < e.shape[1] - pad
+    out = {"dead_ctas": 0, "dead_warps": 0, "stops": 0}
+    for j0, j1 in blocks:
+        dead = e <= j0
+        cta_dead = dead.reshape(e.shape[0], -1, cl).all(axis=2)
+        out["dead_ctas"] += int(cta_dead.sum())
+        out["dead_warps"] += int((dead & real & ~np.repeat(cta_dead, cl, axis=1)).sum())
+        out["stops"] += int(((e > j0) & (e < j1 - 1)).sum())  # n < j1 - j0
+    return out
 
 
 def phase_kernel_block(chk: Checker):
     """K2's block instance against its plain version (BLOCK_CASES), on
-    random '*'-padded windows and a random boundary row above."""
+    random '*'-padded windows and a random boundary row above; each case
+    twice, running every cell and stopping each lane at its end. Fails
+    unless the cases with ends hold dead CTAs, dead warps in CTAs that run
+    and lanes that stop inside a block (counted from the ends)."""
     import torch
 
     from seqalign_tpu_torch.convert import batch_windows, profile_to_torch
-    from seqalign_tpu_torch.ops.swa_cuda import STREAM_JB
+    from seqalign_tpu_torch.ops.swa_cuda import STREAM_JB, lane_ends, stripe_rows_per_thread
     from seqalign_tpu_torch.ops.swa_torch import make_profile
 
-    for name, rows, rpt, nw, length, win, blocks, b_in, b_out, left, seed in BLOCK_CASES:
+    kinds = {"dead_ctas": 0, "dead_warps": 0, "stops": 0}
+    for (name, rows, rpt, nw, length, win, blocks, b_in, b_out, left, seed,
+         by_length) in BLOCK_CASES:
         sc = scoring(name)
         rng = np.random.default_rng(seed)
         go, ge = sc.gap_open_total, sc.gap_extend
         stripe = profile_to_torch(
             make_profile(sc.table, sc.query_indices(random_protein(rng, rows))), go, "cuda")
         lens = rng.integers(1, length + 1, nw * win)
+        if by_length:
+            lens = np.sort(lens.reshape(nw, win), axis=1)[:, ::-1].reshape(-1)
         db = rng.integers(0, 20, (length, nw * win)).astype(np.int8)
         db[np.arange(length)[:, None] >= lens[None, :]] = 31
         windows = batch_windows(db, win, STREAM_JB, "cuda")
         bnd_in = (torch.from_numpy(rng.integers(-4, 60, (2, *windows.shape), dtype=np.int32))
                   .to("cuda") if b_in else None)
-        chk.compare_block(f"{name} rows={rows}", stripe, windows, go, ge, blocks, bnd_in,
-                          b_out, left_first=left, rows_per_thread=rpt)
+        ends = lane_ends(windows).to(torch.int32)
+        for k, v in lane_kinds(ends, rpt or stripe_rows_per_thread(rows), blocks).items():
+            kinds[k] += v
+        for e in (None, ends):
+            chk.compare_block(f"{name} rows={rows}", stripe, windows, go, ge, blocks, bnd_in,
+                              b_out, left_first=left, rows_per_thread=rpt, ends=e)
+    print(f"[kernel] sw_stream_striped_block with ends, over BLOCK_CASES' blocks: {kinds}",
+          flush=True)
+    if not all(kinds.values()):
+        fail(f"the block cases with ends lack a kind of lane: {kinds}")
 
 
 def windows_case(name, lq, nw, win, hi, seed, lb=None, sort=False, stars=False):
@@ -1459,7 +1520,8 @@ def phase_step(torch, chk: Checker, smi: str):
     instance) on random windows of STEP_LANES lanes and random boundaries
     and left columns, against the step's plain version on copies of the
     same card tensors: the merged bests, every boundary row and left
-    column; each timed."""
+    column, word for word; each timed. Twice: running every cell, and
+    with the lanes' ends (each lane stopping at its end)."""
     from seqalign_tpu_torch.convert import batch_windows, profile_stripes
     from seqalign_tpu_torch.ops import swa_cuda
     from seqalign_tpu_torch.ops.swa_torch import make_profile
@@ -1474,72 +1536,84 @@ def phase_step(torch, chk: Checker, smi: str):
     db[np.arange(STEP_LENGTH)[:, None] >= lens[None, :]] = 31
     windows = batch_windows(db, STEP_LANES, swa_cuda.STREAM_JB, dev)
     bnd = (2, *windows.shape)
+    stripes = [profile_stripes(
+        make_profile(sc.table, sc.query_indices(random_protein(rng, rows))), go, rows,
+        dev)[0] for rows, *_ in STEP_TASKS]
 
     def rand(shape):
         return torch.from_numpy(rng.integers(-4, 60, shape, dtype=np.int32)).to(dev)
 
-    tasks, plain = [], []
-    for rows, j0, j1, b_in, b_out, carried in STEP_TASKS:
-        stripe = profile_stripes(
-            make_profile(sc.table, sc.query_indices(random_protein(rng, rows))), go, rows,
-            dev)[0]
-        left = rand(swa_cuda.left_column(rows, windows).shape)
-        out = torch.full(bnd, -9, dtype=torch.int32, device=dev) if b_out else None
-        task = swa_cuda.BlockTask(stripe, j0, j1, rand(bnd) if b_in else None, out,
-                                  left if carried else None, left)
-        tasks.append(task)
-        p_left = left.clone()  # in place, as the kernel's
-        plain.append(task._replace(bnd_out=None if out is None else out.clone(),
-                                   left_in=p_left if carried else None, left_out=p_left))
-    table = swa_cuda.BlockTable(windows, tasks, go, ge)
-    keys = [swa_cuda.block_kernel_instance(t.stripe.shape[0], t.bnd_out is not None)
-            for t in tasks]
-    runs = sum(i == 0 or keys[i] != keys[i - 1] for i in range(len(keys)))
-    best = torch.zeros((1, STEP_LANES), dtype=torch.int32, device=dev)
-    reset_counts(swa_cuda)
-    swa_cuda.sw_stream_striped_step(table, 0, len(tasks), best)
-    torch.cuda.synchronize()
-    if swa_cuda.sw_stream_striped_step.launches != runs:
-        fail(f"{tag} {swa_cuda.sw_stream_striped_step.launches} launches, not {runs}")
-    p_best = torch.zeros_like(best)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    swa_cuda.sw_stream_striped_step_reference(
-        swa_cuda.BlockTable(windows, plain, go, ge), 0, len(plain), p_best)
-    end.record()
-    torch.cuda.synchronize()
-    plain_ms = start.elapsed_time(end)
-    pairs = [(best, p_best)] + [(getattr(a, f), getattr(b, f)) for a, b in zip(tasks, plain)
-                                for f in ("bnd_out", "left_out") if getattr(a, f) is not None]
-    err = max(int((a.long() - b.long()).abs().max()) for a, b in pairs)
-    chk.max_abs_err["sw_stream_striped_block"] = max(
-        chk.max_abs_err["sw_stream_striped_block"], err)
-    if not all(torch.equal(a, b) for a, b in pairs):
-        fail(f"{tag} K2's block instance != the step's plain version")
-    # Timed again on the kernel's own tensors (the columns change in place);
-    # then the first task alone, one block, and its plain version.
-    step_ms = cuda_ms(torch, lambda: swa_cuda.sw_stream_striped_step(
-        table, 0, len(tasks), best), 3)
-    block_ms = cuda_ms(torch, lambda: swa_cuda.sw_stream_striped_step(table, 0, 1, best), 3)
-    t = plain[0]
-    start.record()
-    swa_cuda.sw_stream_striped_block_reference(
-        t.stripe, windows, go, ge, j0=t.j0, j1=t.j1, bnd_in=t.bnd_in, bnd_out=t.bnd_out,
-        left_in=t.left_in, left_out=t.left_out)
-    end.record()
-    torch.cuda.synchronize()
-    block_plain_ms = start.elapsed_time(end)
-    shape = (f"{len(tasks)} tasks ({'/'.join(str(t[0]) for t in STEP_TASKS)} rows) x 128 "
-             f"positions x {STEP_LANES} lanes, L={windows.shape[1]}")
-    block = f"{STEP_TASKS[0][0]} rows x 128 positions x {STEP_LANES} lanes"
-    print(f"{tag} one step of {shape}: {runs} launches ({sorted(set(keys))}); bests, boundary "
-          f"rows and left columns == the plain version, max_abs_err={err}; kernel {step_ms} "
-          f"ms, plain version {plain_ms} ms; its first task alone (one block, {block}): "
-          f"kernel {block_ms} ms, plain version {block_plain_ms} ms | {smi}", flush=True)
-    return {"step_ms": step_ms, "plain_ms": plain_ms, "launches": runs, "shape": shape,
-            "instances": keys, "block_ms": block_ms, "block_plain_ms": block_plain_ms,
-            "block": block}
+    result = {}
+    for ends in (None, swa_cuda.lane_ends(windows).to(torch.int32)):
+        tasks, plain = [], []
+        for stripe, (rows, j0, j1, b_in, b_out, carried) in zip(stripes, STEP_TASKS):
+            left = rand(swa_cuda.left_column(rows, windows).shape)
+            out = torch.full(bnd, -9, dtype=torch.int32, device=dev) if b_out else None
+            task = swa_cuda.BlockTask(stripe, j0, j1, rand(bnd) if b_in else None, out,
+                                      left if carried else None, left)
+            tasks.append(task)
+            p_left = left.clone()  # in place, as the kernel's
+            plain.append(task._replace(bnd_out=None if out is None else out.clone(),
+                                       left_in=p_left if carried else None, left_out=p_left))
+        table = swa_cuda.BlockTable(windows, tasks, go, ge, ends)
+        keys = [swa_cuda.block_kernel_instance(t.stripe.shape[0], t.bnd_out is not None)
+                for t in tasks]
+        runs = sum(i == 0 or keys[i] != keys[i - 1] for i in range(len(keys)))
+        best = torch.full((1, STEP_LANES), -5, dtype=torch.int32, device=dev)
+        reset_counts(swa_cuda)
+        swa_cuda.sw_stream_striped_step(table, 0, len(tasks), best)
+        torch.cuda.synchronize()
+        if swa_cuda.sw_stream_striped_step.launches != runs:
+            fail(f"{tag} {swa_cuda.sw_stream_striped_step.launches} launches, not {runs}")
+        p_best = torch.full_like(best, -5)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        swa_cuda.sw_stream_striped_step_reference(
+            swa_cuda.BlockTable(windows, plain, go, ge, ends), 0, len(plain), p_best)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
+        pairs = [(best, p_best)] + [(getattr(a, f), getattr(b, f))
+                                    for a, b in zip(tasks, plain)
+                                    for f in ("bnd_out", "left_out") if getattr(a, f) is not None]
+        err = max(int((a.long() - b.long()).abs().max()) for a, b in pairs)
+        chk.max_abs_err["sw_stream_striped_block"] = max(
+            chk.max_abs_err["sw_stream_striped_block"], err)
+        what = "every cell" if ends is None else (
+            f"lanes stopping at their ends ({int((ends <= STEP_TASKS[3][1]).sum())} of "
+            f"{STEP_LANES} dead at the {STEP_TASKS[3][1]}-position block)")
+        if not all(torch.equal(a, b) for a, b in pairs):
+            fail(f"{tag} K2's block instance != the step's plain version, {what}")
+        # Timed again on the kernel's own tensors (the columns change in
+        # place); then the first task alone, one block, and its plain version.
+        step_ms = cuda_ms(torch, lambda: swa_cuda.sw_stream_striped_step(
+            table, 0, len(tasks), best), 3)
+        block_ms = cuda_ms(torch, lambda: swa_cuda.sw_stream_striped_step(table, 0, 1, best), 3)
+        t = plain[0]
+        start.record()
+        swa_cuda.sw_stream_striped_block_reference(
+            t.stripe, windows, go, ge, j0=t.j0, j1=t.j1, bnd_in=t.bnd_in, bnd_out=t.bnd_out,
+            left_in=t.left_in, left_out=t.left_out, ends=ends)
+        end.record()
+        torch.cuda.synchronize()
+        block_plain_ms = start.elapsed_time(end)
+        shape = (f"{len(tasks)} tasks ({'/'.join(str(t[0]) for t in STEP_TASKS)} rows) x 128 "
+                 f"positions x {STEP_LANES} lanes, L={windows.shape[1]}")
+        block = f"{STEP_TASKS[0][0]} rows x 128 positions x {STEP_LANES} lanes"
+        print(f"{tag} one step of {shape}, {what}: {runs} launches ({sorted(set(keys))}); "
+              f"bests, boundary rows and left columns == the plain version word for word, "
+              f"max_abs_err={err}; kernel {step_ms} ms, plain version {plain_ms} ms; its "
+              f"first task alone (one block, {block}): kernel {block_ms} ms, plain version "
+              f"{block_plain_ms} ms | {smi}", flush=True)
+        row = {"step_ms": step_ms, "plain_ms": plain_ms, "launches": runs, "shape": shape,
+               "instances": keys, "block_ms": block_ms, "block_plain_ms": block_plain_ms,
+               "block": block}
+        if ends is None:
+            result = row
+        else:
+            result["with_ends"] = row
+    return result
 
 
 def phase_fixed_path(torch, chk: Checker, smi: str, query, db, loops, usage, factor, k1,
@@ -2324,6 +2398,12 @@ def longpair_layout(mesh, lq, length, jb, stripe_rows):
     return [subs] * len(grid), n_blocks, n_steps, launches * len(grid)
 
 
+def cta_lanes(rows_per_thread: int) -> int:
+    """Lanes (warps) of a CTA of K2's instances at R = ``rows_per_thread``
+    (``team_warps<R>`` in csrc/sw_striped.cu)."""
+    return 16 if rows_per_thread >= 24 else 8
+
+
 def longpair_live_cells(subs, lengths, win, length, jb) -> int:
     """The padded cells of sw_longpair's tasks that lie in (CTA, block)
     pairs where some lane of the CTA still has a residue at or after the
@@ -2341,11 +2421,16 @@ def longpair_live_cells(subs, lengths, win, length, jb) -> int:
         part = lengths[d * win:(d + 1) * win]
         lens[:part.size] = part
         for r, _ in (sp for entry in sl for sp in entry):
-            warps = 16 if stripe_rows_per_thread(r) >= 24 else 8  # team_warps<R>
+            warps = cta_lanes(stripe_rows_per_thread(r))
             cta_max = np.pad(lens, (0, -win % warps)).reshape(-1, warps).max(axis=1)
             live += r * warps * int(((cta_max[None, :] > starts[:, None]).sum(axis=1)
                                      * widths).sum())
     return live
+
+
+# Phase 13's gate on the lanes' ends: the x1, jb=128 run with them must
+# take at most this share of the same run through tables without them.
+SKIP_SHARE_MAX = 0.8
 
 
 def phase_longpair(torch, smi: str, db, loops, factor):
@@ -2353,12 +2438,19 @@ def phase_longpair(torch, smi: str, db, loops, factor):
     against the long-query search (K2) of the same records; K2's block
     instance alone, its launches (by steps), a CUDA-event timer, the
     device-memory peak, the bound over the records' real cells (and over
-    the padded batch's)."""
+    the padded batch's), and the cells a CTA-level skip would leave, a
+    model from the lengths. Then the first run (x1, jb=128) again through
+    tables without the lanes' ends (every cell, as a query with a positive
+    '*' score runs): the same scores, and the run with ends at most
+    SKIP_SHARE_MAX of its time, measured in turns; the same records
+    shuffled, as sw_longpair sorts them and in the order given (timed, not
+    gated); and the device's busy share of the run with ends under
+    torch.profiler."""
     from seqalign_tpu_torch import pipeline
     from seqalign_tpu_torch.ops import swa_cuda
-    from seqalign_tpu_torch.parallel import sw_longpair
+    from seqalign_tpu_torch.parallel import longpair, sw_longpair
     from seqalign_tpu_torch.swissprot import (
-        LONGPAIR_LQ, LONGPAIR_RUNS, longpair_case, longpair_mesh,
+        LONGPAIR_LQ, LONGPAIR_RUNS, device_busy, longpair_case, longpair_mesh,
     )
 
     tag = f"[longpair lq={LONGPAIR_LQ}]"
@@ -2382,38 +2474,51 @@ def phase_longpair(torch, smi: str, db, loops, factor):
 
     cuda0 = torch.device("cuda", 0)
     length = windows_length(batch)
-    runs = []
-    for entries, data, jb in LONGPAIR_RUNS:
-        mesh, axes, name = longpair_mesh(cuda0, entries, data)
-        name += f" jb={jb}"
-        subs, n_blocks, n_steps, expect = longpair_layout(mesh, LONGPAIR_LQ, length, jb,
-                                                          swa_cuda.STRIPE_ROWS)
+    if not longpair.skips(profile):
+        fail(f"{tag} the query has a positive '*' score: its lanes would not stop")
+
+    def timed(mesh, axes, name, jb, expect, n=2, lanes=batch, want=want):
+        """n runs of sw_longpair on ``lanes``, each checked (launches, the
+        scores ``want``): the kernel timers, and the last run's wall and
+        device-memory peak."""
         timers = []
-        for _ in range(2):  # the second run is the one kept
+        for _ in range(n):
             torch.cuda.synchronize()
             base = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
             reset_counts(swa_cuda)
             events = []
             t0 = time.perf_counter()
-            got = sw_longpair(profile, batch, go, ge, mesh, jb=jb, events=events, **axes)
+            got = sw_longpair(profile, lanes, go, ge, mesh, jb=jb, events=events, **axes)
             got = got.cpu().numpy()
             wall = time.perf_counter() - t0
             counts = read_counts(swa_cuda)
             start, end = events[0]
             timers.append(start.elapsed_time(end))
             peak = torch.cuda.max_memory_allocated() - base
-        if counts["sw_stream_striped_step"] != expect or sum(counts.values()) != expect:
-            fail(f"{tag} {name}: launches {counts}, not {expect} of K2's block instance alone")
-        if got.shape != (sub.n,) or got.dtype != np.int32 or not np.array_equal(got, want):
-            fail(f"{tag} {name}: {int(np.count_nonzero(got != want))} scores != the K2 search's")
+            if counts["sw_stream_striped_step"] != expect or sum(counts.values()) != expect:
+                fail(f"{tag} {name}: launches {counts}, not {expect} of K2's block "
+                     "instance alone")
+            if got.shape != (sub.n,) or got.dtype != np.int32 or not np.array_equal(got, want):
+                fail(f"{tag} {name}: {int(np.count_nonzero(got != want))} scores != the K2 "
+                     "search's")
+        return timers, wall, peak, counts
+
+    runs = []
+    for entries, data, jb in LONGPAIR_RUNS:
+        mesh, axes, name = longpair_mesh(cuda0, entries, data)
+        name += f" jb={jb}"
+        subs, n_blocks, n_steps, expect = longpair_layout(mesh, LONGPAIR_LQ, length, jb,
+                                                          swa_cuda.STRIPE_ROWS)
+        # The second run is the one kept.
+        timers, wall, peak, counts = timed(mesh, axes, name, jb, expect)
         win = batch.shape[1] // len(subs)  # lanes of a data slice
         flat = [sp for sl in subs for entry in sl for sp in entry]
         # The cells the answer needs: every query row against each record's
         # real residues; the kernel also runs the padded batch's.
         cells = LONGPAIR_LQ * residues
         padded_cells = sum(r for r, _ in flat) * win * length
-        live_cells = longpair_live_cells(subs, lengths, win, length, jb)
+        model_live = longpair_live_cells(subs, lengths, win, length, jb)
         keys = [swa_cuda.block_kernel_instance(r, out) for r, out in flat]
         if not set(keys) <= set(loops):
             fail(f"{tag} no SASS loop for the block instances {sorted(set(keys))}")
@@ -2426,7 +2531,7 @@ def phase_longpair(torch, smi: str, db, loops, factor):
         row = {"mesh": name, "launches": counts["sw_stream_striped_step"],
                "ms": timers[-1], "ms_first_run": timers[0], "search_wall_s": wall,
                "memory_peak_bytes": peak, "bound_ms": bound_ms, "bound_by": bound_by,
-               "bound_ms_padded": padded_ms, "live_cells": live_cells,
+               "bound_ms_padded": padded_ms, "model_live_cells": model_live,
                "factor": sum(o * factor[key] for o, key in zip(ops, keys)) / sum(ops),
                "cells": cells, "padded_cells": padded_cells, "blocks": n_blocks,
                "steps": n_steps,
@@ -2440,9 +2545,60 @@ def phase_longpair(torch, smi: str, db, loops, factor):
               f"+ fetch wall {wall} s; K2 search's kernel timer {k2_s * 1e3} ms; "
               f"device-memory peak {peak} B; bound {bound_ms} ms by {bound_by} over the "
               f"{cells} real cells ({bound_ms / timers[-1]:.0%}), {padded_ms} ms over the "
-              f"{padded_cells} padded cells the kernel runs; {live_cells} of those in "
-              f"CTA-blocks where a lane's record reaches the block "
-              f"({live_cells / padded_cells:.1%}) | {smi}", flush=True)
+              f"{padded_cells} padded cells of the batch; modelled from the lengths (the "
+              f"kernel counts none), {model_live} of those lie in CTA-blocks where a lane's "
+              f"record reaches the block ({model_live / padded_cells:.1%}) | {smi}",
+              flush=True)
+
+    # The first run (x1, jb=128) through tables without ends, in turns with
+    # the run with them: with, without, without, with.
+    entries, data, jb = LONGPAIR_RUNS[0]
+    mesh, axes, name = longpair_mesh(cuda0, entries, data)
+    name += f" jb={jb}"
+    expect = runs[0]["launches"]
+    skips = longpair.skips
+    longpair.skips = lambda prof: False
+    try:
+        every_cell, _, _, _ = timed(mesh, axes, name + " without ends", jb, expect)
+    finally:
+        longpair.skips = skips
+    again, _, _, _ = timed(mesh, axes, name, jb, expect, n=1)
+    with_ends = [runs[0]["ms"], again[0]]
+    share = max(with_ends) / min(every_cell)
+    print(f"{tag} {name} in turns, kernel timer with the lanes' ends {with_ends} ms, through "
+          f"tables without ends (every cell) {every_cell} ms: {share:.3f} of it, the slower "
+          f"with ends over the faster without (at most {SKIP_SHARE_MAX}) | {smi}", flush=True)
+    if share > SKIP_SHARE_MAX:
+        fail(f"{tag} {name}: with the lanes' ends {with_ends} ms, over {SKIP_SHARE_MAX} of "
+             f"the {every_cell} ms through tables without them")
+    runs[0].update(ms_with_ends_in_turns=with_ends, ms_every_cell=every_cell,
+                   skip_share=share)
+    # The same records in a shuffled order: as sw_longpair scores them (each
+    # shard longest first), and in the order given, as without that sort.
+    perm = np.random.default_rng(13).permutation(sub.n)
+    shuffled = {}
+    order = longpair.lane_order
+    for how in ("sorted by sw_longpair", "scored as given"):
+        if how == "scored as given":
+            longpair.lane_order = lambda ends, data_count: np.arange(ends.size)
+        try:
+            shuffled[how], _, _, _ = timed(mesh, axes, f"{name} shuffled, {how}", jb, expect,
+                                           lanes=batch[:, perm], want=want[perm])
+        finally:
+            longpair.lane_order = order
+    print(f"{tag} {name} on the records shuffled, kernel timer {shuffled['sorted by sw_longpair']}"
+          f" ms as sw_longpair sorts them, {shuffled['scored as given']} ms scored in the "
+          f"shuffled order; the batch given longest first {runs[0]['ms']} ms; scores == the "
+          f"K2 search's | {smi}", flush=True)
+    runs[0].update(ms_shuffled=shuffled["sorted by sw_longpair"],
+                   ms_shuffled_unsorted=shuffled["scored as given"])
+    wall, busy_ms, top = device_busy(
+        lambda: sw_longpair(profile, batch, go, ge, mesh, jb=jb, **axes).cpu())
+    runs[0]["profile"] = {"wall_s": wall, "device_ms": busy_ms,
+                          "busy_share": busy_ms / 1e3 / wall, "top_ms": top}
+    print(f"{tag} {name} under torch.profiler: device busy {busy_ms} ms in a {wall} s call "
+          f"(plan, windows, H2D, launches, fetch), busy share {busy_ms / 1e3 / wall}; {top} "
+          f"| {smi}", flush=True)
     return {"runs": runs, "k2_search_kernel_s": k2_s, "k2_search_wall_s": k2_wall,
             "k2_passes": k2_counts["sw_stream_striped_pass"], "lq": LONGPAIR_LQ,
             "records": sub.n,
@@ -2621,8 +2777,11 @@ def main(argv=None) -> int:
                     "longpair's runs is over the padded batch the kernel runs",
         "library_ms": None,
         "ms_is": "sw_longpair's kernel timer over [cuda:0] x 1, jb=128 (CUDA events, "
-                 "first launch to merged result)",
-        "longpair": longpair,
+                 "first launch to merged result), each lane stopping at its end",
+        # The model's cells stay in phase 13's print: the kernel counts none.
+        "longpair": {**longpair, "runs": [{k: v for k, v in r.items()
+                                            if not k.startswith("model_")}
+                                           for r in longpair["runs"]]},
         "shape": f"sw_longpair, lq={longpair['lq']}, the {longpair['records']} longest "
                  f"records ({longpair['residues']} residues) as one {longpair['batch']} "
                  "lane batch",

@@ -238,6 +238,27 @@ int launch_rows(const void* prof, const void* streams, const void* fs,
 // Launches of one entry run in order on its stream; entry k waits on entry
 // k - 1's event of step t - 1 before it copies block t - sigma_k of the edge.
 //
+// Lane ends. With ends, a lane runs only up to its end (1 + its last
+// position holding a char other than '*'), rounded up to a step's two: a
+// CTA none of whose lanes reaches j0 returns before it copies the profile,
+// a warp whose lane does not reach it returns after the copy and writes
+// nothing (no bnd_out, no left_out, no atomicMax), and a live warp runs n =
+// min(j1 - j0, round_up_2(end - j0)) positions, writes bnd_out only inside
+// [j0, j0 + n) and, where n < j1 - j0, no left_out. Why the words left
+// unwritten are never read:
+//   - A lane dead at block b (end <= j0) is dead at every later block.
+//   - Task (p + 1, b) reads bnd_in of a lane at [j0, j0 + n): task (p, b)
+//     has the same lane, j0 and end, so the same n, and wrote exactly
+//     those words.
+//   - Its corner at j0 - 1 and its left column come from block b - 1,
+//     which ran to its last position, since end > j0.
+//   - The edge copies between entries may carry unwritten words; no task
+//     reads them.
+// The cells skipped cannot raise a best: they lie past the lane's last
+// residue, every '*' score is at most 0 and ge <= 0, so no path through
+// them ends higher than where it left the record. The caller passes ends
+// only then (parallel/longpair.py); supported_scoring refuses ge > 0.
+//
 // Thread k runs step s at position j0 + 2 (s - k), and only while that lies
 // in the block: the steps before (the warp's fill) and after (its drain)
 // skip the team step, so the carried column is loaded before thread k's
@@ -275,11 +296,21 @@ __global__ void __launch_bounds__(team_warps<R>() * kTeam)
     sw_striped_block_kernel(
         const BlockTask* __restrict__ tasks,  // one per z slice
         const int8_t* __restrict__ streams,   // (nw, L, win) chars 0..31
+        const int32_t* __restrict__ ends,     // (nw, win) lane ends, or NULL
         int32_t* __restrict__ best,           // (nw, win), max-merged
         int len, int win, int nw, int go, int ge, int one) {
   static_assert(R % kRowAlign == 0, "a thread holds whole row groups");
   constexpr int kWarps = team_warps<R>();
   const BlockTask& task = tasks[blockIdx.z];
+  const int j0 = task.j0;
+  const int k = threadIdx.x % kTeam;
+  const int lane = blockIdx.x * kWarps + threadIdx.x / kTeam;
+  const int w = blockIdx.y;
+  // The lane's end: 0 past the window's lanes, len without ends.
+  const int end = lane >= win       ? 0
+                  : ends == nullptr ? len
+                                    : ends[(size_t)w * win + lane];
+  if (!__syncthreads_or(j0 < end)) return;  // a dead CTA: no lane reaches j0
   const int lqp = task.lqp;
   extern __shared__ int4 sprof4[];  // [c][r][k] = P'[k R + r][c]
   const int4* prof4 = reinterpret_cast<const int4*>(task.prof);
@@ -288,19 +319,22 @@ __global__ void __launch_bounds__(team_warps<R>() * kTeam)
   }
   __syncthreads();
   const int32_t* sprof = reinterpret_cast<const int32_t*>(sprof4);
+  if (j0 >= end) return;  // a dead warp (lanes past win too): writes nothing
 
-  const int k = threadIdx.x % kTeam;
-  const int lane = blockIdx.x * kWarps + threadIdx.x / kTeam;
-  if (lane >= win) return;  // the whole warp
-  const int w = blockIdx.y;
   const size_t col = (size_t)w * len * win + lane;
   const size_t plane = (size_t)nw * len * win;
   // Thread k's row k R + r of the left column; r + 1 is lrow words on.
   const size_t lcol = ((size_t)w * win + lane) * kTeam + k;
   const size_t lrow = (size_t)nw * win * kTeam;
   const size_t lplane = lrow * R;
-  const int j0 = task.j0;
-  const int n = task.j1 - j0;  // positions of the block
+  // The lane's positions of the block: up to its end, rounded up to a
+  // step's two.
+  const int n = min(task.j1 - j0, (end - j0 + 1) & ~1);
+  // A lane that stops inside the block is dead at the next: no task reads
+  // its left column. The warp's vote (one lane, so one value) keeps a flag
+  // across the DP loop where the compiler would keep both lengths: at R = 8
+  // without a boundary out they spilled.
+  const bool whole = __all_sync(kFull, n == task.j1 - j0);
   const int32_t* bnd_in = task.bnd_in;
   const int32_t* left_in = task.left_in;
   const int last = min(kTeam - 1, (lqp - 1) / R);
@@ -354,7 +388,7 @@ __global__ void __launch_bounds__(team_warps<R>() * kTeam)
     }
   }
   int32_t* left_out = task.left_out;
-  if (left_out != nullptr) {
+  if (left_out != nullptr && whole) {
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       if (k * R + r < lqp) {
@@ -368,8 +402,8 @@ __global__ void __launch_bounds__(team_warps<R>() * kTeam)
 
 template <int R, bool kOut, bool kPartial>
 int launch_block(const void* tasks, int count, const void* streams,
-                 void* best, int len, int win, int nw, int go, int ge,
-                 cudaStream_t stream) {
+                 const void* ends, void* best, int len, int win, int nw,
+                 int go, int ge, cudaStream_t stream) {
   constexpr int kWarps = team_warps<R>();
   const size_t smem = (size_t)kAlpha * R * kTeam * sizeof(int32_t);
   cudaError_t err = cudaFuncSetAttribute(
@@ -379,23 +413,24 @@ int launch_block(const void* tasks, int count, const void* streams,
   const dim3 grid((win + kWarps - 1) / kWarps, nw, count);
   sw_striped_block_kernel<R, kOut, kPartial>
       <<<grid, kWarps * kTeam, smem, stream>>>(
-          (const BlockTask*)tasks, (const int8_t*)streams, (int32_t*)best,
-          len, win, nw, go, ge, 1);
+          (const BlockTask*)tasks, (const int8_t*)streams,
+          (const int32_t*)ends, (int32_t*)best, len, win, nw, go, ge, 1);
   return (int)cudaGetLastError();
 }
 
 template <int R>
 int launch_block_rows(const void* tasks, int count, const void* streams,
-                      void* best, int len, int win, int nw, int go, int ge,
-                      bool out, bool partial, cudaStream_t s) {
+                      const void* ends, void* best, int len, int win, int nw,
+                      int go, int ge, bool out, bool partial,
+                      cudaStream_t s) {
   if (!out) {
-    return launch_block<R, false, false>(tasks, count, streams, best, len,
-                                         win, nw, go, ge, s);
+    return launch_block<R, false, false>(tasks, count, streams, ends, best,
+                                         len, win, nw, go, ge, s);
   }
-  return partial ? launch_block<R, true, true>(tasks, count, streams, best,
-                                               len, win, nw, go, ge, s)
-                 : launch_block<R, true, false>(tasks, count, streams, best,
-                                                len, win, nw, go, ge, s);
+  return partial ? launch_block<R, true, true>(tasks, count, streams, ends,
+                                               best, len, win, nw, go, ge, s)
+                 : launch_block<R, true, false>(tasks, count, streams, ends,
+                                                best, len, win, nw, go, ge, s);
 }
 
 }  // namespace
@@ -448,29 +483,33 @@ int sw_stream_striped_launch(const void* prof, const void* streams,
 // where `out`; left_in, left_out (2, rows_per_thread, nw, win, 32); 0 <= j0
 // < j1 <= len, multiples of the JB the kernel is built for; `partial` where
 // each task's lqp is not a multiple of rows_per_thread (then `out`).
-// streams (nw, len, win); best (nw, win), max-merged.
+// streams (nw, len, win); ends (nw, win), each lane's end (1 + its last
+// position holding a char other than '*', 0 for none), or NULL to run every
+// position: exact only where every '*' score and ge are at most 0 (the
+// caller's check); best (nw, win), max-merged.
 int sw_striped_block_launch(const void* tasks, int count, const void* streams,
-                            void* best, int len, int win, int nw, int go,
-                            int ge, int rows_per_thread, int out, int partial,
-                            void* stream) {
+                            const void* ends, void* best, int len, int win,
+                            int nw, int go, int ge, int rows_per_thread,
+                            int out, int partial, void* stream) {
   if (!tasks || count <= 0 || count > 65535 || win <= 0 || nw <= 0 ||
-      nw > 65535 || len <= 0 || len % JB || (partial && !out)) {
+      nw > 65535 || len <= 0 || len % JB || (partial && !out) ||
+      (ends && ge > 0)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = (cudaStream_t)stream;
   switch (rows_per_thread) {
     case 8:
-      return launch_block_rows<8>(tasks, count, streams, best, len, win, nw,
-                                  go, ge, out, partial, s);
+      return launch_block_rows<8>(tasks, count, streams, ends, best, len, win,
+                                  nw, go, ge, out, partial, s);
     case 16:
-      return launch_block_rows<16>(tasks, count, streams, best, len, win, nw,
-                                   go, ge, out, partial, s);
+      return launch_block_rows<16>(tasks, count, streams, ends, best, len, win,
+                                   nw, go, ge, out, partial, s);
     case 24:
-      return launch_block_rows<24>(tasks, count, streams, best, len, win, nw,
-                                   go, ge, out, partial, s);
+      return launch_block_rows<24>(tasks, count, streams, ends, best, len, win,
+                                   nw, go, ge, out, partial, s);
     case 32:
-      return launch_block_rows<32>(tasks, count, streams, best, len, win, nw,
-                                   go, ge, out, partial, s);
+      return launch_block_rows<32>(tasks, count, streams, ends, best, len, win,
+                                   nw, go, ge, out, partial, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -113,7 +113,7 @@ def load() -> ctypes.CDLL:
         )
         lib.sw_striped_block_launch.restype = ctypes.c_int
         lib.sw_striped_block_launch.argtypes = (
-            [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+            [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
             + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         )
         lib.sw_windows_launch.restype = ctypes.c_int

@@ -835,13 +835,22 @@ class BlockTable:
     (``BLOCK_TASK_WORDS`` a task), which the kernel reads, with each
     stripe's :func:`team_profile` (one per stripe and R, however many
     blocks share it). ``keys[i]`` is task ``i``'s instance ``(R, kOut,
-    kPartial)``: one launch runs a run of tasks of one key."""
+    kPartial)``: one launch runs a run of tasks of one key.
 
-    def __init__(self, windows: torch.Tensor, tasks: list[BlockTask], go: int, ge: int):
+    ``ends`` ``(NW, win)`` int32 (:func:`lane_ends`), or None: with ends,
+    every task stops each lane at its end, as
+    :func:`sw_stream_striped_block_reference` says. That is exact only
+    where every '*' score of the stripes is at most 0 (and ``ge <= 0``,
+    which ``_check_rows_and_tensors`` enforces); the caller decides."""
+
+    def __init__(self, windows: torch.Tensor, tasks: list[BlockTask], go: int, ge: int,
+                 ends: torch.Tensor | None = None):
         for t in tasks:
             _check_block(t.stripe, windows, go, ge, t.j0, t.j1, t.bnd_in, t.bnd_out,
                          t.left_in, t.left_out, t.rows_per_thread)
+        _check_ends(ends, windows)
         self.windows, self.tasks, self.go, self.ge = windows, list(tasks), int(go), int(ge)
+        self.ends = ends
         self.keys = [_block_key(t.stripe.shape[0], t.bnd_out is not None, t.rows_per_thread)
                      for t in tasks]
         self.words, self.profiles = None, {}
@@ -858,6 +867,20 @@ class BlockTable:
             ints[:, 11] = [t.j0 for t in tasks]
             ints[:, 12] = [t.j1 for t in tasks]
             self.words = torch.from_numpy(words).to(windows.device)
+
+
+def _check_ends(ends, windows):
+    if ends is None:
+        return
+    nw, length, win = windows.shape
+    if tuple(ends.shape) != (nw, win) or ends.dtype != torch.int32 \
+            or ends.device != windows.device or not ends.is_contiguous():
+        raise ValueError(f"ends must be a contiguous ({nw}, {win}) int32 tensor on "
+                         f"{windows.device}")
+    if ends.numel():
+        lo, hi = torch.aminmax(ends)
+        if int(lo) < 0 or int(hi) > length:
+            raise ValueError(f"ends outside [0, {length}]")
 
 
 def _check_step(table, lo, hi, best):
@@ -901,8 +924,8 @@ def sw_stream_striped_step(table: BlockTable, lo: int, hi: int,
         _call(
             "sw_striped_block", dev,
             table.words.data_ptr() + first * BLOCK_TASK_WORDS * 8, end - first,
-            table.windows.data_ptr(), best.data_ptr(), length, win, nw,
-            table.go, table.ge, r, int(out), int(partial),
+            table.windows.data_ptr(), 0 if table.ends is None else table.ends.data_ptr(),
+            best.data_ptr(), length, win, nw, table.go, table.ge, r, int(out), int(partial),
         )
         sw_stream_striped_step.launches += 1
         first = end
@@ -916,15 +939,18 @@ def sw_stream_striped_step_reference(table: BlockTable, lo: int, hi: int,
                                      best: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of :func:`sw_stream_striped_step`, same
     contract: :func:`sw_stream_striped_block_reference` over the tasks in
-    table order, each block's bests max-merged into ``best``."""
+    table order (with the table's ends), each block's bests max-merged into
+    ``best`` where the lane reaches the block (the kernel's dead lanes
+    merge nothing)."""
     _check_step(table, lo, hi, best)
     sw_stream_striped_step_reference.calls += 1
     for t in table.tasks[lo:hi]:
         out, _, _ = sw_stream_striped_block_reference(
             t.stripe, table.windows, table.go, table.ge, j0=t.j0, j1=t.j1,
             bnd_in=t.bnd_in, bnd_out=t.bnd_out, left_in=t.left_in, left_out=t.left_out,
-            rows_per_thread=t.rows_per_thread)
-        torch.maximum(best, out, out=best)
+            rows_per_thread=t.rows_per_thread, ends=table.ends)
+        merged = torch.maximum(best, out)
+        best.copy_(merged if table.ends is None else torch.where(table.ends > t.j0, merged, best))
     return best
 
 
@@ -944,6 +970,7 @@ def sw_stream_striped_block_reference(
     left_in: torch.Tensor | None = None,
     left_out: torch.Tensor | None = None,
     rows_per_thread: int | None = None,
+    ends: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor | None, torch.Tensor | None]:
     """One block of positions ``[j0, j1)`` of one row stripe against fixed
     windows: the plain PyTorch version of one task of K2's block instance
@@ -980,6 +1007,13 @@ def sw_stream_striped_block_reference(
         writes nothing.
       rows_per_thread: R of the instance, as :func:`sw_stream_striped_pass`
         takes it; it also sets the left column's shape.
+      ends: ``(NW, win)`` int32, each lane's end (:func:`lane_ends`), or
+        None to run every position. With ends, lane ``l`` runs only its
+        ``n_l = min(j1 - j0, round_up_2(end_l - j0))`` first positions of
+        the block (none where ``end_l <= j0``): its bests are over those,
+        ``bnd_out`` is written only inside ``[j0, j0 + n_l)``, and
+        ``left_out`` only where ``n_l = j1 - j0``. Every other word is left
+        as it was, as the kernel leaves it.
 
     Returns:
       ``((NW, win)`` int32 best G of each lane over the block's cells,
@@ -993,11 +1027,15 @@ def sw_stream_striped_block_reference(
     """
     _check_block(stripe, windows, go, ge, j0, j1, bnd_in, bnd_out, left_in, left_out,
                  rows_per_thread)
+    _check_ends(ends, windows)
     sw_stream_striped_block_reference.calls += 1
     dev = windows.device
     rows = stripe.shape[0]
     nw, length, win = windows.shape
     n = j1 - j0
+    # Each lane's positions of the block (nw, win): a step's two at a time.
+    n_lane = (torch.full((nw, win), n, dtype=torch.int64, device=dev) if ends is None
+              else ((ends.long() - j0 + 1) // 2 * 2).clamp(0, n))
     shape = (rows, nw, win)
     # Row i of the left column at [:, i % R, :, :, i // R].
     r_per = _stripe_r(rows, rows_per_thread)
@@ -1022,7 +1060,7 @@ def sw_stream_striped_block_reference(
 
     for d in range(n + rows - 1):
         j = d - iota  # each row's position in the block
-        valid = (j >= 0) & (j < n)
+        v = (j >= 0)[:, None, None] & (j[:, None, None] < n_lane)
         jc = (j0 + j.clamp(0, n - 1))[:, None]  # (rows, 1)
         chars = windows[w_idx, jc].long() & (ALPHA - 1)  # (rows, nw, win)
         s = prof_flat[row_base + chars]
@@ -1041,17 +1079,18 @@ def sw_stream_striped_block_reference(
         g = torch.maximum(torch.maximum(hp, e), torch.clamp_min(f, 0))
         jl = d - rows + 1  # the last row's position
         if bnd_out is not None and 0 <= jl < n:
-            bnd_out[0][:, j0 + jl] = g[-1] + go
-            bnd_out[1][:, j0 + jl] = f[-1]
-        v = valid[:, None, None]
+            on = jl < n_lane
+            bnd_out[0][:, j0 + jl] = torch.where(on, g[-1] + go, bnd_out[0][:, j0 + jl])
+            bnd_out[1][:, j0 + jl] = torch.where(on, f[-1], bnd_out[1][:, j0 + jl])
         best = torch.maximum(best, torch.where(v, g, 0).amax(dim=0))
         gg2 = gg1
         gg1 = torch.where(v, g + go, gg1)
         e1 = torch.where(v, e, e1)
         f1 = torch.where(v, f, f1)
     if left_out is not None:
-        left_out[0][at] = gg1
-        left_out[1][at] = e1
+        full = n_lane == n
+        left_out[0][at] = torch.where(full, gg1, left_out[0][at])
+        left_out[1][at] = torch.where(full, e1, left_out[1][at])
     return best, bnd_out, left_out
 
 

@@ -32,6 +32,17 @@ block at a time and never reused: no write races a read, and a block's
 first sub-pass finds its corner as the block before left it. On CPU
 entries the same steps run their plain version, task by task, in the same
 order.
+
+Each lane stops at its end (1 + its last position holding a char other
+than '*'; ``swa_cuda.lane_ends``): a task skips the lanes whose records
+ended before its block, and a lane's last block stops after its last
+residue. That is exact only where no skipped cell can raise a best: every
+'*' score of the query at most 0 (the profile's '*' column), and ``ge <=
+0``, which ``supported_scoring`` enforces. A query with a positive '*'
+score runs every cell, as a whole call: a sub-pass below a '*'-positive
+one would read boundary words that a skipped task never wrote. Within each
+data slice's shard the lanes are scored longest first, so that a CTA's
+lanes end close together, and the bests go back in the caller's order.
 """
 
 from __future__ import annotations
@@ -80,12 +91,13 @@ def _grid(mesh, data_axis) -> list[list[torch.device]]:
 class _Entry:
     """One mesh entry's stripe: its sub-passes, left columns, boundaries,
     running best, stream, task table and the events it records after each
-    step."""
+    step. ``ends``: the lanes' ends its tasks stop at, or None (every cell
+    runs)."""
 
-    def __init__(self, subs, windows, edge_in: bool, edge_out: bool):
+    def __init__(self, subs, windows, ends, edge_in: bool, edge_out: bool):
         dev = windows.device
         _, length, win = windows.shape
-        self.subs, self.windows = subs, windows
+        self.subs, self.windows, self.ends = subs, windows, ends
         self.left = [left_column(s.shape[0], windows) for s in subs]
         bnd = (2, 1, length, win)
         # One boundary array per edge between sub-passes: sub-pass p + 1
@@ -127,7 +139,7 @@ class _Entry:
             if self.edge_in is not None and 0 <= b < n_blocks:
                 edge = (b * blk, min((b + 1) * blk, length))
             self.steps.append((lo, len(tasks), edge))
-        self.table = BlockTable(self.windows, tasks, go, ge)
+        self.table = BlockTable(self.windows, tasks, go, ge, self.ends)
 
     def on_stream(self):
         return torch.cuda.stream(self.stream) if self.stream else contextlib.nullcontext()
@@ -152,10 +164,28 @@ class _Entry:
                 self.events[t] = ev
 
 
+def skips(profile: np.ndarray) -> bool:
+    """True if the lanes may stop at their ends for this query: every '*'
+    score of its profile ``(Lq, 32)`` at most 0 (the penalties' part,
+    ``ge <= 0``, is ``supported_scoring``'s)."""
+    return profile.size == 0 or int(profile[:, PAD_INDEX].max()) <= 0
+
+
+def lane_order(ends: np.ndarray, data_count: int) -> np.ndarray:
+    """The order in which the lanes are scored: each of ``data_count``
+    equal shards of ``ends`` (the lanes' ends) by end, longest first
+    (stable), each lane staying in its shard."""
+    shard = ends.size // data_count
+    return np.concatenate([
+        d * shard + np.argsort(-ends[d * shard:(d + 1) * shard], kind="stable")
+        for d in range(data_count)])
+
+
 def _pipeline(prof: np.ndarray, db: np.ndarray, go: int, ge: int, grid, jb: int):
     """``sw_longpair``'s entries of each data slice, their arrays and task
-    tables planned (nothing launched), and the number of steps: stages +
-    blocks - 1, the stages every sub-pass of a data slice."""
+    tables planned (nothing launched); the number of steps: stages + blocks
+    - 1, the stages every sub-pass of a data slice; and ``order``, the
+    caller's lane at each scored lane (each shard's lanes longest first)."""
     lq = prof.shape[0]
     lb, b = db.shape
     seq_count, data_count = len(grid[0]), len(grid)
@@ -164,15 +194,21 @@ def _pipeline(prof: np.ndarray, db: np.ndarray, go: int, ge: int, grid, jb: int)
     dbp = np.full((lb, shard * data_count), PAD_INDEX, dtype=np.int8)
     dbp[:, :b] = db
     blk = -(-jb // STREAM_JB) * STREAM_JB
+    ends = swa_cuda.lane_ends(torch.from_numpy(dbp)[None])[0].numpy()
+    order = lane_order(ends, data_count)
+    skip = skips(prof)
 
     slices = []
     for d, row in enumerate(grid):
-        lanes = dbp[:, d * shard:(d + 1) * shard]
-        windows = {dev: batch_windows(lanes, shard, STREAM_JB, dev) for dev in set(row)}
+        lanes = order[d * shard:(d + 1) * shard]
+        windows = {dev: batch_windows(dbp[:, lanes], shard, STREAM_JB, dev)
+                   for dev in set(row)}
+        lane_ends = {dev: torch.from_numpy(ends[lanes].astype(np.int32))[None].to(dev)
+                     if skip else None for dev in windows}
         starts = range(0, lq, rows)
         slices.append([
             _Entry(profile_stripes(prof[s:s + rows], go, swa_cuda.STRIPE_ROWS, dev),
-                   windows[dev], edge_in=k > 0, edge_out=k < len(starts) - 1)
+                   windows[dev], lane_ends[dev], edge_in=k > 0, edge_out=k < len(starts) - 1)
             for k, (s, dev) in enumerate(zip(starts, row))
         ])
     length = slices[0][0].windows.shape[1]
@@ -183,7 +219,7 @@ def _pipeline(prof: np.ndarray, db: np.ndarray, go: int, ge: int, grid, jb: int)
         for ent in sl:
             ent.plan(first, n_steps, n_blocks, blk, go, ge)
             first += len(ent.subs)
-    return slices, n_steps
+    return slices, n_steps, order
 
 
 def sw_longpair(
@@ -248,7 +284,8 @@ def sw_longpair(
     dev0 = grid[0][0]
     if lq == 0 or lb == 0 or b == 0:
         return torch.zeros(b, dtype=torch.int32, device=dev0)
-    slices, n_steps = _pipeline(prof, db, go, ge, grid, jb)
+    slices, n_steps, order = _pipeline(prof, db, go, ge, grid, jb)
+    order = torch.from_numpy(order).to(dev0)
 
     cuda = dev0.type == "cuda"
     if cuda:
@@ -263,9 +300,12 @@ def sw_longpair(
     if cuda:
         for ent in (e for sl in slices for e in sl):
             torch.cuda.current_stream(ent.windows.device).wait_stream(ent.stream)
-    best = torch.cat([
+    scored = torch.cat([
         torch.stack([ent.best[0].to(dev0) for ent in sl]).amax(dim=0) for sl in slices
-    ])[:b]
+    ])
+    best = torch.empty_like(scored)
+    best[order] = scored
+    best = best[:b]
     if cuda and events is not None:
         end = torch.cuda.Event(enable_timing=True)
         end.record(torch.cuda.current_stream(dev0))

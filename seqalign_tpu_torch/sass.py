@@ -96,8 +96,8 @@ def expected_cells(key: str) -> int:
 
 def resource_usage(lib: Path, text: str | None = None) -> dict[str, dict[str, int]]:
     """Function (mangled) -> the resources ``cuobjdump -res-usage`` reports
-    (``REG``, ``STACK``, ``SHARED``, ``LOCAL``, ...); ``LOCAL`` 0 means no
-    local memory, so no spills."""
+    (``REG``, ``STACK``, ``SHARED``, ``LOCAL``, ...); ``LOCAL`` and
+    ``STACK`` 0 mean no spills (ptxas spills to the stack frame)."""
     if text is None:
         text = subprocess.run([_tool("cuobjdump"), "-res-usage", str(lib)],
                               capture_output=True, text=True, check=True).stdout

@@ -25,7 +25,10 @@ against the 1,024 longest records, as chip_smoke's phase 13 lays them out
 both checkouts' workers in ``build/turns/longpair.npz``), on entries of the
 one card, each call once untimed and then ``--reps`` times under its own
 CUDA-event timer (``events=``: first launch to merged result), with the
-block kernel's launches and the call's device-memory peak. With
+block kernel's launches and the call's device-memory peak; and the first
+of them once more with every cell run (``parallel.longpair.skips`` made
+false where the checkout has it: the path a query with a positive '*'
+score takes, and a checkout without lane ends always takes). With
 ``--fixed`` it runs K4 and K5 (``sw_windows``, ``const_s``) over the lane
 batches of ``pipeline.lane_batches`` at each width of
 ``swissprot.FIXED_LANES`` with the 144-residue query, each checkout's
@@ -83,7 +86,7 @@ def _longpair_worker(root: str, reps: int, inputs: str) -> dict:
     import torch
 
     from seqalign_tpu_torch.ops import swa_cuda
-    from seqalign_tpu_torch.parallel import sw_longpair
+    from seqalign_tpu_torch.parallel import longpair, sw_longpair
     from seqalign_tpu_torch.swissprot import card
 
     data = np.load(inputs)
@@ -95,7 +98,13 @@ def _longpair_worker(root: str, reps: int, inputs: str) -> dict:
                 if f is not None and hasattr(f, "launches")]
     out = {"root": root, "card": card(), "cells": {}}
     dev = torch.device("cuda", 0)
-    for (entries, slices, jb), name in zip(data["runs"].tolist(), data["names"].tolist()):
+    runs = data["runs"].tolist()
+    names = data["names"].tolist()
+    skips = getattr(longpair, "skips", None)
+    for k, ((entries, slices, jb), name) in enumerate(zip(runs + runs[:1],
+                                                           names + [names[0] + " every cell"])):
+        if k == len(runs) and skips is not None:
+            longpair.skips = lambda prof: False
         mesh = [dev] * entries if slices == 1 else [[dev] * entries for _ in range(slices)]
         kw = {} if slices == 1 else {"axis": "seq", "data_axis": "data"}
         ms = []
@@ -115,6 +124,8 @@ def _longpair_worker(root: str, reps: int, inputs: str) -> dict:
             "memory_peak_bytes": torch.cuda.max_memory_allocated() - base,
             "scores_sha256": hashlib.sha256(scores.tobytes()).hexdigest(),
         }
+    if skips is not None:
+        longpair.skips = skips
     return out
 
 

@@ -177,7 +177,7 @@ def test_staged_schedule_matches_jax(monkeypatch, stripe_rows, shape):
     go, ge = sc.gap_open_total, sc.gap_extend
     mesh, kw, jmesh = _mesh(shape)
     grid = mesh if len(shape) == 2 else [mesh]
-    slices, _ = longpair._pipeline(prof, db, go, ge, grid, 32)
+    slices, _, _ = longpair._pipeline(prof, db, go, ge, grid, 32)
     subs = [len(ent.subs) for sl in slices for ent in sl]
     assert all(5 <= n <= 6 for n in subs)
     calls = swa_cuda.sw_stream_striped_block_reference.calls
@@ -208,7 +208,7 @@ def test_task_table_schedule(monkeypatch, shape, stripe_rows, jb):
     prof, db = _case(sc, np.random.default_rng(7), lq, 90, 6)
     mesh, _, _ = _mesh(shape)
     grid = mesh if len(shape) == 2 else [mesh]
-    slices, n_steps = longpair._pipeline(prof, db, sc.gap_open_total, sc.gap_extend, grid, jb)
+    slices, n_steps, _ = longpair._pipeline(prof, db, sc.gap_open_total, sc.gap_extend, grid, jb)
     length = 96
     n_blocks = -(-length // (-(-jb // 16) * 16))
     for sl in slices:
@@ -644,3 +644,288 @@ def test_longpair_on_the_card_matches_the_cpu(entries):
     prof, db = _case(sc, np.random.default_rng(entries), 700, 300, 50)
     got = _port(prof, db, sc, [torch.device("cuda")] * entries, jb=64)
     np.testing.assert_array_equal(got, _port(prof, db, sc, [CPU] * entries, jb=64))
+
+
+# Lane ends: each lane stops at its record's end where every '*' score and
+# ge are at most 0 (the skip), and runs every cell otherwise.
+
+
+def _unsorted_case(sc, rng, lq, lb, b):
+    """``_case`` with its lanes shuffled and lane ``b // 2`` all '*'."""
+    prof, db = _case(sc, rng, lq, lb, b)
+    db = db[:, rng.permutation(b)]
+    db[:, b // 2] = 31
+    return prof, db
+
+
+@pytest.mark.parametrize("two_d", [False, True])
+@pytest.mark.parametrize("scoring", SCORINGS)
+def test_skip_matches_jax_on_every_scoring(scoring, two_d):
+    """The skip open (every task table has the lanes' ends), lanes given
+    unsorted with an all-'*' lane, on [cpu] x 3 and the 2 x 2 data x seq
+    mesh: every score equals JAX's sw_longpair and sw_wavefront."""
+    sc = make_scoring(scoring)
+    go, ge = sc.gap_open_total, sc.gap_extend
+    prof, db = _unsorted_case(sc, np.random.default_rng(len(scoring) + two_d), 37, 110, 11)
+    mesh, kw, jmesh = _mesh((2, 2) if two_d else (3,))
+    grid = mesh if two_d else [mesh]
+    slices, _, _ = longpair._pipeline(prof, db, go, ge, grid, 32)
+    assert longpair.skips(prof)
+    assert all(ent.table.ends is not None for sl in slices for ent in sl)
+    got = _port(prof, db, sc, mesh, jb=32, **kw)
+    np.testing.assert_array_equal(got, np.asarray(sw_wavefront(prof, db, go, ge)))
+    np.testing.assert_array_equal(
+        got, np.asarray(jax_sw_longpair(prof, db, go, ge, jmesh, jb=32, **kw)))
+    assert got[db.shape[1] // 2] == 0
+
+
+@pytest.mark.parametrize("data", [1, 2, 3])
+def test_lanes_sorted_by_end_within_each_shard(data):
+    """_pipeline scores each data slice's shard longest first (stable), a
+    lane never leaving its shard; each table's ends are the scored lanes'
+    ends, in that order."""
+    sc = make_scoring("PAM250")
+    prof, db = _unsorted_case(sc, np.random.default_rng(data), 12, 70, 10)
+    ends = swa_cuda.lane_ends(torch.from_numpy(db.astype(np.int8))[None])[0].numpy()
+    grid = [[CPU] * 2 for _ in range(data)]
+    slices, _, order = longpair._pipeline(prof, db, sc.gap_open_total, sc.gap_extend, grid, 16)
+    shard = -(-10 // data)
+    padded = np.concatenate([ends, np.zeros(shard * data - 10, dtype=ends.dtype)])
+    assert sorted(order) == list(range(shard * data))
+    for d, sl in enumerate(slices):
+        mine = order[d * shard:(d + 1) * shard]
+        assert all(d * shard <= x < (d + 1) * shard for x in mine)
+        want = sorted(range(d * shard, (d + 1) * shard), key=lambda x: -padded[x])
+        assert list(mine) == want
+        for ent in sl:
+            assert ent.table.ends.tolist() == [padded[mine].tolist()]
+
+
+@pytest.mark.parametrize("shape", [(2,), (2, 2)])
+def test_scores_do_not_depend_on_the_lane_order(monkeypatch, shape):
+    """Scoring the lanes in the order given (lane_order the identity, as
+    chip_smoke's phase 13 times it) gives the same scores as the sort by
+    end, with the skip open: the sort only groups lanes that end together."""
+    sc = make_scoring("PAM250")
+    prof, db = _unsorted_case(sc, np.random.default_rng(5), 21, 90, 13)
+    mesh, kw, _ = _mesh(shape)
+    sorted_scores = _port(prof, db, sc, mesh, jb=16, **kw)
+    monkeypatch.setattr(longpair, "lane_order", lambda ends, data_count: np.arange(ends.size))
+    assert longpair.skips(prof)
+    np.testing.assert_array_equal(_port(prof, db, sc, mesh, jb=16, **kw), sorted_scores)
+    np.testing.assert_array_equal(
+        sorted_scores, np.asarray(sw_wavefront(prof, db, sc.gap_open_total, sc.gap_extend)))
+
+
+def _ends_mask(ends, j0, j1):
+    """Each lane's positions of block [j0, j1) when it stops at its end."""
+    return ((ends.long() - j0 + 1) // 2 * 2).clamp(0, j1 - j0)
+
+
+@pytest.mark.parametrize("blk", [16, 32, 48])
+def test_plain_block_with_ends_leaves_unread_words_untouched(blk):
+    """Two sub-passes chained over every block (the second reads the
+    first's boundary row) on sentinel-filled boundary rows and left
+    columns, with the lanes' ends and without: the bests of the lanes
+    with a residue, merged over every task, are equal (an all-'*' lane
+    merges nothing); with ends, each boundary word and left
+    column is the run without ends' where the lane reaches it, and the
+    sentinel exactly where the kernel leaves it untouched (past the
+    lane's stop; no left column where it stops inside the block)."""
+    sc = make_scoring("BLOSUM62")
+    go, ge = sc.gap_open_total, sc.gap_extend
+    rng = np.random.default_rng(blk)
+    prof, db = _unsorted_case(sc, rng, 20, 90, 12)
+    db[:, 3] = 31
+    db[:1, 3] = 5  # a lane of one residue
+    windows = batch_windows(db.astype(np.int8), 6, swa_cuda.STREAM_JB, CPU)
+    ends = swa_cuda.lane_ends(windows).to(torch.int32)
+    length = windows.shape[1]
+    blocks = [(j, min(j + blk, length)) for j in range(0, length, blk)]
+    subs = profile_stripes(prof, go, 12, CPU)
+    sentinel = -12345
+
+    def run(with_ends):
+        bnd = [torch.full((2, *windows.shape), sentinel, dtype=torch.int32) for _ in subs]
+        lefts = [[torch.full(swa_cuda.left_column(s.shape[0], windows).shape, sentinel,
+                             dtype=torch.int32) for _ in blocks] for s in subs]
+        tasks = [swa_cuda.BlockTask(s, j0, j1, bnd[p - 1] if p else None, bnd[p],
+                                    lefts[p][b - 1] if b else None, lefts[p][b])
+                 for p, s in enumerate(subs) for b, (j0, j1) in enumerate(blocks)]
+        table = swa_cuda.BlockTable(windows, tasks, go, ge, ends if with_ends else None)
+        best = torch.full((2, 6), -7, dtype=torch.int32)
+        swa_cuda.sw_stream_striped_step_reference(table, 0, len(tasks), best)
+        return best, bnd, lefts
+
+    full, skip = run(False), run(True)
+    assert torch.equal(skip[0][ends > 0], full[0][ends > 0])
+    assert bool((skip[0][ends == 0] == -7).all()) and bool((ends == 0).any())
+    pos = torch.arange(length)[:, None, None]
+    reach = (pos < ((ends.long() + 1) // 2 * 2)[None]).permute(1, 0, 2)  # (nw, L, win)
+    for a, b in zip(skip[1], full[1]):
+        assert torch.equal(a[:, reach], b[:, reach])
+        assert bool((a[:, ~reach] == sentinel).all())
+    for p, s in enumerate(subs):
+        r = swa_cuda.left_column(s.shape[0], windows).shape[1]
+        rows = torch.arange(s.shape[0])
+        at = (slice(None), rows % r, slice(None), slice(None), rows // r)
+        for b, (j0, j1) in enumerate(blocks):
+            whole = _ends_mask(ends, j0, j1) == j1 - j0  # (nw, win)
+            a, c = skip[2][p][b][at], full[2][p][b][at]  # (2, rows, nw, win)
+            assert torch.equal(a[:, :, whole], c[:, :, whole])
+            assert bool((a[:, :, ~whole] == sentinel).all())
+
+
+def test_plain_block_with_ends_one_task():
+    """One block alone with ends: a dead lane and the words past a lane's
+    stop are left as they were, and the block's bests over the positions
+    each lane runs equal the run without ends' cut to those positions."""
+    sc = make_scoring("PAM250")
+    go, ge = sc.gap_open_total, sc.gap_extend
+    rng = np.random.default_rng(31)
+    prof, db = _case(sc, rng, 24, 64, 5)
+    windows = batch_windows(db.astype(np.int8), 5, swa_cuda.STREAM_JB, CPU)
+    ends = torch.tensor([[0, 17, 32, 33, 64]], dtype=torch.int32)
+    (stripe,) = profile_stripes(prof, go, 24, CPU)
+    bnd_in = torch.from_numpy(rng.integers(-4, 40, (2, *windows.shape), dtype=np.int32))
+    left_in = torch.from_numpy(rng.integers(
+        -4, 40, swa_cuda.left_column(24, windows).shape, dtype=np.int32))
+    outs = []
+    for e in (ends, None):
+        bnd = torch.full((2, *windows.shape), -99, dtype=torch.int32)
+        left = torch.full_like(left_in, -99)
+        best, _, _ = swa_cuda.sw_stream_striped_block_reference(
+            stripe, windows, go, ge, j0=16, j1=48, bnd_in=bnd_in, bnd_out=bnd,
+            left_in=left_in, left_out=left, ends=e)
+        outs.append((best, bnd, left))
+    (best, bnd, left), (_, bnd_all, left_all) = outs
+    assert _ends_mask(ends, 16, 48).tolist() == [[0, 2, 16, 18, 32]]
+    assert best[0, 0] == 0
+    for lane, n in enumerate([0, 2, 16, 18, 32]):
+        assert torch.equal(bnd[:, 0, 16:16 + n, lane], bnd_all[:, 0, 16:16 + n, lane])
+        assert bool((bnd[:, 0, 16 + n:, lane] == -99).all())
+        assert bool((bnd[:, 0, :16, lane] == -99).all())
+        want = left_all[:, :, 0, lane] if n == 32 else torch.full_like(left_all[:, :, 0, lane], -99)
+        assert torch.equal(left[:, :, 0, lane], want)
+    # Lane 4 runs every position: its best is the run without ends'.
+    assert best[0, 4] == outs[1][0][0, 4]
+
+
+def test_block_table_rejects_malformed_ends():
+    windows, go, ge, tasks = _step_tasks(CPU, np.random.default_rng(15))
+    for bad in (torch.zeros((1, 5), dtype=torch.int32), torch.zeros((1, 6), dtype=torch.int64),
+                torch.full((1, 6), windows.shape[1] + 1, dtype=torch.int32),
+                torch.full((1, 6), -1, dtype=torch.int32)):
+        with pytest.raises(ValueError, match="ends"):
+            swa_cuda.BlockTable(windows, tasks, go, ge, bad)
+
+
+def test_task_table_with_ends_reads_only_written_words(monkeypatch):
+    """The plan of a 2 x 2 mesh with 5-6 sub-passes an entry, lane by lane
+    with each lane's ends (lanes of lengths 0 to 90 against 96 positions):
+    every boundary word or left column a live lane's task reads was
+    written by an earlier task, or copied at the step from a written word;
+    a dead lane's task reads and writes nothing."""
+    monkeypatch.setattr(swa_cuda, "STRIPE_ROWS", 4)
+    sc = make_scoring("PAM250")
+    prof, db = _unsorted_case(sc, np.random.default_rng(17), 45, 90, 14)
+    db[:1, 5] = 3
+    db[1:, 5] = 31
+    mesh, _, _ = _mesh((2, 2))
+    slices, n_steps, _ = longpair._pipeline(prof, db, sc.gap_open_total, sc.gap_extend,
+                                            mesh, 32)
+    written = set()
+    for t in range(n_steps):
+        copies, tasks = set(), []
+        for sl in slices:
+            for k, ent in enumerate(sl):
+                lo, hi, edge = ent.steps[t]
+                ends = ent.table.ends[0].tolist()
+                if edge is not None:
+                    src, dst = sl[k - 1].edge_out.data_ptr(), ent.edge_in.data_ptr()
+                    copies |= {(dst, j, l) for j in range(*edge) for l in range(len(ends))
+                               if (src, j, l) in written}
+                for task in ent.table.tasks[lo:hi]:
+                    tasks.append((task, _ends_mask(ent.table.ends, task.j0, task.j1)[0]))
+        written |= copies
+        new = set()
+        for task, n_lane in tasks:
+            for lane, n in enumerate(n_lane.tolist()):
+                reads = set()
+                if n and task.left_in is not None:
+                    reads.add((task.left_in.data_ptr(), "left", lane))
+                if n and task.bnd_in is not None:
+                    reads |= {(task.bnd_in.data_ptr(), j, lane)
+                              for j in range(max(task.j0 - 1, 0), task.j0 + n)}
+                assert reads <= written
+                if n == task.j1 - task.j0 and task.left_out is not None:
+                    new.add((task.left_out.data_ptr(), "left", lane))
+                if task.bnd_out is not None:
+                    new |= {(task.bnd_out.data_ptr(), j, lane)
+                            for j in range(task.j0, task.j0 + n)}
+        written |= new
+
+
+# JAX's sw_longpair pads Lb to a multiple of jb with '*' and scores that
+# padding; a query holding '*' under BLOSUM62 scores ('*', '*') = +1, so its
+# scores depend on jb. The port pads to STREAM_JB only, and runs such a
+# query's every cell (no lane ends).
+_STAR_RESIDUES = "WCNMFMQGNDWAKICIPAAFDSDPTYDVYPIECTSKLAKYLWIHRLIG"
+
+
+def test_star_query_differs_from_jax_on_purpose():
+    sc = make_scoring("BLOSUM62")
+    go, ge = sc.gap_open_total, sc.gap_extend
+    prof = make_profile(sc.table, sc.query_indices(_STAR_RESIDUES + "****"))
+    db = np.full((48, 1), 31, dtype=np.int32)
+    db[:, 0] = sc.query_indices(_STAR_RESIDUES)
+    assert int(np.asarray(sw_wavefront(prof, db, go, ge))[0]) == 280
+    for jb in (16, 32, 64):
+        assert _port(prof, db, sc, [CPU], jb=jb).tolist() == [280]
+    jmesh = jax_make_mesh(jax.devices()[:1])
+    assert int(np.asarray(jax_sw_longpair(prof, db, go, ge, jmesh, jb=16))[0]) == 280
+    assert int(np.asarray(jax_sw_longpair(prof, db, go, ge, jmesh, jb=32))[0]) == 284
+    assert not longpair.skips(prof)
+    slices, _, _ = longpair._pipeline(prof, db, go, ge, [[CPU]], 32)
+    assert slices[0][0].table.ends is None
+
+
+@pytest.mark.cuda
+def test_block_kernel_with_ends_matches_plain_version_on_the_card():
+    """K2's block instance with ends against its plain version, word for
+    word on sentinel-filled boundary rows and left columns: 40 lanes at R
+    = 8 (CTAs of 8 lanes) hold a dead CTA, dead warps in live CTAs, stops
+    inside the block and lanes that run it whole; two steps (a second
+    sub-pass reads the first's boundary)."""
+    _needs_card()
+    sc = make_scoring("BLOSUM62")
+    go, ge = sc.gap_open_total, sc.gap_extend
+    rng = np.random.default_rng(41)
+    dev = torch.device("cuda")
+    prof = make_profile(sc.table, sc.query_indices(random_protein(rng, 200)))
+    lens = np.concatenate([np.full(8, 150), rng.integers(1, 150, 8), np.zeros(8, int),
+                           rng.choice([0, 20, 47, 48, 49, 90, 111, 112], 16)])
+    db = np.full((150, 40), 31, dtype=np.int32)
+    for lane, n in enumerate(lens):
+        db[:n, lane] = rng.integers(0, 20, n)
+    windows = batch_windows(db.astype(np.int8), 40, swa_cuda.STREAM_JB, dev)
+    ends = swa_cuda.lane_ends(windows).to(torch.int32)
+    a, b = profile_stripes(prof, go, 104, dev)
+    bnd_in = torch.randint(-5, 30, (2, *windows.shape), dtype=torch.int32, device=dev)
+    left = torch.randint(-5, 30, swa_cuda.left_column(104, windows).shape,
+                         dtype=torch.int32, device=dev)
+    outs = []
+    for fn in (swa_cuda.sw_stream_striped_step, swa_cuda.sw_stream_striped_step_reference):
+        mid = torch.full((2, *windows.shape), -777, dtype=torch.int32, device=dev)
+        last = torch.full_like(mid, -777)
+        la, lb = left.clone(), torch.full_like(left, -777)
+        table = swa_cuda.BlockTable(windows, [
+            swa_cuda.BlockTask(a, 48, 112, bnd_in, mid, la, la),
+            swa_cuda.BlockTask(b, 48, 112, mid, last, None, lb)], go, ge, ends)
+        best = torch.full((1, 40), -3, dtype=torch.int32, device=dev)
+        fn(table, 0, 1, best)
+        fn(table, 1, 2, best)
+        torch.cuda.synchronize()
+        outs.append((best, mid, last, la, lb))
+    for x, y in zip(*outs):
+        assert torch.equal(x, y)
