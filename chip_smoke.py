@@ -6,18 +6,22 @@
 Phases, each printing its own lines; any failure exits nonzero:
 
 1. device: the card's name, its power limit (nvidia-smi), torch, CUDA, nvcc;
-2. build: compile csrc/*.cu (sw_stream.cu and sw_stream_solo.cu: K1 and
-   K3, the one-pass team kernel of sw_stream.cuh, an instance per R built
-   and solo instances; sw_striped.cu: K2; both on the team step of
+2. build: compile csrc/*.cu (sw_stream.cu: K1 and K3, the one-pass team
+   kernel of sw_stream.cuh, an instance per R built; sw_stream_solo.cu:
+   their solo kernel, one thread a lane scoring Q queries, an instance per
+   (R, Q) built, each printed with its registers and its instructions a
+   cell beside those of the team kernel's solo instance it replaced;
+   sw_striped.cu: K2; all on the team step of
    sw_team.cuh, with K2's block instance; sw_windows.cu and
    sw_windows_const_s.cu: K4 and K5, the team kernel of sw_windows.cuh;
    isa_probe.cu: the issue-rate probe), one nvcc each in parallel, for
    sm_90a into build/;
    read every instance's registers, local memory and stack (no spills) and the
    inner DP loop of its SASS (integer instructions per cell, for the
-   bound): K1 and K3 (a step of R rows, one instance per R built), K2, the
-   fixed-batch kernel K4 and its constant-S mode K5 (a step of R rows, four
-   a loop for K4's solo instances; K5's loop without LDS);
+   bound): K1 and K3 (a step of R rows, one instance per R built; 2 Q R
+   cells a step for the solo kernel), K2, the fixed-batch kernel K4 and
+   its constant-S mode K5 (a step of R rows, four a loop for K4's solo
+   instances; K5's loop without LDS);
    then measure the card's issue rate of VIADDMNMX, VIMNMX3, IADD3, IMNMX,
    IMAD, LDS and SHFL, alone and in pairs (seqalign_tpu_torch.probe), and
    the bound those rates give each kernel;
@@ -26,10 +30,15 @@ Phases, each printing its own lines; any failure exits nonzero:
    (teams of T threads of R rows), over scoring systems, segment layouts,
    window widths (a window whose last CTA holds teams past its lanes), an
    empty query and query lengths up to MAX_QUERY_ROWS, 16-position
-   segments (several in flight in one team) with empty lanes; then the
+   segments (several in flight in one team) with empty lanes, and the solo
+   kernel at lq = 1, 5, 17 and 24; then the
    multi-query kernel (K3) the same way, over 2 to 64 queries of unequal
    lengths, an empty query, queries at MAX_QUERY_ROWS, a tail segment,
-   empty windows and forced teams;
+   empty windows and forced teams; and its solo kernel at every (R, Q)
+   built, at nq = 1, Q - 1, Q + 1 and 9 queries of unequal lengths up to R
+   rows (one empty), and at lq <= 17 at every Q with 16-position segments
+   and empty lanes, empty windows, go == ge and a BLOSUM62 query holding
+   '*';
    then the row-striped kernel (K2), pass by pass (output slots and the
    boundary row) and as a whole search, at 1537 to 4096 query rows and at
    35,000 against a small database, over the same scoring systems, a
@@ -70,7 +79,8 @@ Phases, each printing its own lines; any failure exits nonzero:
    neither K1 nor a plain version; every score equals K1 run per query,
    and the 8-query batch equals K3's plain version on the same card
    tensors; K3, the K1 loop and the plain version are timed, and the
-   search's device-memory peak read;
+   search's device-memory peak read; K3's instance (at 8 x 17 the solo
+   kernel and its Q), registers and bound are printed beside its time;
 6. long-query path: a 2000-residue query against the same database through
    pipeline.search_database; the counters prove it ran K2 (stripes x chunks
    passes) and nothing else; every score equals K2's plain version on the
@@ -165,9 +175,9 @@ then holds what those phases measured.
 With ``--against DIR`` (another checkout, for example the parent commit
 unpacked under build/) it then times K1 and K3 in turns against that
 checkout's kernels, one process each, other, this, this, other
-(seqalign_tpu_torch.turns): K1 at lq=17, 144, 512, 1536, K3 at 8 x 17 and
-64 x 144, as each checkout's own pipeline launches them, with each search's
-device-memory peak.
+(seqalign_tpu_torch.turns): K1 at lq=17, 144, 512, 1536, K2 at lq=2000,
+K3 at 8 x 17, 64 x 17 and 64 x 144, as each checkout's own pipeline
+launches them, with each search's device-memory peak.
 
 The line before the last is a JSON object describing the kernels (route,
 source, launches on their path, max error, times, the card's bound for the
@@ -327,13 +337,15 @@ def phase_build():
                  f"{sass.expected_cells(key)}")
         loops[key] = loop
     from seqalign_tpu_torch.ops.swa_cuda import (
-        STREAM_ROWS_PER_THREAD_BUILT, STREAM_SOLO_ROWS, STRIPE_ROWS_PER_THREAD_BUILT,
+        STREAM_ROWS_PER_THREAD_BUILT, STREAM_SOLO_QUERIES, STRIPE_ROWS_PER_THREAD_BUILT,
         WINDOWS_ROWS_PER_THREAD_BUILT, WINDOWS_SOLO_ROWS, block_kernel_instance,
         team_threads, windows_kernel_instance,
     )
 
     team = {f"sw_stream_kernel<{r}, false>" for r in STREAM_ROWS_PER_THREAD_BUILT}
-    team |= {f"sw_stream_kernel<{r}, true>" for r in STREAM_SOLO_ROWS}
+    solo = {f"sw_stream_solo_kernel<{r}, {q}>" for r, qs in STREAM_SOLO_QUERIES.items()
+            for q in qs}
+    team |= solo
     team |= {block_kernel_instance(32 * r - 4 * partial, b_out, r)
              for r in STRIPE_ROWS_PER_THREAD_BUILT for b_out in (False, True)
              for partial in ((0, 1) if b_out else (0,))}
@@ -342,6 +354,10 @@ def phase_build():
              for t in ((1, 2) if r in WINDOWS_SOLO_ROWS else (2,))}
     if not team <= set(loops):
         fail(f"SASS of the kernels not all found: {sorted(loops)}")
+    for key in sorted(solo, key=lambda k: [int(x) for x in k[22:-1].split(", ")]):
+        print(f"[build] solo {key}: {usage.get(key, {}).get('REG')} registers, "
+              f"{loops[key]['pipe_per_cell']} instructions a cell on the busier pipe over "
+              f"{loops[key]['cells']} cells a loop iteration", flush=True)
     # windows_team's fill rule counts a CTA as the C++ side builds it.
     built = {r: _build.load().sw_windows_team_threads(r) for r in WINDOWS_ROWS_PER_THREAD_BUILT}
     if built != {r: team_threads(r) for r in built}:
@@ -369,10 +385,10 @@ class Checker:
                             "sw_windows": 0, "sw_windows_const_s": 0}
 
     def compare(self, label, prof, streams, fs, go, ge, nslots, jb, team=None,
-                rows=None):
+                rows=None, queries=None):
         """K1 (K3 for a 3-D profile), scoring ``rows`` rows (all unless
-        given) at ``team`` or the chooser's (T, R), against its plain
-        version (every row)."""
+        given) at ``team`` or the chooser's (T, R) and, for K3, ``queries``
+        or the chooser's Q, against its plain version (every row)."""
         from seqalign_tpu_torch.ops import swa_cuda
 
         torch = self.torch
@@ -381,7 +397,8 @@ class Checker:
         plain = getattr(swa_cuda, name + "_reference")
         rows = prof.shape[-2] if rows is None else rows
         team = team or swa_cuda.stream_team(rows)
-        k = kernel(prof, streams, fs, go, ge, nslots=nslots, jb=jb, team=team, rows=rows)
+        kw = {} if queries is None else {"queries": queries}
+        k = kernel(prof, streams, fs, go, ge, nslots=nslots, jb=jb, team=team, rows=rows, **kw)
         torch.cuda.synchronize()
         r = plain(prof, streams, fs, go, ge, nslots=nslots, jb=jb)
         torch.cuda.synchronize()
@@ -389,8 +406,10 @@ class Checker:
         self.max_abs_err[name] = max(self.max_abs_err[name], err)
         equal = torch.equal(k, r)
         nw, length, win = streams.shape
-        queries = f"nq={prof.shape[0]} " if prof.ndim == 3 else ""
-        print(f"[kernel] {name} {label}: {queries}rows={rows}/{prof.shape[-2]} (T, R)={team} "
+        nq = prof.shape[0] if prof.ndim == 3 else 1
+        key = swa_cuda.stream_kernel_instance(rows, team, nq, queries)
+        print(f"[kernel] {name} {label}: {f'nq={nq} ' if prof.ndim == 3 else ''}"
+              f"rows={rows}/{prof.shape[-2]} (T, R)={team} {key} "
               f"nw={nw} L={length} win={win} jb={jb} slots={nslots} equal={equal} "
               f"max_abs_err={err}", flush=True)
         if not equal:
@@ -550,7 +569,8 @@ def stream_case(name, lq, n, lo, hi, nw, win, seed, encoded=None, order=None,
                 striped=False):
     """A stream pack as the pipeline makes it (jb=STREAM_JB, grain=
     STREAM_GRAIN) and the kernel's arguments for it, on the card. A tuple
-    ``lq`` gives one query of each length and a 3-D profile (K3);
+    ``lq`` gives one query of each length (a string: that query) and a 3-D
+    profile (K3);
     ``striped`` gives the profile as K2's stripes of STRIPE_ROWS rows, or of
     ``striped`` rows where it is a number."""
     from seqalign_tpu_torch.convert import (
@@ -566,7 +586,8 @@ def stream_case(name, lq, n, lo, hi, nw, win, seed, encoded=None, order=None,
     sc = scoring(name)
     rng = np.random.default_rng(seed)
     if isinstance(lq, tuple):
-        qs = [sc.query_indices(random_protein(rng, k)) for k in lq]
+        qs = [sc.query_indices(k if isinstance(k, str) else random_protein(rng, k))
+              for k in lq]
         profile = multi_profile(sc.table, qs)
     else:
         profile = make_profile(sc.table, sc.query_indices(random_protein(rng, lq)))
@@ -615,8 +636,10 @@ def phase_kernel(chk: Checker):
         ("BLOSUM62", MAX_QUERY_ROWS, 1200, 1, 64, 2, 1024, 10),
     ]
     # The query's own rows, as the pipeline launches them: the profile's
-    # ROW_ALIGN padding skipped (17 of 20 rows, 145 of 148).
-    for name, lq, seed in (("BLOSUM62", 17, 17), ("PAM250", 145, 18)):
+    # ROW_ALIGN padding skipped (17 of 20 rows, 145 of 148); the solo
+    # kernel (one thread a lane, Q = 1) at lq = 1, 5, 17 and 24.
+    for name, lq, seed in (("BLOSUM62", 17, 17), ("PAM250", 145, 18), ("PAM250", 1, 19),
+                           ("BLOSUM45", 5, 20), ("PAM250", 17, 21), ("BLOSUM62", 24, 22)):
         _, args = stream_case(name, lq, 1500, 1, 120, 4, 256, seed)
         chk.compare(f"{name} lq={lq}, its rows", *args, rows=lq)
     cases += [
@@ -710,6 +733,51 @@ def phase_kernel_multi(chk: Checker):
     # profile's ROW_ALIGN padding skipped.
     _, args = stream_case("PAM250", (17, 12, 5, 17, 3, 1, 16, 9), 2000, 1, 150, 5, 256, 35)
     chk.compare("8 queries of up to 17 rows, their rows", *args, rows=17)
+    phase_kernel_solo(chk)
+
+
+def phase_kernel_solo(chk: Checker):
+    """K3's solo kernel (one thread a lane, Q queries a thread) against its
+    plain version at every (R, Q) built."""
+    from seqalign_tpu_torch.ops.swa_cuda import STREAM_SOLO_QUERIES, stream_team
+
+    # Every (R, Q) at nq = 1, Q - 1, Q + 1 and 9 (the last z slice partial
+    # where Q does not divide nq), the queries' lengths unequal, up to R
+    # rows, the second one empty.
+    for r, qs in STREAM_SOLO_QUERIES.items():
+        for q in qs:
+            for nq in sorted({1, q - 1, q + 1, 9} - {0}):
+                rng = np.random.default_rng(100 * r + 10 * q + nq)
+                lqs = [r] + [int(x) for x in rng.integers(1, r + 1, size=nq - 1)]
+                lqs[1:2] = [0] * min(1, nq - 1)
+                _, args = stream_case("PAM250", tuple(lqs), 600, 1, 60, 2, 256,
+                                      1000 * r + 10 * q + nq)
+                chk.compare(f"solo R={r} Q={q} lq={'/'.join(map(str, lqs))}", *args,
+                            team=(1, r), rows=r, queries=q)
+
+    # At lq <= 17 (R = 18), every Q built, the chooser's Q too: 16-position
+    # segments, several in flight across a warp, with empty lanes; windows
+    # with no segment; go == ge; a BLOSUM62 query holding '*', whose '*'
+    # row scores +1 against the streams' '*' padding.
+    rng = np.random.default_rng(36)
+    star = "".join(random_protein(rng, 5) + "*" for _ in range(2)) + random_protein(rng, 5)
+    seg16 = stream_case("BLOSUM62", (17, 9, 0, 13, 17), 8 * 256 + 77, 1, 17, 2, 256, 37)
+    if seg16[0].streams.shape[1] != 16 * (seg16[0].fs[:, :, 0] > 0).sum(axis=0).max() + 16:
+        fail("the solo 16-position case has a segment longer than one block")
+    empty = stream_case("PAM250", (17, 4, 11), 300, 1, 60, 5, 256, 38)
+    if np.count_nonzero(empty[0].fs.any(axis=(0, 2))) != 2:
+        fail("solo empty-window case does not leave windows empty")
+    cases = [
+        ("segments of 16 positions, empty lanes", seg16),
+        ("empty windows", empty),
+        ("go==ge", stream_case("go==ge", (17, 3, 12, 0, 8), 1000, 1, 80, 2, 256, 39)),
+        ("BLOSUM62, a query holding '*'",
+         stream_case("BLOSUM62", (star, 17, 6), 1500, 1, 120, 3, 256, 40)),
+    ]
+    team = stream_team(17)
+    for label, (_, args) in cases:
+        for q in (None, *STREAM_SOLO_QUERIES[team[1]]):
+            chk.compare(f"solo {label}", *args, rows=17, queries=q)
 
 
 def phase_kernel_striped(chk: Checker):
@@ -1189,7 +1257,8 @@ def phase_main_path(torch, chk: Checker, smi: str, query, db, loops, usage):
 
 def k1_per_query(torch, queries, sc, db, k1_pack):
     """Every query through K1 on the single-query pack of the whole
-    database: (NQ, N) scores, and the CUDA-event time of the NQ launches."""
+    database: (NQ, N) scores, and the CUDA-event time of one pass of the NQ
+    launches with the launches that pass counted (NQ of K1, nothing else)."""
     from seqalign_tpu_torch.convert import profile_to_torch
     from seqalign_tpu_torch.ops import swa_cuda
     from seqalign_tpu_torch.ops.swa_torch import make_profile
@@ -1203,9 +1272,13 @@ def k1_per_query(torch, queries, sc, db, k1_pack):
     for k, (p, kw) in enumerate(zip(profs, kws)):
         out = swa_cuda.sw_stream(p, streams, fs, go, ge, **kw)
         scores[k, order] = out.cpu().numpy().reshape(-1)[: db.n]
+    reset_counts(swa_cuda)
     ms = cuda_ms(torch, lambda: [swa_cuda.sw_stream(p, streams, fs, go, ge, **kw)
                                  for p, kw in zip(profs, kws)], 1)
-    return scores, ms
+    counts = read_counts(swa_cuda)
+    if counts["sw_stream"] != len(queries) or sum(counts.values()) != len(queries):
+        fail(f"K1 looped over {len(queries)} queries launched {counts}")
+    return scores, ms, counts["sw_stream"]
 
 
 def phase_multi_path(torch, chk: Checker, smi: str, db, k1_pack, nq, lq,
@@ -1257,7 +1330,7 @@ def phase_multi_path(torch, chk: Checker, smi: str, db, k1_pack, nq, lq,
             fail(f"{tag} K3 scores != pipeline.search_database per query")
         print(f"{tag} all {nq} x {db.n} scores == pipeline.search_database "
               "(K1) per query", flush=True)
-    k1, k1_loop_ms = k1_per_query(torch, queries, sc, db, k1_pack)
+    k1, k1_loop_ms, k1_launches = k1_per_query(torch, queries, sc, db, k1_pack)
     if not np.array_equal(k1, scores):
         fail(f"{tag} K3 scores != K1 per query")
     print(f"{tag} all {nq} x {db.n} scores == K1 per query", flush=True)
@@ -1284,19 +1357,33 @@ def phase_multi_path(torch, chk: Checker, smi: str, db, k1_pack, nq, lq,
              f"and {len(blocks)} block(s) per search")
     k3_ms = cuda_ms(torch, k3_all, 3 if check_plain else 2)
     team = swa_cuda.stream_team(lq)
-    key = swa_cuda.stream_kernel_instance(lq)
-    shape = (f"{len(blocks)} block(s) of {blocks[0].shape[0]} queries x "
+    block_nq = blocks[0].shape[0]
+    key = swa_cuda.stream_kernel_instance(lq, nq=block_nq)
+    solo = key.startswith("sw_stream_solo_kernel<")
+    per_thread = swa_cuda.stream_solo_queries(lq, block_nq) if solo else None
+    shape = (f"{len(blocks)} block(s) of {block_nq} queries x "
              f"{blocks[0].shape[1]} rows, {len(chunks)} chunk(s), nw="
-             f"{'/'.join(str(s.shape[0]) for _, s, _, _ in chunks)}, (T, R)={team}")
+             f"{'/'.join(str(s.shape[0]) for _, s, _, _ in chunks)}, (T, R)={team}"
+             + (f", Q={per_thread} queries a thread" if solo else ""))
     # Each chunk's streams read once for all blocks; real query rows only.
     io_bytes = sum(nbytes(s, f) + ns * nq * s.shape[2] * 4 for _, s, f, ns in chunks)
     bound_ms, bound_by = bound(io_bytes + nbytes(*blocks), cells,
                                loops[key]["pipe_per_cell"])
+    # K1 looped over the queries (the short-query point at lq=17): each
+    # launch reads the single-query pack once and writes its slots.
+    _, k1_streams, k1_fs, k1_slots = k1_pack
+    k1_key = swa_cuda.stream_kernel_instance(lq)
+    k1_bound_ms, _ = bound(nq * (nbytes(k1_streams, k1_fs) + k1_slots * k1_streams.shape[2] * 4),
+                           cells, loops[k1_key]["pipe_per_cell"])
     result = {
         "launches": counts["sw_stream_multi"], "ms": k3_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "instance": key,
+        "queries_per_thread": per_thread, "pipe_per_cell": loops[key]["pipe_per_cell"],
         "registers": usage.get(key, {}).get("REG"), "memory_peak_bytes": peak,
-        "k1_loop_ms": k1_loop_ms, "shape": f"{nq}x{lq} on {db.n} records: {shape}",
+        "k1_loop_ms": k1_loop_ms, "k1_launches": k1_launches, "k1_bound_ms": k1_bound_ms,
+        "k1_instance": k1_key,
+        "k1_registers": usage.get(k1_key, {}).get("REG"),
+        "shape": f"{nq}x{lq} on {db.n} records: {shape}",
         "main_path_kernel_s": runs[-1][0],
         "main_path_gcups": cells / runs[-1][0] / 1e9,
     }
@@ -1315,9 +1402,13 @@ def phase_multi_path(torch, chk: Checker, smi: str, db, k1_pack, nq, lq,
             for _, s, f, ns in chunks for b in blocks], 1)
         result["scores"] = scores
     print(f"{tag} {shape}: K3 {k3_ms} ms ({cells / k3_ms / 1e6} GCUPS), bound "
-          f"{bound_ms} ms by {bound_by} ({loops[key]['pipe_per_cell']} per cell, {key}, "
+          f"{bound_ms} ms by {bound_by} ({bound_ms / k3_ms} of it; "
+          f"{loops[key]['pipe_per_cell']} per cell, {key}, Q={per_thread}, "
           f"{result['registers']} registers), K1 looped "
-          f"over the {nq} queries {k1_loop_ms} ms ({cells / k1_loop_ms / 1e6} GCUPS)"
+          f"over the {nq} queries {k1_loop_ms} ms ({cells / k1_loop_ms / 1e6} GCUPS; "
+          f"bound {k1_bound_ms} ms, {k1_bound_ms / k1_loop_ms} of it, "
+          f"{loops[k1_key]['pipe_per_cell']} per cell, {k1_key}, "
+          f"{result['k1_registers']} registers)"
           + (f", K3's plain version {result['plain_ms']} ms" if check_plain else "")
           + f" | {smi}", flush=True)
     return result
@@ -2619,7 +2710,7 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--against", default=None,
-                    help="another checkout whose K1 and K3 to time in turns")
+                    help="another checkout whose K1, K2 and K3 to time in turns")
     ap.add_argument("--phases", default=None,
                     help="run phases 1-2 and only these of 3, 6 and 13 (comma-separated)")
     args = ap.parse_args(argv)
@@ -2712,6 +2803,12 @@ def main(argv=None) -> int:
         "shape": main_path["shape"],
         "main_path_kernel_s": main_path["main_path_kernel_s"],
         "main_path_gcups": main_path["main_path_gcups"],
+        # The short-query point: K1 at lq=17, once for each of phase 5's 8
+        # queries, the launches counted in the timed pass.
+        "short_query": {"lq": 17, "launches": multi8["k1_launches"],
+                        "ms": multi8["k1_loop_ms"],
+                        "bound_ms": multi8["k1_bound_ms"], "instance": multi8["k1_instance"],
+                        "registers": multi8["k1_registers"]},
         "card": smi,
     }, {
         "name": "sw_stream_multi",
@@ -2727,6 +2824,8 @@ def main(argv=None) -> int:
         "library_ms": None,
         "k1_loop_ms": multi8["k1_loop_ms"],
         "instance": multi8["instance"],
+        "queries_per_thread": multi8["queries_per_thread"],
+        "pipe_per_cell": multi8["pipe_per_cell"],
         "registers": multi8["registers"],
         "memory_peak_bytes": multi8["memory_peak_bytes"],
         "shape": multi8["shape"],
@@ -2734,7 +2833,8 @@ def main(argv=None) -> int:
         "main_path_gcups": multi8["main_path_gcups"],
         "north_star": {k: multi64[k] for k in
                        ("launches", "ms", "bound_ms", "bound_by", "k1_loop_ms",
-                        "instance", "registers", "memory_peak_bytes", "shape",
+                        "instance", "queries_per_thread", "registers",
+                        "memory_peak_bytes", "shape",
                         "main_path_kernel_s", "main_path_gcups")},
         "card": smi,
     }, {
@@ -2815,6 +2915,7 @@ def main(argv=None) -> int:
     if turns is not None:
         kernels[0]["in_turns"] = {c: v for c, v in turns.items() if c.startswith("K1")}
         kernels[1]["in_turns"] = {c: v for c, v in turns.items() if c.startswith("K3")}
+        kernels[2]["in_turns"] = {c: v for c, v in turns.items() if c.startswith("K2")}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

@@ -1,6 +1,8 @@
 // Smith-Waterman scoring for Hopper, sm_90a: K1 and K3, the one-pass team
 // kernel of sw_stream.cuh, built for every R of
-// swa_cuda.STREAM_ROWS_PER_THREAD_BUILT, and its C entry.
+// swa_cuda.STREAM_ROWS_PER_THREAD_BUILT, and its C entry. Teams of one
+// thread at the R of swa_cuda.STREAM_SOLO_ROWS launch the solo kernel
+// through its own entry (sw_stream_solo.cu).
 
 #include "sw_stream.cuh"
 
@@ -11,9 +13,8 @@ extern "C" {
 // each query are scored (0 <= rows <= lqp, at most team x
 // rows_per_thread); out (nslots, nq, win) zeroed, nslots below 2^20 (the
 // segment word); team a power of two up to 32; rows_per_thread one of the
-// R built (swa_cuda.STREAM_ROWS_PER_THREAD_BUILT), a solo instance where
-// team is 1 and one is built (swa_cuda.STREAM_SOLO_ROWS). `jb` must be the
-// JB the kernel is built for.
+// R built (swa_cuda.STREAM_ROWS_PER_THREAD_BUILT). `jb` must be the JB the
+// kernel is built for.
 int sw_stream_launch(const void* prof, const void* streams, const void* fs,
                      void* out, int lqp, int rows, int len, int win, int nw,
                      int nq, int jb, int go, int ge, int team,
@@ -25,16 +26,10 @@ int sw_stream_launch(const void* prof, const void* streams, const void* fs,
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = (cudaStream_t)stream;
-  if (team == 1) {
-    const int err = sw_stream_launch_solo(prof, streams, fs, out, lqp, rows,
-                                          len, win, nw, nq, go, ge,
-                                          rows_per_thread, s);
-    if (err != kNotSolo) return err;
-  }
-#define SW_STREAM_ROWS(R)                                                 \
-  case R:                                                                 \
-    return launch_stream<R, false>(prof, streams, fs, out, lqp, rows, len, \
-                                   win, nw, nq, team, go, ge, s);
+#define SW_STREAM_ROWS(R)                                                    \
+  case R:                                                                    \
+    return launch_stream<R>(prof, streams, fs, out, lqp, rows, len, win, nw, \
+                            nq, team, go, ge, s);
   switch (rows_per_thread) {
     SW_STREAM_ROWS(10)
     SW_STREAM_ROWS(12)

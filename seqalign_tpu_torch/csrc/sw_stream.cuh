@@ -1,10 +1,11 @@
 // Smith-Waterman scoring for Hopper, sm_90a: one query (K1) or a batch of
 // queries (K3) against segmented window streams, in one pass, a team of
 // threads per database lane with the query's rows held in registers. The
-// kernel template; sw_stream.cu builds it for every R and holds the C entry,
-// sw_stream_solo.cu builds the solo instances (below), so the two compile
-// in parallel. K2 (sw_striped.cu) runs the same team step over the row
-// stripes of a longer query; K4 and K5 are in sw_windows.cu.
+// kernel template; sw_stream.cu builds it for every R and holds the C entry.
+// Teams of one thread at the R of the solo kernel run that kernel instead
+// (sw_stream_solo.cu, sw_stream_solo_kernel<R, Q>: several queries a
+// thread). K2 (sw_striped.cu) runs the same team step over the row stripes
+// of a longer query; K4 and K5 are in sw_windows.cu.
 //
 // Replaces the TPU kernel seqalign_tpu/ops/swa_pallas.py:_kernel_stream +
 // _run_block, called through sw_pallas_stream with a 2-D profile (K1) or a
@@ -27,25 +28,18 @@
 // chars and fs at a time, one step per thread. The query is the grid's z
 // axis: a CTA holds one query's profile
 // and its lanes' bests go to that query's column of out (nslots, nq, win),
-// each slot written once, by the team's last thread with rows.
+// each slot written once, by the team's last thread with rows. The name's
+// kSolo is false in every instance (the solo kernel took its place).
 //
 // Shared memory. The query's P' as sw_team.cuh lays it out, replicated for
 // the 32 / T teams of a warp: column j holds thread j % T's rows, so the
 // bank is the thread and teams that gather different chars have no
-// conflicts. 4 KiB x R per CTA. Teams of one thread read the same row at
-// each step, so for them P' stays row-major, 128 B x R: more CTAs fit an
-// SM.
+// conflicts. 4 KiB x R per CTA. Teams of one thread (at an R the solo
+// kernel is not built for) read the same row at each step, so for them P'
+// stays row-major, 128 B x R: more CTAs fit an SM.
 //
 // Latency. Each team loads the chars and fs of its next T steps before it
 // runs the current T, so the loads complete under a block of steps.
-//
-// Teams of one thread (solo instances, for queries of up to 24 rows, K1 at
-// lq=17 and K3 at 8 x 17): with one thread a lane the card holds few
-// threads, so each step's own work counts. The solo instances take no
-// shuffles (thread 0 is the team) and load kSoloWords steps a block, so the
-// loop over blocks runs a quarter as often. Four words a thread at teams of
-// 16 and 32 cost up to 15% on an H100 (PERF.md), so the other instances
-// load one.
 //
 // What bounds it on this card. No DP state goes through device memory (the
 // stream body K1 and K3 ran before kept the lane's rolling (Gg, E) rows
@@ -59,9 +53,6 @@
 #include "sw_team.cuh"
 
 namespace {
-
-constexpr int kSoloWords = 4;  // steps a solo thread loads at a time
-constexpr int kNotSolo = -1;   // sw_stream_launch_solo: no such instance
 
 // Threads per CTA at R rows a thread: as many as the registers (about
 // 2 R + 40 a thread) allow without spills at one CTA per SM, whose shared
@@ -92,22 +83,10 @@ __device__ __forceinline__ int step_word(const int8_t* __restrict__ streams,
          (slot << kSlotShift);
 }
 
-// A step's input: receive's, or for a solo thread (thread 0 of its team)
-// the boundary row and its own word.
-template <int R, bool kSolo>
-__device__ __forceinline__ Input take(const Team<R>& st, const Pass& ps,
-                                      int t, const Block& b, int team) {
-  if constexpr (kSolo) {
-    return Input{ps.go, 0, ps.go, 0, b.word, 0};
-  } else {
-    return receive<false, R, 0>(st, ps, t, b, team);
-  }
-}
-
 // K1 and K3: nq queries of lqp rows each, `rows` of them scored, one pass;
-// grid (lane groups of team_threads<R>() / team, nw, nq). kSolo: team is 1.
-// The 1 lets ptxas use up to 65536 / threads registers a thread (it held
-// R = 20 to 64 and spilled).
+// grid (lane groups of team_threads<R>() / team, nw, nq). kSolo is false
+// (above). The 1 lets ptxas use up to 65536 / threads registers a thread (it
+// held R = 20 to 64 and spilled).
 template <int R, bool kSolo>
 __global__ void __launch_bounds__(team_threads<R>(), 1) sw_stream_kernel(
     const int32_t* __restrict__ prof,    // (nq, lqp, 32) biased profiles
@@ -116,6 +95,7 @@ __global__ void __launch_bounds__(team_threads<R>(), 1) sw_stream_kernel(
     int32_t* __restrict__ out,           // (nslots, nq, win) bests, zeroed
     int lqp, int rows, int len, int win, int nw, int team, int go, int ge,
     int one) {
+  static_assert(!kSolo, "teams of one thread run sw_stream_solo_kernel");
   const int q = blockIdx.z;
   const int nq = gridDim.z;
   // [c][r][j] = P'[(j % team) R + r][c]; for teams of one thread [r][c].
@@ -133,9 +113,8 @@ __global__ void __launch_bounds__(team_threads<R>(), 1) sw_stream_kernel(
   }
   __syncthreads();
 
-  constexpr int kW = kSolo ? kSoloWords : 1;
   const int j = threadIdx.x % kWarp;
-  const int k = kSolo ? 0 : j & (team - 1);
+  const int k = j & (team - 1);
   const int lane = (blockIdx.x * blockDim.x + threadIdx.x) / team;
   const bool live = lane < win;
   // The teams of a warp run together (full-warp shuffles and votes): a
@@ -162,43 +141,29 @@ __global__ void __launch_bounds__(team_threads<R>(), 1) sw_stream_kernel(
   st.diag = go;
   st.best = 0;
   const int nsteps = len / 2 + rows_last;
-  // Thread k's words of the block: steps s0 + u team + k, u < kW.
-  int words[kW];
-#pragma unroll
-  for (int u = 0; u < kW; ++u) {
-    words[u] =
-        step_word(streams, fsw, col, fs_step, 2 * (u * team + k), len, win);
-  }
-  for (int s0 = 0; s0 < nsteps; s0 += team * kW) {
-    int nx[kW];
-#pragma unroll
-    for (int u = 0; u < kW; ++u) {
-      nx[u] = step_word(streams, fsw, col, fs_step,
-                        2 * (s0 + (kW + u) * team + k), len, win);
-    }
-#pragma unroll
-    for (int u = 0; u < kW; ++u) {
-      const int s1 = s0 + u * team;
-      if (s1 >= nsteps) break;
-      const Block b{words[u], go, 0, go, 0};
-      // The steps at which no thread of the warp starts a segment run the
-      // hot loop; a step that starts one leaves it to reset, as a cold step.
-      int t = 0;
-      while (true) {
+  // Thread k's step of the block: s0 + k; the next block's is loaded a
+  // block ahead.
+  int word = step_word(streams, fsw, col, fs_step, 2 * k, len, win);
+  for (int s0 = 0; s0 < nsteps; s0 += team) {
+    const int next =
+        step_word(streams, fsw, col, fs_step, 2 * (s0 + team + k), len, win);
+    const Block b{word, go, 0, go, 0};
+    // The steps at which no thread of the warp starts a segment run the
+    // hot loop; a step that starts one leaves it to reset, as a cold step.
+    int t = 0;
+    while (true) {
 #pragma unroll 1
-        for (; t < team; ++t) {
-          const Input in = take<R, kSolo>(st, ps, t, b, team);
-          if (__any_sync(kFull, in.word & kFreshBit)) break;
-          team_step<R, false, false, false, 0>(st, in, ps, 2 * (s1 + t - k));
-        }
-        if (t == team) break;
-        team_step<R, false, false, true, 0>(
-            st, take<R, kSolo>(st, ps, t, b, team), ps, 2 * (s1 + t - k));
-        ++t;
+      for (; t < team; ++t) {
+        const Input in = receive<false, R, 0>(st, ps, t, b, team);
+        if (__any_sync(kFull, in.word & kFreshBit)) break;
+        team_step<R, false, false, false, 0>(st, in, ps, 2 * (s0 + t - k));
       }
+      if (t == team) break;
+      team_step<R, false, false, true, 0>(
+          st, receive<false, R, 0>(st, ps, t, b, team), ps, 2 * (s0 + t - k));
+      ++t;
     }
-#pragma unroll
-    for (int u = 0; u < kW; ++u) words[u] = nx[u];
+    word = next;
   }
   if (k == last) {
     const int slot = fsw[(size_t)(len / JB - 1) * fs_step + 1];
@@ -206,7 +171,7 @@ __global__ void __launch_bounds__(team_threads<R>(), 1) sw_stream_kernel(
   }
 }
 
-template <int R, bool kSolo>
+template <int R>
 int launch_stream(const void* prof, const void* streams, const void* fs,
                   void* out, int lqp, int rows, int len, int win, int nw,
                   int nq, int team, int go, int ge, cudaStream_t stream) {
@@ -214,8 +179,8 @@ int launch_stream(const void* prof, const void* streams, const void* fs,
   const size_t smem = profile_bytes(R, team);
   // Above 48 KB a block's dynamic shared memory must be opted into.
   cudaError_t err = cudaFuncSetAttribute(
-      sw_stream_kernel<R, kSolo>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      sw_stream_kernel<R, false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return (int)err;
   // No more threads than the window's lanes need: a CTA's registers and
   // shared memory stay held until its last warp ends.
@@ -223,17 +188,10 @@ int launch_stream(const void* prof, const void* streams, const void* fs,
   const int threads = need < kThreads ? need : kThreads;
   const int lanes = threads / team;  // lanes per CTA
   const dim3 grid((win + lanes - 1) / lanes, nw, nq);
-  sw_stream_kernel<R, kSolo><<<grid, threads, smem, stream>>>(
+  sw_stream_kernel<R, false><<<grid, threads, smem, stream>>>(
       (const int32_t*)prof, (const int8_t*)streams, (const int32_t*)fs,
       (int32_t*)out, lqp, rows, len, win, nw, team, go, ge, 1);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
-
-// Launch the solo instance of R = rows_per_thread (sw_stream_solo.cu), as
-// sw_stream_launch does; kNotSolo where none is built.
-int sw_stream_launch_solo(const void* prof, const void* streams, const void* fs,
-                          void* out, int lqp, int rows, int len, int win,
-                          int nw, int nq, int go, int ge, int rows_per_thread,
-                          cudaStream_t stream);

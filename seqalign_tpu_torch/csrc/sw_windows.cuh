@@ -68,6 +68,7 @@
 namespace {
 
 constexpr int kStar = kAlpha - 1;  // '*' (PAD_INDEX)
+constexpr int kSoloWords = 4;      // steps a solo thread loads at a time
 constexpr int kEndLoads = 8;       // loads in flight a thread, warp_end
 
 // The word of positions j0 and j0 + 1 of a lane whose column starts at col;
@@ -80,6 +81,18 @@ __device__ __forceinline__ int window_word(const int8_t* __restrict__ col,
   const int c0 = (int)(uint8_t)c[0] & (kAlpha - 1);
   const int c1 = (int)(uint8_t)c[win] & (kAlpha - 1);
   return c0 | (j0 == 0 ? kFreshBit : 0) | (c1 << kChar1Shift);
+}
+
+// A step's input: receive's, or for a solo thread (thread 0 of its team)
+// the boundary row and its own word.
+template <int R, bool kSolo>
+__device__ __forceinline__ Input take(const Team<R>& st, const Pass& ps,
+                                      int t, const Block& b, int team) {
+  if constexpr (kSolo) {
+    return Input{ps.go, 0, ps.go, 0, b.word, 0};
+  } else {
+    return receive<false, R, 0>(st, ps, t, b, team);
+  }
 }
 
 // 1 + the last position below len at which one of the warp's lanes

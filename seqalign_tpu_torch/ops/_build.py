@@ -107,6 +107,10 @@ def load() -> ctypes.CDLL:
         lib.sw_stream_launch.argtypes = (
             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
         )
+        lib.sw_stream_solo_launch.restype = ctypes.c_int
+        lib.sw_stream_solo_launch.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+        )
         lib.sw_stream_striped_launch.restype = ctypes.c_int
         lib.sw_stream_striped_launch.argtypes = (
             [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]

@@ -60,7 +60,9 @@ profile and an ``(Lb, B)`` batch), :func:`sw_window` its one-window form
 On a CUDA tensor each wrapper launches its kernel or raises: K1 and K3 the
 one-pass kernel of ``csrc/sw_stream.cuh`` (a team of T threads per lane, the
 query's rows in registers, no rolling-row scratch; :func:`stream_team`
-picks T and R), K2 ``csrc/sw_striped.cu`` (the same team step, a warp per
+picks T and R), or at one thread a lane its solo kernel
+``csrc/sw_stream_solo.cu`` (Q queries a thread; :func:`stream_solo_queries`
+picks Q), K2 ``csrc/sw_striped.cu`` (the same team step, a warp per
 lane, over row stripes, and its block instance), K4 and K5
 ``csrc/sw_windows.cuh`` (K1's team design over fixed windows, each warp
 stopping after its own lanes' last residue where that is exact;
@@ -91,11 +93,23 @@ MAX_QUERY_ROWS = 1536
 # a team of T threads, T one of STREAM_TEAMS, thread k holding R rows of the
 # query in registers; it is built for each R of STREAM_ROWS_PER_THREAD_BUILT
 # (T is a launch argument), and a launch runs stream_team's (T, R). Teams of
-# one thread at the R of STREAM_SOLO_ROWS run a solo instance (no shuffles,
-# four steps of chars loaded at a time; csrc/sw_stream_solo.cu).
+# one thread at the R of STREAM_SOLO_ROWS run the solo kernel instead
+# (csrc/sw_stream_solo.cu, sw_stream_solo_kernel<R, Q>): one thread a lane
+# scores Q queries of the launch, Q one of STREAM_SOLO_QUERIES[R]
+# (stream_solo_queries picks it).
 STREAM_TEAMS = (1, 2, 4, 8, 16, 32)
 STREAM_ROWS_PER_THREAD_BUILT = (10, 12, 16, 18, 20, 24, 28, 32, 36, 40, 44, 48)
 STREAM_SOLO_ROWS = (10, 12, 16, 18, 20, 24)
+# The Q that ran K3 fastest at each solo R, over 8 and 64 queries of R rows
+# (the R of lq 10, 12, 16, 17, 20 and 24) at Swiss-Prot scale on an H100
+# (PERF.md; `swissprot --nq 8|64 --lq 10,12,16,17,20,24`, which timed Q =
+# 1, 2 and 4 at every R): the instances' registers set how many warps an SM
+# holds, so it is not monotonic in Q. Built are that Q and the smaller ones
+# (for fewer queries); a new sweep needs the others added back here and in
+# sw_stream_solo.cu's SW_SOLO_INSTANCES.
+STREAM_SOLO_BEST_QUERIES = {10: 4, 12: 2, 16: 1, 18: 4, 20: 4, 24: 1}
+STREAM_SOLO_QUERIES = {r: tuple(q for q in (1, 2, 4) if q <= best)
+                       for r, best in STREAM_SOLO_BEST_QUERIES.items()}
 
 # The striped kernel (K2, csrc/sw_striped.cu) scores a lane with one warp
 # of STRIPE_TEAM threads, thread k holding R rows of the pass in registers;
@@ -282,32 +296,59 @@ def windows_kernel_instance(rows: int, lanes: int, const_s: bool = False,
     return f"sw_windows_kernel<{r}, {flag[solo]}, {flag[bool(const_s)]}>"
 
 
-def stream_kernel_instance(rows: int, team: tuple[int, int] | None = None) -> str:
-    """The template instance of ``csrc/sw_stream.cuh`` that a K1 or K3
-    launch over ``rows`` query rows runs (``team`` or :func:`stream_team`'s
-    choice), keyed as ``sass.kernel_key`` keys it: ``sw_stream_kernel<R,
-    kSolo>``, kSolo for a team of one thread at an R of
-    ``STREAM_SOLO_ROWS``."""
+def stream_solo_queries(rows: int, nq: int) -> int:
+    """Q, the queries a thread scores, of a K1 or K3 launch of ``nq``
+    queries over ``rows`` rows where :func:`stream_team` picks a solo
+    ``(1, R)`` (``R`` in ``STREAM_SOLO_ROWS``): the Q that ran fastest at
+    that R (``STREAM_SOLO_BEST_QUERIES``, from the sweep of Q in {1, 2, 4}
+    over every solo R at 8 and 64 queries, PERF.md call 6), but no more than
+    ``nq``: the largest Q built at most ``nq`` (1 for one query)."""
+    team = stream_team(rows)
+    if not _solo(team):
+        raise ValueError(f"{rows} rows run {team}, not a team of one thread")
+    return max(q for q in STREAM_SOLO_QUERIES[team[1]] if q <= max(nq, 1))
+
+
+def _solo(team: tuple[int, int]) -> bool:
+    return team[0] == 1 and team[1] in STREAM_SOLO_ROWS
+
+
+def stream_kernel_instance(rows: int, team: tuple[int, int] | None = None,
+                           nq: int = 1, queries: int | None = None) -> str:
+    """The kernel instance a K1 or K3 launch of ``nq`` queries over ``rows``
+    query rows runs (``team`` or :func:`stream_team`'s (T, R); ``queries``
+    or :func:`stream_solo_queries`'s Q), keyed as ``sass.kernel_key`` keys
+    it: ``sw_stream_solo_kernel<R, Q>`` for a team of one thread at an R of
+    ``STREAM_SOLO_ROWS``, else ``sw_stream_kernel<R, false>``."""
     t, r = team or stream_team(rows)
-    solo = t == 1 and r in STREAM_SOLO_ROWS
-    return f"sw_stream_kernel<{r}, {'true' if solo else 'false'}>"
+    if _solo((t, r)):
+        q = queries or stream_solo_queries(t * r, nq)
+        return f"sw_stream_solo_kernel<{r}, {q}>"
+    return f"sw_stream_kernel<{r}, false>"
 
 
-def _stream_rows(profile_biased, rows, team) -> int:
+def _stream_rows(profile_biased, rows, team, queries=None) -> int:
     """The rows a K1 or K3 launch scores (``rows``, or all ``lqp``),
-    checked with the forced ``team``."""
+    checked with the forced ``team`` and ``queries``."""
     lqp = profile_biased.shape[-2]
     rows = lqp if rows is None else rows
     if not 0 <= rows <= lqp:
         raise ValueError(f"rows={rows} outside the profile's [0, {lqp}] rows")
-    if team is None:
-        return rows
-    t, r = team
-    if t not in STREAM_TEAMS or r not in STREAM_ROWS_PER_THREAD_BUILT or t * r < rows:
-        raise ValueError(
-            f"team={team}: K1/K3 run teams of {STREAM_TEAMS} threads of "
-            f"{STREAM_ROWS_PER_THREAD_BUILT} rows, and a team must hold {rows} rows"
-        )
+    if team is not None:
+        t, r = team
+        if t not in STREAM_TEAMS or r not in STREAM_ROWS_PER_THREAD_BUILT or t * r < rows:
+            raise ValueError(
+                f"team={team}: K1/K3 run teams of {STREAM_TEAMS} threads of "
+                f"{STREAM_ROWS_PER_THREAD_BUILT} rows, and a team must hold {rows} rows"
+            )
+    if queries is not None:
+        t, r = team or stream_team(rows)
+        if not _solo((t, r)) or queries not in STREAM_SOLO_QUERIES[r]:
+            raise ValueError(
+                f"queries={queries}: a thread scores several queries only in a "
+                f"team of one thread at R in {STREAM_SOLO_ROWS} (here (T, R) = "
+                f"{(t, r)}), Q one of STREAM_SOLO_QUERIES[R]"
+            )
     return rows
 
 
@@ -402,6 +443,7 @@ def sw_stream_multi(
     jb: int,
     team: tuple[int, int] | None = None,
     rows: int | None = None,
+    queries: int | None = None,
 ) -> torch.Tensor:
     """Score ``nq`` queries against the same segmented window streams in one
     launch (K3).
@@ -412,18 +454,24 @@ def sw_stream_multi(
         ``ROW_ALIGN`` and at most ``MAX_QUERY_ROWS``.
       streams, fs, go, ge, nslots, jb, team: as :func:`sw_stream`.
       rows: as :func:`sw_stream`, for every query.
+      queries: Q, the queries one thread scores, where the launch's (T, R)
+        is solo (a team of one thread at an R of ``STREAM_SOLO_ROWS``), one
+        of ``STREAM_SOLO_QUERIES[R]``; None for
+        :func:`stream_solo_queries`'s. For checks and timing, as ``team``;
+        refused elsewhere. The plain version has no Q.
 
     Returns:
       ``(nslots, nq, win)`` int32 per-segment best scores of each query.
     """
     _check(profile_biased, streams, fs, go, ge, nslots, jb, multi=True)
     _check_slots(nslots, "K3")
-    rows = _stream_rows(profile_biased, rows, team)
+    rows = _stream_rows(profile_biased, rows, team, queries)
     if streams.device.type == "cpu":
         return sw_stream_multi_reference(
             profile_biased, streams, fs, go, ge, nslots=nslots, jb=jb
         )
-    out = _launch_stream(profile_biased, streams, fs, go, ge, nslots, jb, team, rows)
+    out = _launch_stream(profile_biased, streams, fs, go, ge, nslots, jb, team, rows,
+                         queries)
     sw_stream_multi.launches += 1
     return out
 
@@ -607,18 +655,22 @@ def _cuda_out(prof, streams, nslots, jb) -> tuple[torch.Tensor, tuple]:
     return out, (prof.shape[-2], length, win, nw)
 
 
-def _launch_stream(prof, streams, fs, go, ge, nslots, jb, team, rows) -> torch.Tensor:
+def _launch_stream(prof, streams, fs, go, ge, nslots, jb, team, rows,
+                   queries=None) -> torch.Tensor:
     """Launch the one-pass kernel (K1 for a 2-D profile, K3 for a 3-D one)
-    over ``rows`` rows at ``team`` or :func:`stream_team`'s (T, R); no
-    scratch."""
+    over ``rows`` rows at ``team`` or :func:`stream_team`'s (T, R): the solo
+    kernel at ``queries`` or :func:`stream_solo_queries`'s Q where (T, R)
+    is solo, else the team kernel; no scratch."""
     out, (lqp, *dims) = _cuda_out(prof, streams, nslots, jb)
     t, r = team or stream_team(rows)
     nq = prof.shape[0] if prof.ndim == 3 else 1
-    _call(
-        "sw_stream", streams.device, prof.data_ptr(), streams.data_ptr(),
-        fs.data_ptr(), out.data_ptr(), lqp, rows, *dims, nq, jb, int(go), int(ge),
-        t, r,
-    )
+    args = (prof.data_ptr(), streams.data_ptr(), fs.data_ptr(), out.data_ptr(), lqp,
+            rows, *dims, nq, jb, int(go), int(ge))
+    if _solo((t, r)):
+        _call("sw_stream_solo", streams.device, *args, r,
+              queries or stream_solo_queries(t * r, nq))
+    else:
+        _call("sw_stream", streams.device, *args, t, r)
     return out
 
 

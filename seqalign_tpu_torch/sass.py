@@ -6,7 +6,9 @@ builds ``csrc/*.cu`` as ``ops/_build.py`` does and prints, for each kernel
 function: the registers and spills ptxas reports (``-Xptxas -v``), its
 number of SASS instructions (``cuobjdump -sass``), and its innermost DP
 loop (every kernel's step loop, R rows at two positions: K1 and K3's
-``sw_stream_kernel<R>``, K2's ``sw_stream_striped_kernel`` and its block
+``sw_stream_kernel<R>`` and, at one thread a lane, ``sw_stream_solo_kernel<R,
+Q>`` (Q queries a step, two steps an iteration at Q = 1), K2's
+``sw_stream_striped_kernel`` and its block
 instance ``sw_striped_block_kernel``, K4 and K5's ``sw_windows_kernel``):
 the instructions of the loop body, the DP cells one iteration computes
 (one ``LDS``, the profile gather ``P'[i][c]``, each; a loop without a
@@ -18,8 +20,9 @@ pipe's. The team kernels' shuffles (``SHFL``) are not ALU work: the probe runs t
 beside ``VIADDMNMX`` at twice the rate of either, and beside ``LDS`` at
 the rate of one, so they take the shared-memory path with ``LDS``. A template kernel's instances
 are keyed apart by their arguments (``sw_windows_kernel<36, false, true>``,
-``sw_stream_kernel<36, false>``, ``sw_stream_striped_kernel<16, true, true,
-false>``). With ``--against DIR`` it builds
+``sw_stream_kernel<36, false>``, ``sw_stream_solo_kernel<18, 2>``,
+``sw_stream_striped_kernel<16, true, true, false>``). With ``--against DIR``
+it builds
 ``DIR/seqalign_tpu_torch/csrc/*.cu`` (another checkout, for example the
 parent commit) the same way and says, kernel by kernel, whether both builds
 compiled to the same SASS, instruction for instruction.
@@ -39,19 +42,27 @@ from pathlib import Path
 
 from .ops import _build
 
-KERNELS = ("sw_stream_kernel", "sw_stream_striped_kernel", "sw_striped_block_kernel",
-           "sw_windows_kernel")
+KERNELS = ("sw_stream_kernel", "sw_stream_solo_kernel", "sw_stream_striped_kernel",
+           "sw_striped_block_kernel", "sw_windows_kernel")
 # Positions one step of a team kernel (csrc/sw_team.cuh) covers, R rows
 # each. Where the step loop gathers the profile it holds one LDS per cell,
 # and the count of LDS must equal 2 R (expected_cells).
 STRIPED_POSITIONS_PER_STEP = 2
 # The team kernels, whose first template argument is R: every kernel.
-TEAM_KERNELS = ("sw_stream_kernel<", "sw_stream_striped_kernel<", "sw_striped_block_kernel<",
-                "sw_windows_kernel<")
+TEAM_KERNELS = ("sw_stream_kernel<", "sw_stream_solo_kernel<", "sw_stream_striped_kernel<",
+                "sw_striped_block_kernel<", "sw_windows_kernel<")
 # Steps one iteration of a solo instance of the fixed-batch kernel
 # (sw_windows_kernel<R, true, ...>) runs: the kSoloWords steps of its
 # block, unrolled (csrc/sw_windows.cuh).
 SOLO_WINDOWS_STEPS = 4
+
+
+def solo_stream_steps(queries: int) -> int:
+    """Steps one iteration of the hot loop of K1 and K3's solo kernel
+    (``sw_stream_solo_kernel<R, Q>``) runs: ``solo_steps<Q>()`` of
+    csrc/sw_stream_solo.cu, two (four positions) at Q = 1, else one."""
+    return 2 if queries == 1 else 1
+
 # Opcodes that are not integer ALU work: memory (SHFL shares LDS's path),
 # control, conversion.
 _NOT_ALU = ("LD", "ST", "SHFL", "BRA", "BAR", "NOP", "EXIT", "RET", "CALL",
@@ -85,12 +96,18 @@ def expected_cells(key: str) -> int:
     """The cells one iteration of a team kernel's step loop computes (K1,
     K3, K2, K4, K5): ``STRIPED_POSITIONS_PER_STEP`` x R, the first template
     argument, a step; ``SOLO_WINDOWS_STEPS`` steps for a solo instance of
-    the fixed-batch kernel. Where the loop gathers the profile, its
-    ``LDS``. Raises for a key without R."""
-    m = re.match(r"[^<]*<(\d+)(, true)?", key)
+    the fixed-batch kernel; Q queries a step, the second argument, for the
+    solo kernel of K1 and K3 (``sw_stream_solo_kernel<R, Q>``: 2 Q R a
+    step, :func:`solo_stream_steps` steps an iteration, so 4 R at Q = 1).
+    Where the loop gathers the profile, its ``LDS``. Raises for a key
+    without R."""
+    m = re.match(r"[^<]*<(\d+)(?:, (true|\d+))?", key)
     if not key.startswith(TEAM_KERNELS) or not m:
         raise ValueError(f"{key!r} names no team kernel instance")
     steps = SOLO_WINDOWS_STEPS if key.startswith("sw_windows_kernel<") and m.group(2) else 1
+    if key.startswith("sw_stream_solo_kernel<"):
+        q = int(m.group(2))  # queries a step
+        steps = q * solo_stream_steps(q)
     return STRIPED_POSITIONS_PER_STEP * int(m.group(1)) * steps
 
 

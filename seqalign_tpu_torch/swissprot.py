@@ -34,7 +34,11 @@ bench.py's multi-query point): the pack, the host-to-device copy, the
 multi-query kernel (CUDA events, every launch of the batch), the fetch and
 scatter, the whole ``search_database_multi`` call and the device's busy
 share; beside them, the single-query kernel looped over the N queries on
-the same streams.
+the same streams. Where the length runs a team of one thread (up to 24
+rows: the solo kernel), K3 is also timed at each Q built (queries a
+thread, ``queries=``), in turns: the sweep ``swa_cuda.
+stream_solo_queries``' rule rests on (``--lq 10,12,16,17,20,24`` covers
+every solo R), once every Q in {1, 2, 4} is built again at each R.
 
 With ``--fixed`` it times the fixed-batch kernel (K4) and its constant-S
 mode (K5) instead: the database, length-sorted, cut into the lane batches
@@ -461,7 +465,10 @@ def multi_breakdown(db, nq: int, lq: int, say) -> dict:
     time, and the single-query kernel looped over the same queries."""
     from . import pipeline
     from .convert import profile_to_torch, stream_pack_to_torch
-    from .ops.swa_cuda import STREAM_JB, sw_stream, sw_stream_multi
+    from .ops.swa_cuda import (
+        STREAM_JB, STREAM_SOLO_QUERIES, STREAM_SOLO_ROWS, stream_kernel_instance,
+        stream_team, sw_stream, sw_stream_multi,
+    )
     from .ops.swa_torch import make_profile
 
     dev = torch.device("cuda")
@@ -512,7 +519,22 @@ def multi_breakdown(db, nq: int, lq: int, say) -> dict:
     say(f"{tag} {shape}")
     for k, v in steps.items():
         say(f"{tag} [steps] {k}: {v} s")
-    say(f"{tag} K3 {steps['kernel'] * 1e3} ms = {cells / steps['kernel'] / 1e9} GCUPS")
+    nqb = blocks[0].shape[0]
+    say(f"{tag} K3 {steps['kernel'] * 1e3} ms = {cells / steps['kernel'] / 1e9} GCUPS "
+        f"({stream_kernel_instance(lq, nq=nqb)})")
+    team = stream_team(lq)
+    queries_ms = {}
+    if team[0] == 1 and team[1] in STREAM_SOLO_ROWS:
+        # In turns: each Q once up the list and once down it, the faster kept.
+        qs = STREAM_SOLO_QUERIES[team[1]]
+        for q in (*qs, *qs[::-1]):
+            ms = cuda_ms(lambda: [sw_stream_multi(b, s, f, go, ge, nslots=ns, rows=lq,
+                                                  queries=q, **kw)
+                                  for _, s, f, ns in chunks for b in blocks], 3)
+            queries_ms[q] = min(queries_ms.get(q, ms), ms)
+        say(f"{tag} K3 at each Q (queries a thread) at (T, R) = {team}: "
+            + ", ".join(f"Q={q} {stream_kernel_instance(lq, nq=nqb, queries=q)} "
+                        f"{ms} ms" for q, ms in queries_ms.items()))
 
     walls = []
     for _ in range(3):
@@ -534,7 +556,8 @@ def multi_breakdown(db, nq: int, lq: int, say) -> dict:
     say(f"{tag} K1 x {nq}: {k1_ms} ms = {cells / k1_ms / 1e6} GCUPS")
     return {"nq": nq, "lq": lq, "shape": shape, "steps_s": steps, "search": walls,
             "profile": {"wall_s": wall, "device_ms": busy_ms, "top_ms": top},
-            "k3_ms": steps["kernel"] * 1e3, "k1_loop_ms": k1_ms}
+            "k3_ms": steps["kernel"] * 1e3, "k3_instance": stream_kernel_instance(lq, nq=nqb),
+            "k3_queries_ms": queries_ms, "k1_loop_ms": k1_ms}
 
 
 def main(argv=None) -> int:

@@ -3,7 +3,7 @@ checkout's, in turns, on one card; or, with ``--longpair``, its
 sequence-parallel long pair; or, with ``--fixed``, its fixed-batch kernel.
 
     python -m seqalign_tpu_torch.turns --against DIR [--longpair | --fixed] [--reps N]
-        [--out FILE.json]
+        [--cells NAME,...] [--out FILE.json]
 
 ``DIR`` is the root of another checkout of the repo (for example the parent
 commit, unpacked with ``git archive`` into ``build/parent``). A worker
@@ -12,10 +12,12 @@ imports ``seqalign_tpu_torch`` from its own checkout, builds that
 checkout's kernels and, on the Swiss-Prot-scale database
 (``swissprot.swissprot_db``, PAM250, gaps -2/-1), runs one search of each
 cell of ``CELLS`` through that checkout's pipeline: K1 at lq=17, 144, 512
-and 1536 (``search_database``), K3 at 8 x 17 and 64 x 144
-(``search_database_multi``). It records the kernel launches the search makes
-(the arguments the pipeline passes to ``sw_stream`` or ``sw_stream_multi``)
-and replays them ``--reps`` times under CUDA events: the kernels' time as
+and 1536 and K2 at lq=2000 (``search_database``), K3 at 8 x 17, 64 x 17
+and 64 x 144 (``search_database_multi``); ``--cells`` keeps only the cells
+named (``"K1 1x17,K3 8x17"``). It records the kernel launches the search
+makes (the arguments the pipeline passes to ``sw_stream``,
+``sw_stream_striped`` or ``sw_stream_multi``) and replays them ``--reps``
+times under CUDA events: the kernels' time as
 each checkout's pipeline launches them, with its own windows, query blocks
 and kernel instances; and the search's device-memory peak above what was
 held before it. With ``--longpair`` it runs the long pair's cells instead
@@ -53,8 +55,11 @@ from pathlib import Path
 # None: swissprot_db's own), the multi-query cells as chip_smoke draws them.
 CELLS = (
     ("K1", 1, 17, 17), ("K1", 1, 144, None), ("K1", 1, 512, 512),
-    ("K1", 1, 1536, 1536), ("K3", 8, 17, 100), ("K3", 64, 144, 200),
+    ("K1", 1, 1536, 1536), ("K2", 1, 2000, 2000), ("K3", 8, 17, 100),
+    ("K3", 64, 17, 300), ("K3", 64, 144, 200),
 )
+# The pipeline's name of each kernel's wrapper: the launches a cell replays.
+WRAPPERS = {"K1": "sw_stream", "K2": "sw_stream_striped", "K3": "sw_stream_multi"}
 LONGPAIR_INPUTS = Path("build/turns/longpair.npz")
 
 
@@ -188,8 +193,9 @@ def _fixed_worker(root: str, reps: int) -> dict:
     return out
 
 
-def _worker(root: str, reps: int) -> dict:
-    """One checkout's cells; imports its package from ``root``."""
+def _worker(root: str, reps: int, cells: list[str] | None = None) -> dict:
+    """One checkout's cells (those named in ``cells``, or all); imports its
+    package from ``root``."""
     sys.path[0] = root
     import hashlib
 
@@ -213,7 +219,9 @@ def _worker(root: str, reps: int) -> dict:
     sc = pam250()
     out = {"root": root, "card": card(), "cells": {}}
     for kernel, nq, lq, seed in CELLS:
-        name = "sw_stream_multi" if kernel == "K3" else "sw_stream"
+        if cells is not None and f"{kernel} {nq}x{lq}" not in cells:
+            continue
+        name = WRAPPERS[kernel]
         fn = getattr(pipeline, name)
         launches = []
 
@@ -245,13 +253,14 @@ def _worker(root: str, reps: int) -> dict:
 
 
 def run(other: Path, reps: int = 3, say=print, longpair: bool = False,
-        fixed: bool = False) -> dict:
+        fixed: bool = False, cells: str | None = None) -> dict:
     """The four turns (other, this, this, other) and, per cell, each run's
     fastest replay (call, for the long pair; pass over the batches, for the
     fixed-batch kernel), both checkouts' launches and other / this."""
     this = Path(__file__).resolve().parents[1]
     extra = ["--longpair", "--inputs", str(_longpair_inputs(this))] if longpair else []
     extra += ["--fixed"] if fixed else []
+    extra += ["--cells", cells] if cells else []
     runs = []
     for root in (other, this, this, other):
         proc = subprocess.run(
@@ -300,6 +309,8 @@ def main(argv=None) -> int:
     ap.add_argument("--fixed", action="store_true",
                     help="time K4 and K5 over the fixed lane batches instead")
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--cells", default=None,
+                    help="only these cells of CELLS, comma-separated (\"K1 1x17,K3 8x17\")")
     ap.add_argument("--out", default=None)
     ap.add_argument("--worker", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--inputs", default=None, help=argparse.SUPPRESS)
@@ -310,12 +321,13 @@ def main(argv=None) -> int:
         elif args.fixed:
             print(json.dumps(_fixed_worker(args.worker, args.reps)))
         else:
-            print(json.dumps(_worker(args.worker, args.reps)))
+            cells = args.cells.split(",") if args.cells else None
+            print(json.dumps(_worker(args.worker, args.reps, cells)))
         return 0
     if not args.against:
         ap.error("--against DIR is required")
     result = run(Path(args.against).resolve(), args.reps,
-                 lambda msg: print(msg, flush=True), args.longpair, args.fixed)
+                 lambda msg: print(msg, flush=True), args.longpair, args.fixed, args.cells)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(result, indent=1))

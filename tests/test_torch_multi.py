@@ -38,13 +38,25 @@ STREAM_CASES = {
     "tail_segment": ("BLOSUM62", (8, 5), None, 0, 0, 1, JB, True),
     "empty_window": ("PAM250", (7, 4), 200, 1, 12, 3, 8, False),
     "empty_query": ("random", (6, 0, 9), 400, 1, 12, 2, 8, False),
+    # Queries of unequal lengths up to 24 rows, one empty: on the card one
+    # thread a lane scores Q of them (the solo kernel), and 3, 5 and 9 leave
+    # the last z slice of Q = 2 or 4 partial.
+    "unequal_nq3_BLOSUM62": ("BLOSUM62", (24, 0, 13), 700, 1, 14, 2, 8, False),
+    "unequal_nq3_PAM250": ("PAM250", (7, 24, 0), 700, 1, 14, 2, 8, False),
+    "unequal_nq5_BLOSUM62": ("BLOSUM62", (17, 9, 0, 24, 5), 700, 1, 14, 2, 8, False),
+    "unequal_nq5_PAM250": ("PAM250", (0, 22, 17, 3, 12), 700, 1, 14, 2, 8, False),
+    "unequal_nq9_BLOSUM62": ("BLOSUM62", (24, 3, 0, 17, 11, 20, 6, 24, 1), 700, 1, 14, 2, 8,
+                             False),
+    "unequal_nq9_PAM250": ("PAM250", (9, 17, 24, 2, 13, 0, 21, 5, 17), 700, 1, 14, 2, 8, False),
 }
 
 
 @pytest.mark.parametrize("case", sorted(STREAM_CASES))
 def test_multi_reference_matches_pallas_stream(case):
     """K3's plain version against ``sw_pallas_stream`` with a 3-D profile
-    (interpret mode), slot by slot, on the same ``pack_streams`` output."""
+    (interpret mode), slot by slot, on the same ``pack_streams`` output;
+    for the ``unequal`` groupings the wrapper too, at its chooser's Q and
+    at every Q built (on the CPU, the plain version)."""
     name, lqs, n, lo, hi, nw, grain, keep = STREAM_CASES[case]
     sc = make_scoring(name)
     rng = np.random.default_rng(sorted(STREAM_CASES).index(case) + 40)
@@ -84,6 +96,16 @@ def test_multi_reference_matches_pallas_stream(case):
     np.testing.assert_array_equal(got, want)
     if case == "empty_query":
         assert not got[:, 1].any() and got[:, 0].any()
+    if case.startswith("unequal"):
+        from seqalign_tpu_torch.ops.swa_cuda import STREAM_SOLO_QUERIES, stream_team
+
+        prof = profile_to_torch(profs, go, "cpu")
+        team = stream_team(max(lqs))
+        assert team[0] == 1 and not got[:, lqs.index(0)].any()
+        for q in (None, *STREAM_SOLO_QUERIES[team[1]]):
+            np.testing.assert_array_equal(sw_stream_multi(
+                prof, streams, fs, go, ge, nslots=nslots, jb=JB, rows=max(lqs),
+                queries=q).numpy(), want)
 
 
 def _pack_case(seed=50, nq=2):

@@ -287,8 +287,9 @@ def test_stream_team_holds_every_query_length(lo, hi):
         t, r = swa_cuda.stream_team(lqp)
         assert t in swa_cuda.STREAM_TEAMS and r in swa_cuda.STREAM_ROWS_PER_THREAD_BUILT
         assert lqp <= t * r <= max(lqp * 7 // 6, lqp + 3, min(swa_cuda.STREAM_ROWS_PER_THREAD_BUILT))
-        solo = "true" if t == 1 and r in swa_cuda.STREAM_SOLO_ROWS else "false"
-        assert swa_cuda.stream_kernel_instance(lqp) == f"sw_stream_kernel<{r}, {solo}>"
+        want = (f"sw_stream_solo_kernel<{r}, 1>" if t == 1 and r in swa_cuda.STREAM_SOLO_ROWS
+                else f"sw_stream_kernel<{r}, false>")
+        assert swa_cuda.stream_kernel_instance(lqp) == want
 
 
 @pytest.mark.parametrize("lqp,team", [
@@ -312,9 +313,9 @@ def test_stream_team_refuses_more_rows_than_a_warp_holds():
 
 def test_stream_rows_built_match_the_source():
     """The R the chooser may name are the instances the C entry builds, the
-    solo ones those sw_stream_solo.cu builds; the widest team of the largest
-    R holds MAX_QUERY_ROWS, and its profile (4 KiB x R) fits a Hopper
-    block's 227 KiB of shared memory."""
+    solo (R, Q) those sw_stream_solo.cu builds; the widest team of the
+    largest R holds MAX_QUERY_ROWS, and its profile (4 KiB x R) fits a
+    Hopper block's 227 KiB of shared memory."""
     import re
     from pathlib import Path
 
@@ -323,24 +324,39 @@ def test_stream_rows_built_match_the_source():
     csrc = Path(swa_cuda.__file__).resolve().parent.parent / "csrc"
     built = tuple(int(r) for r in re.findall(
         r"SW_STREAM_ROWS\((\d+)\)\n", (csrc / "sw_stream.cu").read_text()))
-    solo = tuple(int(r) for r in re.findall(
-        r"SW_SOLO_ROWS\((\d+)\)\n", (csrc / "sw_stream_solo.cu").read_text()))
+    pairs = [(int(r), int(q)) for r, q in re.findall(
+        r"  X\((\d+), (\d+)\)", (csrc / "sw_stream_solo.cu").read_text())]
+    solo = tuple(dict.fromkeys(r for r, _ in pairs))
     assert built == swa_cuda.STREAM_ROWS_PER_THREAD_BUILT
     assert solo == swa_cuda.STREAM_SOLO_ROWS and set(solo) <= set(built)
+    assert pairs == [(r, q) for r, qs in swa_cuda.STREAM_SOLO_QUERIES.items() for q in qs]
     assert swa_cuda.STREAM_TEAMS == tuple(2**k for k in range(6))
     assert swa_cuda.MAX_QUERY_ROWS == swa_cuda.STREAM_TEAMS[-1] * max(built)
     assert 4096 * max(built) <= 232_448
 
 
-@pytest.mark.parametrize("rows,team,key", [
-    (144, None, "<36, false>"), (20, None, "<20, true>"), (17, None, "<18, true>"),
-    (144, (8, 18), "<18, false>"), (40, None, "<40, false>"), (1536, None, "<48, false>"),
+@pytest.mark.parametrize("rows,team,nq,queries,key", [
+    (144, None, 1, None, "sw_stream_kernel<36, false>"),
+    (20, None, 1, None, "sw_stream_solo_kernel<20, 1>"),
+    (17, None, 1, None, "sw_stream_solo_kernel<18, 1>"),
+    (144, (8, 18), 1, None, "sw_stream_kernel<18, false>"),
+    (40, None, 1, None, "sw_stream_kernel<40, false>"),
+    (1536, None, 1, None, "sw_stream_kernel<48, false>"),
+    (17, None, 8, 2, "sw_stream_solo_kernel<18, 2>"),
+    (17, (1, 24), 64, 4, "sw_stream_solo_kernel<24, 4>"),
+    (26, None, 8, None, "sw_stream_kernel<28, false>"),
+    (17, (2, 10), 8, None, "sw_stream_kernel<10, false>"),
 ])
-def test_stream_kernel_instance(rows, team, key):
-    """The instance a K1 or K3 launch runs, keyed as sass.kernel_key keys it."""
+def test_stream_kernel_instance(rows, team, nq, queries, key):
+    """The instance a K1 or K3 launch runs, keyed as sass.kernel_key keys it:
+    the solo kernel for a team of one thread at a solo R (a team of one
+    thread at a larger R runs the team kernel), the team kernel else."""
     from seqalign_tpu_torch.ops import swa_cuda
 
-    assert swa_cuda.stream_kernel_instance(rows, team) == "sw_stream_kernel" + key
+    assert swa_cuda.stream_kernel_instance(rows, team, nq, queries) == key
+    if queries is None and key.startswith("sw_stream_solo_kernel<"):
+        q = swa_cuda.stream_solo_queries(rows, nq)
+        assert key.endswith(f", {q}>")
 
 
 def _team_case(rows=144, nq=None):
@@ -397,14 +413,20 @@ def test_stream_refuses_slots_the_segment_word_cannot_hold(multi):
 
 @pytest.mark.parametrize("r,solo", [(10, 1), (20, 1), (20, 0), (36, 0), (48, 0)])
 def test_sass_keys_and_cells_of_the_stream_kernel(r, solo):
-    """The team kernel's instances are keyed by R and kSolo; its step loop
-    holds 2 R cells (one LDS each), as K2's does."""
+    """K1 and K3's instances are keyed by R and kSolo (the team kernel) or
+    by R and Q (the solo kernel, here at Q = 1); a step holds 2 R cells a
+    query (one LDS each), as K2's does, and the solo kernel's loop runs two
+    steps at Q = 1."""
     from seqalign_tpu_torch import sass
 
-    name = f"_ZN12_GLOBAL__N_116sw_stream_kernelILi{r}ELb{solo}EEEvPKiPKaS3_Piiiiiiiiii"
+    name = (f"_ZN12_GLOBAL__N_121sw_stream_solo_kernelILi{r}ELi1EEEvPKiPKaS3_Piiiiiiiiii"
+            if solo else
+            f"_ZN12_GLOBAL__N_116sw_stream_kernelILi{r}ELb0EEEvPKiPKaS3_Piiiiiiiiii")
     key = sass.kernel_key(name)
-    assert key == f"sw_stream_kernel<{r}, {'true' if solo else 'false'}>"
-    assert sass.expected_cells(key) == 2 * r == r * sass.STRIPED_POSITIONS_PER_STEP
+    assert key == (f"sw_stream_solo_kernel<{r}, 1>" if solo else f"sw_stream_kernel<{r}, false>")
+    steps = sass.solo_stream_steps(1) if solo else 1
+    assert sass.expected_cells(key) == 2 * r * steps == r * sass.STRIPED_POSITIONS_PER_STEP * steps
+    assert steps == (2 if solo else 1)
     # K4's instance of the same R and kSolo: a solo one unrolls the four
     # steps of its block into one loop iteration.
     windows = f"sw_windows_kernel<{r}, {'true' if solo else 'false'}, false>"
@@ -431,3 +453,111 @@ def test_stream_rows_to_score(rows, ok, multi):
         return
     got = fn(prof, streams, fs, go, ge, rows=rows, **kw)
     assert torch.equal(got, ref(prof, streams, fs, go, ge, **kw))
+
+
+# The solo kernel of K1 and K3 (csrc/sw_stream_solo.cu): one thread a lane
+# scoring Q queries of the launch.
+
+@pytest.mark.parametrize("r", [10, 12, 16, 18, 20, 24])
+@pytest.mark.parametrize("nq", [1, 2, 3, 5, 8, 9, 64])
+def test_stream_solo_queries(nq, r):
+    """Q is built at the chooser's R, 1 for one query, and never more than
+    nq rounded up to a built Q."""
+    from seqalign_tpu_torch.ops import swa_cuda
+
+    assert swa_cuda.stream_team(r) == (1, r)
+    q = swa_cuda.stream_solo_queries(r, nq)
+    built = swa_cuda.STREAM_SOLO_QUERIES[r]
+    assert q in built
+    assert q <= min([b for b in built if b >= nq] or [max(built)])
+    if nq == 1:
+        assert q == 1
+    assert swa_cuda.stream_kernel_instance(r, nq=nq) == f"sw_stream_solo_kernel<{r}, {q}>"
+
+
+@pytest.mark.parametrize("r", [10, 12, 16, 18, 20, 24])
+def test_stream_solo_queries_built_are_those_it_picks(r):
+    """Every solo (R, Q) built is one the chooser picks for some nq, and it
+    picks no other."""
+    from seqalign_tpu_torch.ops import swa_cuda
+
+    picked = {swa_cuda.stream_solo_queries(r, nq) for nq in range(1, 65)}
+    assert picked == set(swa_cuda.STREAM_SOLO_QUERIES[r])
+    assert max(picked) == swa_cuda.STREAM_SOLO_BEST_QUERIES[r]
+
+
+def test_stream_solo_queries_refuses_a_team():
+    from seqalign_tpu_torch.ops import swa_cuda
+
+    with pytest.raises(ValueError, match="not a team of one thread"):
+        swa_cuda.stream_solo_queries(144, 8)
+
+
+@pytest.mark.parametrize("team,queries", [((2, 10), 2), ((1, 28), 1), ((4, 36), 4),
+                                          ((1, 18), 3), ((1, 18), 8), (None, 0),
+                                          ((1, 16), 2)])
+def test_multi_refuses_queries_off_a_solo_team(team, queries):
+    """A forced Q is taken only where (T, R) is solo and Q is built at R, on
+    any device."""
+    prof, streams, fs, go, ge, kw = _team_case(rows=17, nq=3)
+    with pytest.raises(ValueError, match="queries="):
+        sw_stream_multi(prof, streams, fs, go, ge, team=team, queries=queries, **kw)
+
+
+@pytest.mark.parametrize("queries", [1, 2, 4])
+def test_multi_forced_queries_on_cpu_is_the_plain_version(queries):
+    """On a CPU tensor a forced Q runs the plain version (which has no Q)
+    and launches nothing."""
+    from seqalign_tpu_torch.ops.swa_cuda import sw_stream_multi_reference
+
+    # Queries of 9 residues: (T, R) = (1, 10), where Q = 1, 2 and 4 are built.
+    prof, streams, fs, go, ge, kw = _team_case(rows=11, nq=5)
+    launches = sw_stream_multi.launches
+    got = sw_stream_multi(prof, streams, fs, go, ge, rows=9, queries=queries, **kw)
+    assert sw_stream_multi.launches == launches
+    assert torch.equal(got, sw_stream_multi_reference(prof, streams, fs, go, ge, **kw))
+
+
+def _solo_sass(r, q, lds_per_cell=1):
+    """A synthetic solo-kernel function: a hot loop of 2 Q R cells (LDS,
+    IMAD, two VIADDMNMX, VIMNMX3.RELU, IADD3 and a VIMNMX3 a cell), the
+    loads of a step's chars ahead (two LDG, two LOP3 masks) and the loop
+    test."""
+    name = f"_ZN12_GLOBAL__N_121sw_stream_solo_kernelILi{r}ELi{q}EEEvPKiPKaS3_Piiiiiiiiii"
+    body = ["LDG.E.U8 R8, desc[UR4][R10.64]", "LDG.E.U8 R9, desc[UR4][R12.64]",
+            "LOP3.LUT R8, R8, 0x1f, RZ, 0xc0, !PT", "LOP3.LUT R9, R9, 0x1f, RZ, 0xc0, !PT"]
+    for _ in range(2 * q * r):
+        body += ["LDS R4, [R3+0x80]" if lds_per_cell else "NOP", "IMAD R5, R6, R7, R4",
+                 "VIADDMNMX R5, R5, R3, R4, !PT", "VIADDMNMX R6, R2, R3, R4, !PT",
+                 "VIMNMX3.RELU R6, R5, R4, R6", "IADD3 R7, R6, R2, RZ",
+                 "VIMNMX3 R9, R9, R6, R7"]
+    body += ["IADD3 R1, R1, 0x1, RZ", "ISETP.NE.AND P0, PT, R1, R2, PT"]
+    lines = [f"\t\tFunction : {name}", "        /*0000*/                   S2R R0, SR_TID.X ;"]
+    for k, ins in enumerate(body):
+        lines.append(f"        /*{16 * (k + 1):04x}*/                   {ins} ;")
+    lines.append(f"        /*{16 * (len(body) + 1):04x}*/               @P0 BRA 0x10 ;")
+    lines.append(f"        /*{16 * (len(body) + 2):04x}*/                   EXIT ;")
+    return name, "\n".join(lines), len(body) + 1
+
+
+def test_sass_inner_loop_counts_cells_of_the_solo_kernel():
+    """The bound's count for sw_stream_solo_kernel<18, 2>: its key names R
+    and Q, its loop's cells are 2 Q R = 72 (one LDS each, the expected count
+    from the key), and the step's own work (its chars' masks, the loop
+    test) is spread over them."""
+    from seqalign_tpu_torch import sass
+
+    name, text, size = _solo_sass(18, 2)
+    key = sass.kernel_key(name)
+    assert key == "sw_stream_solo_kernel<18, 2>"
+    loop = sass.inner_loop(sass.sass_functions(None, text)[name], key)
+    assert loop["cells"] == sass.expected_cells(key) == 72 and loop["cells_from"] == "LDS"
+    assert loop["instructions"] == size
+    # Per cell 5 ALU instructions and an IMAD; a step adds two LOP3, an
+    # IADD3 and an ISETP (the two LDG, the BRA are not ALU work).
+    assert loop["alu_per_cell"] == (72 * 6 + 4) / 72
+    assert loop["imad_per_cell"] == 1.0
+    assert loop["pipe_per_cell"] == (72 * 5 + 4) / 72
+    assert sass.expected_cells("sw_stream_solo_kernel<24, 4>") == 192
+    # Q = 1: two steps (four positions) an iteration.
+    assert sass.expected_cells("sw_stream_solo_kernel<10, 1>") == 40
