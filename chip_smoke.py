@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch + CUDA port (seqalign_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--against DIR] [--phases 3,6,13]
+    python3 chip_smoke.py [--against DIR] [--phases 3,4,6,13]
 
 Phases, each printing its own lines; any failure exits nonzero:
 
@@ -69,9 +69,19 @@ Phases, each printing its own lines; any failure exits nonzero:
 4. main path: a Swiss-Prot-scale search (565,247 records, about 205 M
    residues, bench.py's generator, seed 42, PAM250, gaps -2/-1, a
    144-residue query) through seqalign_tpu_torch.pipeline.search_database on
-   the card; the launch counters prove it ran K1 and no plain version;
+   the card; the launch counters prove it ran K1 and no plain version, and
+   packed its streams with the pack kernel (csrc/stream_pack.cu) once per
+   chunk, calling neither the host packer nor the pack's plain version;
    every score is checked against the plain version, and 256 against the
-   wavefront engine, on the card;
+   wavefront engine, on the card; the pack kernel against its plain
+   version and the host packer, byte for byte, on small cases (empty
+   records, '*' inside records, windows of 100 lanes, a target length) and
+   on the whole database, where it is timed with CUDA events (the launch
+   alone and the wrapper with its copies of the plan) beside its plain
+   version and its bound; the database's copy to the card three ways
+   (pageable, through page-locked pieces, registered in place) beside the
+   host packer's streams' copy; the search's wall and its device busy
+   share under torch.profiler;
 5. multi-query path: 8 queries of 17 residues (bench.py's multi-query
    point), then 64 of 144 (the north-star batch), against the same
    database through pipeline.search_database_multi; the counters prove it
@@ -80,7 +90,9 @@ Phases, each printing its own lines; any failure exits nonzero:
    and the 8-query batch equals K3's plain version on the same card
    tensors; K3, the K1 loop and the plain version are timed, and the
    search's device-memory peak read; K3's instance (at 8 x 17 the solo
-   kernel and its Q), registers and bound are printed beside its time;
+   kernel and its Q), registers and bound are printed beside its time, and
+   the reorder + fetch of the bests (on the card, then one copy to
+   page-locked memory) beside the host scatter it replaced;
 6. long-query path: a 2000-residue query against the same database through
    pipeline.search_database; the counters prove it ran K2 (stripes x chunks
    passes) and nothing else; every score equals K2's plain version on the
@@ -133,8 +145,9 @@ Phases, each printing its own lines; any failure exits nonzero:
    its kernel score and the hits the 10 best, the 2000-residue query's long
    hits localized by one call of sw_wavefront_ends on the card; on a
    3,012-record FASTA with 12 long records, --align 10 equal to --engine
-   wavefront --align 10 but for Total Time; --trace writes a
-   torch.profiler trace that names K1's kernel;
+   wavefront --align 10 but for Total Time; --trace, in a CLI process of
+   its own, writes a torch.profiler trace that names K1's kernel and holds
+   its one launch;
 12. multi-device and multi-host (seqalign_tpu_torch.parallel) on the one
    card, whose entries stand in for several cards: multi_device_search
    over local_devices() and over 2 and 4 entries of cuda:0 with the
@@ -167,10 +180,10 @@ Phases, each printing its own lines; any failure exits nonzero:
    and scored in the shuffled order (timed, scores checked, not gated);
    and that run's device busy share under torch.profiler.
 
-With ``--phases`` only phases 1-2 and the named ones of 3, 6 and 13 run
-(those that need no other phase's results), for a quick check of the
-kernels, the long-query path and the long pair; the line before the last
-then holds what those phases measured.
+With ``--phases`` only phases 1-2 and the named ones of 3, 4, 6 and 13
+run (those that need no other phase's results), for a quick check of the
+kernels, the main path and its pack, the long-query path and the long
+pair; the line before the last then holds what those phases measured.
 
 With ``--against DIR`` (another checkout, for example the parent commit
 unpacked under build/) it then times K1 and K3 in turns against that
@@ -382,7 +395,19 @@ class Checker:
         self.torch = torch
         self.max_abs_err = {"sw_stream": 0, "sw_stream_multi": 0,
                             "sw_stream_striped": 0, "sw_stream_striped_block": 0,
-                            "sw_windows": 0, "sw_windows_const_s": 0}
+                            "sw_windows": 0, "sw_windows_const_s": 0, "stream_pack": 0}
+
+    def compare_pack(self, label, got, plain, host):
+        """The pack kernel's ``(streams, fs)`` against its plain version's
+        and the host packer's, byte for byte."""
+        err = max(int((a.int() - b.int()).abs().max()) if a.numel() else 0
+                  for want in (plain, host) for a, b in zip(got, want))
+        self.max_abs_err["stream_pack"] = max(self.max_abs_err["stream_pack"], err)
+        equal = all(self.torch.equal(a, b) for want in (plain, host) for a, b in zip(got, want))
+        print(f"[pack] {label}: streams {tuple(got[0].shape)}, fs {tuple(got[1].shape)} == "
+              f"plain version and host packer: {equal}, max_abs_err={err}", flush=True)
+        if not equal:
+            fail(f"stream_pack != plain version or host packer for {label}")
 
     def compare(self, label, prof, streams, fs, go, ge, nslots, jb, team=None,
                 rows=None, queries=None):
@@ -1121,6 +1146,12 @@ def cuda_ms(torch, fn, reps):
 
 
 def reset_counts(swa_cuda):
+    from seqalign_tpu_torch.ops import pack_cuda
+    from seqalign_tpu_torch.utils import packing
+
+    pack_cuda.pack_streams_device.launches = 0
+    pack_cuda.pack_streams_reference.calls = 0
+    packing.pack_streams.calls = 0
     for fn in (swa_cuda.sw_stream, swa_cuda.sw_stream_multi,
                swa_cuda.sw_stream_striped_pass, swa_cuda.sw_stream_striped_step,
                swa_cuda.sw_windows):
@@ -1155,16 +1186,95 @@ def read_counts(swa_cuda):
     }
 
 
+def read_pack_counts():
+    """The stream pack's counts: kernel launches, plain-version calls and
+    host-packer calls (kept out of ``read_counts``, whose sums are the
+    Smith-Waterman launches)."""
+    from seqalign_tpu_torch.ops import pack_cuda
+    from seqalign_tpu_torch.utils import packing
+
+    return {"stream_pack": pack_cuda.pack_streams_device.launches,
+            "stream_pack plain": pack_cuda.pack_streams_reference.calls,
+            "host pack_streams": packing.pack_streams.calls}
+
+
+# Small pack cases on the card, against the host packer and the plain
+# version: (label, records, lengths lo..hi, nw, win, empty records, records
+# with '*' inside, extra target length).
+PACK_CASES = (
+    ("one window", 700, 1, 60, 1, 256, 0, 0, None),
+    ("a window a slot", 1024, 1, 40, 4, 256, 0, 0, None),
+    ("empty records, 100 lanes", 600, 0, 30, 2, 100, 80, 0, None),
+    ("'*' inside records", 900, 3, 70, 4, 256, 0, 120, None),
+    ("target length, 64 lanes", 800, 1, 50, 3, 64, 0, 0, 96),
+    ("records of 1-500 (tiles of several slots)", 3000, 1, 500, 5, 256, 0, 0, None),
+)
+
+
+def pack_cases(torch, chk: Checker):
+    from seqalign_tpu_torch.convert import database_to_torch, stream_pack_to_torch
+    from seqalign_tpu_torch.host import encode, pack_streams, plan_streams
+    from seqalign_tpu_torch.ops.pack_cuda import pack_streams_device, pack_streams_reference
+    from seqalign_tpu_torch.pipeline import STREAM_GRAIN, STREAM_JB, _db_from_encoded
+
+    for k, (label, n, lo, hi, nw, win, zeros, stars, extra) in enumerate(PACK_CASES):
+        rng = np.random.default_rng(400 + k)
+        recs = [encode(random_protein(rng, int(rng.integers(lo, hi)))) for _ in range(n)]
+        for r in rng.choice(n, zeros, replace=False):
+            recs[r] = recs[r][:0]
+        for r in rng.choice(n, stars, replace=False):
+            recs[r] = recs[r].copy()
+            recs[r][rng.integers(1, len(recs[r]) - 1)] = 31
+        db = _db_from_encoded(recs)
+        order = np.argsort(-db.lengths, kind="stable")
+        kw = dict(win=win, jb=STREAM_JB, grain=STREAM_GRAIN)
+        if extra is not None:
+            kw["target_len"] = plan_streams(db.lengths, order, nw, **kw).L + extra
+        plan = plan_streams(db.lengths, order, nw, **kw)
+        want = stream_pack_to_torch(pack_streams(db, order, nw, **kw), "cuda")
+        dev_db = database_to_torch(db, "cuda")
+        got = pack_streams_device(*dev_db, plan)
+        plain = pack_streams_reference(*dev_db, plan)
+        torch.cuda.synchronize()
+        chk.compare_pack(f"{label}: nw={nw} L={plan.L} win={win}", got, plain, want)
+    # The last case's database searched in chunks of one lane group, with
+    # one copy of it on the card and, under a memory budget it does not
+    # fit, each chunk copying its own records: the same scores.
+    from seqalign_tpu_torch import pipeline
+
+    sc = scoring("PAM250")
+    query = sc.query_indices(random_protein(np.random.default_rng(410), 144))
+    slots, free = pipeline.MAX_STREAM_SLOTS, pipeline.device_free_bytes
+    pipeline.MAX_STREAM_SLOTS = 1
+    try:
+        chunks = len(pipeline.chunk_bounds(db, np.argsort(-db.lengths, kind="stable")))
+        whole, _ = pipeline.search_database(query, db, sc, device="cuda")
+        pipeline.device_free_bytes = lambda device: 0
+        per_chunk, _ = pipeline.search_database(query, db, sc, device="cuda")
+    finally:
+        pipeline.MAX_STREAM_SLOTS, pipeline.device_free_bytes = slots, free
+    if not np.array_equal(whole, per_chunk):
+        fail("the per-chunk copy's scores != the whole database's")
+    print(f"[pack] {db.n} records in {chunks} chunks: each chunk's own records copied "
+          "(no room for the database) == one copy of the database", flush=True)
+
+
 def phase_main_path(torch, chk: Checker, smi: str, query, db, loops, usage):
     from seqalign_tpu_torch import pipeline
     from seqalign_tpu_torch.convert import profile_to_torch, stream_pack_to_torch
     from seqalign_tpu_torch.host import pack_streams
     from seqalign_tpu_torch.ops import swa_cuda
+    from seqalign_tpu_torch.ops.pack_cuda import (
+        pack_launch, pack_streams_device, pack_streams_reference, pack_tiles,
+    )
     from seqalign_tpu_torch.ops.swa_torch import make_profile, sw_wavefront
-    from seqalign_tpu_torch.swissprot import QUERY_LEN
+    from seqalign_tpu_torch.swissprot import QUERY_LEN, copy_database, device_busy
 
+    pack_cases(torch, chk)
     sc = scoring("PAM250")
     residues = int(db.offsets[-1])
+    order = np.argsort(-db.lengths, kind="stable")
+    chunks = len(pipeline.chunk_bounds(db, order))
 
     reset_counts(swa_cuda)
     runs = []
@@ -1173,32 +1283,82 @@ def phase_main_path(torch, chk: Checker, smi: str, query, db, loops, usage):
         scores, kernel_s = pipeline.search_database(query, db, sc, device="cuda")
         runs.append((kernel_s, time.perf_counter() - t0))
     counts = read_counts(swa_cuda)
+    packs = read_pack_counts()
     launches = counts["sw_stream"]
-    print(f"[main] launches: {counts}", flush=True)
+    print(f"[main] launches: {counts}; the pack: {packs} ({chunks} chunk(s) a search)",
+          flush=True)
     if launches < 1 or sum(counts.values()) != launches:
         fail("the main path did not run through K1 alone")
+    if packs != {"stream_pack": 2 * chunks, "stream_pack plain": 0, "host pack_streams": 0}:
+        fail("the main path did not pack its streams with the pack kernel alone, once a chunk")
     if scores.shape != (db.n,) or scores.dtype != np.int32 or scores.min() < 0:
         fail("main-path scores have the wrong shape, type or sign")
     cells = QUERY_LEN * residues
     for k, (kernel_s, wall_s) in enumerate(runs):
         print(f"[main] run {k}: kernel {kernel_s} s = {cells / kernel_s / 1e9} "
-              f"GCUPS over real residues, {db.n / kernel_s} entries/s; "
-              f"search wall {wall_s} s incl. host packing | {smi}", flush=True)
+              f"GCUPS over real residues, {db.n} entries, {db.n / kernel_s} entries/s; "
+              f"search wall {wall_s} s (sort, plan, copy, pack, kernel, reorder, fetch) "
+              f"| {smi}", flush=True)
+    wall, busy_ms, top = device_busy(
+        lambda: pipeline.search_database(query, db, sc, device="cuda"))
+    print(f"[main] under torch.profiler: device busy {busy_ms} ms in a {wall} s search "
+          f"wall, busy share {busy_ms / 1e3 / wall}; {top} | {smi}", flush=True)
 
     # The whole database as the pipeline packs it (one launch at this
     # size): the kernel and its plain version on the same card tensors,
     # every record checked, both timed with CUDA events.
-    order = np.argsort(-db.lengths, kind="stable")
     win, jb = pipeline.WINDOW_LANES, pipeline.STREAM_JB
     if db.n > pipeline.MAX_STREAM_SLOTS * win:
         fail("the database no longer fits one launch")
-    nw = pipeline.choose_windows(
-        db.lengths[order], win, None, pipeline.resident_lanes(torch.device("cuda"))
-    )
+    plan = pipeline.plan_chunk(db.lengths, order, None,
+                               pipeline.resident_lanes(torch.device("cuda")))
+    nw = plan.nw
+    t0 = time.perf_counter()
     pack = pack_streams(db, order, nw, win=win, jb=jb, grain=pipeline.STREAM_GRAIN)
+    host_pack_s = time.perf_counter() - t0
+    h2d = {}
+    for how in ("pageable", "pinned", "registered", "pageable", "pinned", "registered"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dev_db = copy_database(db, torch.device("cuda"), how)
+        torch.cuda.synchronize()
+        h2d.setdefault(how, []).append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    streams, fs = stream_pack_to_torch(pack, "cuda")
+    torch.cuda.synchronize()
+    h2d_streams = time.perf_counter() - t0
+    db_bytes = nbytes(*dev_db)
+    print(f"[main] copy of the database ({db_bytes} B) to the card, twice each way: "
+          + ", ".join(f"{how} {t} s" for how, t in h2d.items())
+          + f"; the host packer's streams ({nbytes(streams, fs)} B) pageable "
+          f"{h2d_streams} s, packed on the host in {host_pack_s} s | {smi}", flush=True)
+    got = pack_streams_device(*dev_db, plan)
+    plain = pack_streams_reference(*dev_db, plan)
+    torch.cuda.synchronize()
+    chk.compare_pack(f"main path ({db.n} records, nw={nw} L={plan.L})", got, plain,
+                     (streams, fs))
+    del got, plain
+    ids = torch.from_numpy(order).cuda()
+    tiles = torch.from_numpy(pack_tiles(plan)).cuda()
+    pack_ms = cuda_ms(torch, lambda: pack_launch(*dev_db, ids, tiles, plan), 10)
+    wrapper_ms = cuda_ms(torch, lambda: pack_streams_device(*dev_db, plan), 5)
+    pack_plain_ms = cuda_ms(torch, lambda: pack_streams_reference(*dev_db, plan), 1)
+    # Each input read once (the records' residues, offsets, ids, tiles),
+    # each output written once (streams, fs).
+    pack_bytes = (residues + nbytes(dev_db[1], ids, tiles, fs)
+                  + plan.nw * plan.L * plan.win)
+    pack_bound_ms, pack_bound_by = bound(pack_bytes, 0, 0.0)
+    print(f"[main] pack kernel: {pack_ms} ms a launch ({pack_bytes} B moved, "
+          f"{pack_bytes / pack_ms / 1e9} TB/s), the wrapper with its copies of the "
+          f"plan {wrapper_ms} ms, its plain version {pack_plain_ms} ms; bound "
+          f"{pack_bound_ms} ms by {pack_bound_by} ({pack_bound_ms / pack_ms} of it) "
+          f"| {smi}", flush=True)
+    ntiles = tiles.shape[0]
+    del dev_db, ids, tiles
+
     go, ge = sc.gap_open_total, sc.gap_extend
     prof = profile_to_torch(make_profile(sc.table, query), go, "cuda")
-    streams, fs = stream_pack_to_torch(pack, "cuda")
     # The launch as the pipeline makes it: the query's own rows scored.
     kw = dict(nslots=len(pack.slot_ids), jb=jb, rows=len(query))
     out = chk.compare(f"main path ({db.n} records)", prof, streams, fs, go, ge,
@@ -1252,6 +1412,17 @@ def phase_main_path(torch, chk: Checker, smi: str, query, db, loops, usage):
         "shape": f"main path, {db.n} records, lq={QUERY_LEN}, {shape}",
         "main_path_kernel_s": runs[-1][0],
         "main_path_gcups": cells / runs[-1][0] / 1e9,
+        "search_wall_s": [w for _, w in runs],
+        "busy_share": busy_ms / 1e3 / wall,
+        "pack": {
+            "launches": packs["stream_pack"], "ms": pack_ms, "wrapper_ms": wrapper_ms,
+            "plain_ms": pack_plain_ms, "bound_ms": pack_bound_ms,
+            "bound_by": pack_bound_by, "bytes": pack_bytes,
+            "host_pack_s": host_pack_s,
+            "database_copy_s": h2d, "host_streams_copy_s": h2d_streams,
+            "shape": f"{db.n} records, {residues} residues -> nw={nw} L={plan.L} "
+                     f"win={win}, {ntiles} tiles",
+        },
     }, (order, streams, fs, kw["nslots"]), scores
 
 
@@ -1286,7 +1457,6 @@ def phase_multi_path(torch, chk: Checker, smi: str, db, k1_pack, nq, lq,
     """One multi-query batch through pipeline.search_database_multi on the
     card, checked against K1 per query (and K3's plain version)."""
     from seqalign_tpu_torch import pipeline
-    from seqalign_tpu_torch.convert import stream_pack_to_torch
     from seqalign_tpu_torch.ops import swa_cuda
     from seqalign_tpu_torch.swissprot import random_query
 
@@ -1339,10 +1509,8 @@ def phase_multi_path(torch, chk: Checker, smi: str, db, k1_pack, nq, lq,
     order = np.argsort(-db.lengths, kind="stable")
     blocks = pipeline.query_blocks(
         pipeline.multi_profile(sc.table, queries), go, db.n, torch.device("cuda"))
-    chunks = []
-    for chunk, pack in pipeline.stream_chunks(db, order, None, torch.device("cuda")):
-        streams, fs = stream_pack_to_torch(pack, "cuda")
-        chunks.append((chunk, streams, fs, len(pack.slot_ids)))
+    chunks = [(chunk, *packed) for chunk, packed in
+              pipeline.stream_chunks(db, order, None, torch.device("cuda"))]
     jb = swa_cuda.STREAM_JB
 
     def k3_all():
@@ -1356,6 +1524,32 @@ def phase_multi_path(torch, chk: Checker, smi: str, db, k1_pack, nq, lq,
         fail(f"{tag} {counts['sw_stream_multi']} K3 launches for {len(chunks)} chunk(s) "
              f"and {len(blocks)} block(s) per search")
     k3_ms = cuda_ms(torch, k3_all, 3 if check_plain else 2)
+    # The reorder and fetch inside the pipeline's timer after K3: the bests
+    # put in database order on the card, then one copy to page-locked
+    # memory; beside them the host scatter they replaced (a pageable fetch
+    # of the slots, then numpy).
+    outs = [(chunk, torch.cat([swa_cuda.sw_stream_multi(b, s, f, go, ge, nslots=ns, jb=jb,
+                                                         rows=lq) for b in blocks], dim=1))
+            for chunk, s, f, ns in chunks]
+    fetched = pipeline._host_scores((nq, db.n), torch.device("cuda"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    on_card = torch.zeros((nq, db.n), dtype=torch.int32, device="cuda")
+    for chunk, out in outs:
+        pipeline.scatter_slots(on_card, chunk, out)
+    fetched.copy_(on_card)
+    reorder_fetch_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_host = np.zeros((nq, db.n), np.int32)
+    for chunk, out in outs:
+        pipeline.scatter_slots(on_host, chunk, out.cpu())
+    host_scatter_s = time.perf_counter() - t0
+    if not (np.array_equal(fetched.numpy(), scores) and np.array_equal(on_host, scores)):
+        fail(f"{tag} the bests reordered on the card or on the host != the search's scores")
+    print(f"{tag} reorder on the card + fetch to page-locked memory {reorder_fetch_s} s; "
+          f"the host scatter it replaced (fetch + numpy) {host_scatter_s} s; both == the "
+          f"search's scores | {smi}", flush=True)
+    del outs, on_card
     team = swa_cuda.stream_team(lq)
     block_nq = blocks[0].shape[0]
     key = swa_cuda.stream_kernel_instance(lq, nq=block_nq)
@@ -1383,6 +1577,8 @@ def phase_multi_path(torch, chk: Checker, smi: str, db, k1_pack, nq, lq,
         "k1_loop_ms": k1_loop_ms, "k1_launches": k1_launches, "k1_bound_ms": k1_bound_ms,
         "k1_instance": k1_key,
         "k1_registers": usage.get(k1_key, {}).get("REG"),
+        "reorder_fetch_s": reorder_fetch_s, "host_scatter_s": host_scatter_s,
+        "search_wall_s": [w for _, w in runs],
         "shape": f"{nq}x{lq} on {db.n} records: {shape}",
         "main_path_kernel_s": runs[-1][0],
         "main_path_gcups": cells / runs[-1][0] / 1e9,
@@ -1443,7 +1639,7 @@ def phase_striped_path(torch, chk: Checker, smi: str, db, loops, usage, factor,
     its bound; K1 and K2 side by side at lq=512 and 1536."""
     from seqalign_tpu_torch import pipeline
     from seqalign_tpu_torch.convert import (
-        profile_stripes, profile_to_torch, stream_pack_to_torch,
+        profile_stripes, profile_to_torch,
     )
     from seqalign_tpu_torch.ops import swa_cuda
     from seqalign_tpu_torch.ops.swa_torch import make_profile
@@ -1472,7 +1668,7 @@ def phase_striped_path(torch, chk: Checker, smi: str, db, loops, usage, factor,
           "the search (streams, fs, boundaries, bests; K2 allocates no "
           "rolling-row scratch)", flush=True)
     order = np.argsort(-db.lengths, kind="stable")
-    chunks = [(c, *stream_pack_to_torch(p, dev), len(p.slot_ids)) for c, p in
+    chunks = [(c, *packed) for c, packed in
               pipeline.stream_chunks(db, order, None, dev, pipeline.striped_chunk_residues())]
     stripes = profile_stripes(make_profile(sc.table, query), go, swa_cuda.STRIPE_ROWS, "cuda")
     passes = len(stripes) * len(chunks)
@@ -2137,7 +2333,8 @@ def phase_align_trace(smi: str, db, fasta, query, k1_scores, long_query, long_sc
     sw_wavefront_ends, each hit's score equal to its K1 (K2) score, the hits
     the 10 best. On a 3,012-record FASTA with 12 long records, the same
     queries' alignments equal --engine wavefront's, but for Total Time.
-    --trace writes a trace that names K1's kernel."""
+    --trace, in a CLI process of its own, writes a trace that names K1's
+    kernel and holds its one launch."""
     import shutil
 
     import torch
@@ -2224,20 +2421,31 @@ def phase_align_trace(smi: str, db, fasta, query, k1_scores, long_query, long_sc
         print(f"[align lq={lq}] --align 10 on {n_short + n_long} records: stream == "
               "--engine wavefront (Total Time dropped)", flush=True)
 
+    # The traced search runs as a user runs it, in a process of its own:
+    # torch.profiler, a later session of it in a long process (after this
+    # script's other sessions), now and then keeps the CPU events and drops
+    # the device records (seen on the parent commit too, PERF.md). Its K1
+    # launches are counted in the trace, since the counters live there.
     trace = out_dir / "trace"
     shutil.rmtree(trace, ignore_errors=True)
-    reset_counts(swa_cuda)
-    code, out, err = cli_run(["--files", out_dir / f"q{len(query)}.fa", fasta, *base,
-                              "--topk", "5", "--trace", trace])
+    proc = subprocess.run(
+        [sys.executable, "-m", "seqalign_tpu_torch.cli", "--files",
+         str(out_dir / f"q{len(query)}.fa"), str(fasta), *base, "--topk", "5",
+         "--trace", str(trace)],
+        cwd=ROOT, env=dict(os.environ, SEQALIGN_PLATFORM="cuda"), capture_output=True,
+        text=True, timeout=600)
     files = list(trace.glob("seqalign_trace_*.json"))
-    if code != 0 or "Note:" in err or len(files) != 1:
-        fail(f"[trace] rc={code} files={files} {err[-2000:]}")
-    names = {str(e.get("name", "")) for e in json.loads(files[0].read_text())["traceEvents"]}
+    if proc.returncode != 0 or "Note:" in proc.stderr or len(files) != 1:
+        fail(f"[trace] rc={proc.returncode} files={files} {proc.stderr[-2000:]}")
+    events = json.loads(files[0].read_text())["traceEvents"]
+    names = {str(e.get("name", "")) for e in events}
     kernels = sorted(n for n in names if "sw_stream_kernel" in n)
-    if not kernels or read_counts(swa_cuda)["sw_stream"] != 1:
-        fail("[trace] the trace names no sw_stream_kernel")
+    dp = [e for e in events if e.get("cat") == "kernel" and "sw_" in str(e.get("name"))]
+    if not kernels or len(dp) != 1:
+        fail(f"[trace] the trace names no sw_stream_kernel, or holds {len(dp)} "
+             "Smith-Waterman launches, not one K1")
     print(f"[trace] {files[0].relative_to(ROOT)}: {files[0].stat().st_size} B, "
-          f"{len(names)} event names, K1's: {kernels}", flush=True)
+          f"{len(names)} event names, one launch of K1's {kernels}", flush=True)
     results["trace_kernels"] = kernels
     return results
 
@@ -2291,8 +2499,8 @@ def phase_parallel(torch, smi: str, db, query, k1_scores, k1_kernel_s, multi8, f
             fail(f"{tag} {int(np.count_nonzero(scores != k1_scores))} scores != phase 4's")
         packs = []
         for chunk in deal_chunks(order, db.lengths, len(devices), win=win):
-            p = pipeline.pack_chunk(db, chunk, None, pipeline.resident_lanes(cuda0))
-            packs.append((len(chunk), p.real_residues, *p.streams.shape[:2],
+            p = pipeline.plan_chunk(db.lengths, chunk, None, pipeline.resident_lanes(cuda0))
+            packs.append((len(chunk), p.real_residues, p.nw, p.L,
                           p.padded_cells_per_query_row))
         key = f"x{len(devices)}" + (" (local_devices)" if devices == local_devices() else "")
         result["sw_stream"][key] = {
@@ -2712,11 +2920,11 @@ def main(argv=None) -> int:
     ap.add_argument("--against", default=None,
                     help="another checkout whose K1, K2 and K3 to time in turns")
     ap.add_argument("--phases", default=None,
-                    help="run phases 1-2 and only these of 3, 6 and 13 (comma-separated)")
+                    help="run phases 1-2 and only these of 3, 4, 6 and 13 (comma-separated)")
     args = ap.parse_args(argv)
     only = None if args.phases is None else {int(x) for x in args.phases.split(",")}
-    if only is not None and (not only or not only <= {3, 6, 13} or args.against):
-        ap.error("--phases takes some of 3, 6 and 13, without --against")
+    if only is not None and (not only or not only <= {3, 4, 6, 13} or args.against):
+        ap.error("--phases takes some of 3, 4, 6 and 13, without --against")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs on a GPU",
               file=sys.stderr)
@@ -2739,6 +2947,8 @@ def main(argv=None) -> int:
           f"generated in {time.perf_counter() - t0} s", flush=True)
     if only is not None:
         ran = {"max_abs_err": chk.max_abs_err}
+        if 4 in only:
+            ran["main_path"] = phase_main_path(torch, chk, smi, query, db, loops, usage)[0]
         if 6 in only:
             ran["long_path"] = phase_striped_path(torch, chk, smi, db, loops, usage, factor)
             ran["long_path"].pop("scores")
@@ -2803,6 +3013,8 @@ def main(argv=None) -> int:
         "shape": main_path["shape"],
         "main_path_kernel_s": main_path["main_path_kernel_s"],
         "main_path_gcups": main_path["main_path_gcups"],
+        "search_wall_s": main_path["search_wall_s"],
+        "busy_share": main_path["busy_share"],
         # The short-query point: K1 at lq=17, once for each of phase 5's 8
         # queries, the launches counted in the timed pass.
         "short_query": {"lq": 17, "launches": multi8["k1_launches"],
@@ -2834,7 +3046,8 @@ def main(argv=None) -> int:
         "north_star": {k: multi64[k] for k in
                        ("launches", "ms", "bound_ms", "bound_by", "k1_loop_ms",
                         "instance", "queries_per_thread", "registers",
-                        "memory_peak_bytes", "shape",
+                        "memory_peak_bytes", "shape", "reorder_fetch_s",
+                        "host_scatter_s", "search_wall_s",
                         "main_path_kernel_s", "main_path_gcups")},
         "card": smi,
     }, {
@@ -2886,6 +3099,19 @@ def main(argv=None) -> int:
                  f"records ({longpair['residues']} residues) as one {longpair['batch']} "
                  "lane batch",
         "card": smi,
+    }, {
+        "name": "stream_pack",
+        "wrapper": "ops/pack_cuda.pack_streams_device",
+        "route": "cuda",
+        "source": "seqalign_tpu_torch/csrc/stream_pack.cu",
+        "replaces": "seqalign_tpu/utils/packing.py:106 (host code, no pallas_call; its "
+                    "fill native/fastio.cc:529)",
+        "launches": main_path["pack"]["launches"],
+        "max_abs_err": chk.max_abs_err["stream_pack"],
+        "library_ms": None,
+        **{k: v for k, v in main_path["pack"].items() if k != "launches"},
+        "ms_is": "the launch alone, CUDA events; wrapper_ms adds its copies of the plan",
+        "card": smi,
     }] + [{
         "name": name,
         "route": "cuda",
@@ -2905,6 +3131,7 @@ def main(argv=None) -> int:
     kfactor["sw_stream_multi"] = factor[multi8["instance"]]
     kfactor["sw_stream_striped"] = long_path["factor"]
     kfactor["sw_stream_striped_block"] = longpair["runs"][0]["factor"]
+    kfactor["stream_pack"] = 1.0
     for k in kernels:
         k["bound_ms_measured_rates"] = k["bound_ms"] * (
             kfactor[k["name"]] if k["bound_by"] == "operations" else 1.0)

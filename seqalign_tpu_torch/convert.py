@@ -9,10 +9,12 @@ objects to both packages.
 
 from __future__ import annotations
 
+import warnings
+
 import numpy as np
 import torch
 
-from .host import PAD_INDEX, StreamPack
+from .host import PAD_INDEX, EncodedDatabase, StreamPack
 
 # The biased profile's row count is padded to a multiple of this, as
 # ``sw_pallas_stream`` pads to its row unroll; the CUDA kernel unrolls its
@@ -52,6 +54,54 @@ def stream_pack_to_torch(
     streams = torch.from_numpy(np.ascontiguousarray(pack.streams, np.int8))
     fs = torch.from_numpy(np.ascontiguousarray(pack.fs, np.int32))
     return streams.to(device), fs.to(device)
+
+
+# database_to_torch copies to a card through two page-locked buffers of
+# this many bytes in turn: 210 MB took 8-12 ms so, against 32 ms as one
+# pageable copy and 54-73 ms registered in place (H100, PERF.md; swissprot
+# times the three).
+PIECE_BYTES = 32 << 20
+
+
+def database_to_torch(
+    db: EncodedDatabase, device: torch.device | str
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(seq, offsets)`` of an EncodedDatabase on ``device``: its residues
+    as 1-D int8 and its ``(N + 1,)`` int64 record offsets, the inputs of
+    ``ops.pack_cuda.pack_streams_device`` (:func:`host_to_device`)."""
+    return (host_to_device(db.seq, device),
+            host_to_device(np.asarray(db.offsets, np.int64), device))
+
+
+def host_to_device(array: np.ndarray, device: torch.device | str) -> torch.Tensor:
+    """``array`` as a tensor on ``device``: on the CPU a view; on a card a
+    copy through two page-locked buffers of ``PIECE_BYTES`` in turn (the
+    host fills one while the other's copy runs), enqueued on the current
+    stream, so that what is launched after it there reads it whole."""
+    with warnings.catch_warnings():
+        # A cache's memory map is read-only; the tensor is only read.
+        warnings.simplefilter("ignore", UserWarning)
+        src = torch.from_numpy(np.ascontiguousarray(array))
+    dev = torch.device(device)
+    if dev.type != "cuda" or not src.numel():
+        return src.to(dev)
+    out = torch.empty(src.shape, dtype=src.dtype, device=dev)
+    flat, dst = src.view(-1), out.view(-1)
+    step = max(1, PIECE_BYTES // src.element_size())
+    bufs = [torch.empty(min(step, flat.numel()), dtype=src.dtype, pin_memory=True)
+            for _ in range(2)]
+    copied: list[torch.cuda.Event | None] = [None, None]
+    stream = torch.cuda.current_stream(dev)
+    for k, a in enumerate(range(0, flat.numel(), step)):
+        b = min(a + step, flat.numel())
+        buf = bufs[k % 2][: b - a]
+        if copied[k % 2] is not None:
+            copied[k % 2].synchronize()  # the buffer's last copy has left it
+        buf.copy_(flat[a:b])
+        dst[a:b].copy_(buf, non_blocking=True)
+        copied[k % 2] = torch.cuda.Event()
+        copied[k % 2].record(stream)
+    return out
 
 
 def batch_windows(

@@ -17,7 +17,9 @@ from .models import (
 )
 from .utils.fasta import SeqRecord, read_fasta, read_first
 from .utils.native_io import EncodedDatabase, pack_batch, parse_file_cached
-from .utils.packing import StreamPack, lattice_round_up, pack_streams
+from .utils.packing import (
+    StreamPack, StreamPlan, lattice_round_up, pack_streams, plan_streams,
+)
 
 __all__ = [
     "PAD_INDEX",
@@ -25,6 +27,7 @@ __all__ = [
     "ScoringModel",
     "SeqRecord",
     "StreamPack",
+    "StreamPlan",
     "encode",
     "lattice_round_up",
     "load_builtin",
@@ -32,6 +35,7 @@ __all__ = [
     "pack_batch",
     "pack_streams",
     "parse_file_cached",
+    "plan_streams",
     "read_fasta",
     "read_first",
     "sw_default_scoring",

@@ -126,6 +126,10 @@ def load() -> ctypes.CDLL:
         )
         lib.sw_windows_team_threads.restype = ctypes.c_int
         lib.sw_windows_team_threads.argtypes = [ctypes.c_int]
+        lib.stream_pack_launch.restype = ctypes.c_int
+        lib.stream_pack_launch.argtypes = (
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_int64, ctypes.c_void_p]
+        )
         lib.isa_probe_launch.restype = ctypes.c_int
         lib.isa_probe_launch.argtypes = (
             [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p]

@@ -2,7 +2,8 @@
 
 The port of ``seqalign_tpu.parallel.multidevice``. A database scan has no
 cross-record dependency, so the records are dealt to the devices, each
-device scores its share in one launch of the segmented stream kernel (K1,
+device packs its share's window streams from its one copy of the encoded
+database and scores them in one launch of the segmented stream kernel (K1,
 or K3 per block of a stacked-query profile), and the scores are scattered
 on the host: no collective in the scoring path. Collectives appear only in
 the top-k merge (``sharding.sharded_topk``) and across hosts
@@ -22,13 +23,14 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
-from ..convert import profile_to_torch, stream_pack_to_torch
+from ..convert import profile_to_torch
 from ..device import local_devices
 from ..host import EncodedDatabase
 from ..ops import swa_cuda
 from ..ops.swa_cuda import STREAM_JB, TEAM_MAX_SLOTS, sw_stream, sw_stream_multi
 from ..pipeline import (
-    WINDOW_LANES, _sync, pack_chunk, query_blocks, resident_lanes, scatter_slots,
+    WINDOW_LANES, DevicePacker, _sync, chunk_device_bytes, plan_chunk, query_blocks,
+    resident_lanes, scatter_slots,
 )
 
 
@@ -83,8 +85,11 @@ def multi_device_search(
     Returns (scores in stream order — ``(N,)`` or ``(NQ, N)`` int32 — and
     kernel seconds). Every device's launches are enqueued before any result
     is fetched; the timer runs from the first launch to the last fetch,
-    after every device is synchronised (packing and host-to-device copies
-    stay outside it, the reference's own boundary).
+    after every device is synchronised (planning, the database's copy to
+    each device, the packing and the other host-to-device copies stay
+    outside it, the reference's own boundary). Entries of one device share
+    one copy of the database (:class:`..pipeline.DevicePacker`, one a
+    device).
     """
     multi = profile.ndim == 3
     nq = profile.shape[0] if multi else 1
@@ -106,21 +111,28 @@ def multi_device_search(
 
     order = np.argsort(-db.lengths, kind="stable")
     chunks = deal_chunks(order, db.lengths, len(devices), win=win)
-    work = []
+    plans = []
     for dev, chunk in zip(devices, chunks):
         if not len(chunk):
             continue
-        pack = pack_chunk(db, chunk, None, resident_lanes(dev), win=win)
-        nslots = len(pack.slot_ids)
+        plan = plan_chunk(db.lengths, chunk, None, resident_lanes(dev), win=win)
+        nslots = len(plan.slot_lb)
         if nslots >= TEAM_MAX_SLOTS:
             raise ValueError(
                 f"{nslots} slots on {dev}: the stream kernel holds slots below "
                 f"{TEAM_MAX_SLOTS}"
             )
-        streams, fs = stream_pack_to_torch(pack, dev)
+        plans.append((dev, chunk, plan))
+    held: dict[torch.device, int] = {}
+    for dev, _, plan in plans:
+        held[dev] = held.get(dev, 0) + chunk_device_bytes(plan, nq)
+    packers = {dev: DevicePacker(db, dev, b) for dev, b in held.items()}
+    work = []
+    for dev, chunk, plan in plans:
+        streams, fs = packers[dev](plan)
         profs = (query_blocks(profile, go, len(chunk), dev) if multi
                  else [profile_to_torch(profile, go, dev)])
-        work.append((chunk, streams, fs, nslots, profs))
+        work.append((chunk, streams, fs, len(plan.slot_lb), profs))
 
     for dev in set(devices):
         _sync(dev)

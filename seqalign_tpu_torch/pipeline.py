@@ -2,14 +2,18 @@
 single-query and multi-query paths.
 
 Reads the query and the database FASTA (the port's copy of the JAX
-package's numpy host code), length-sorts the records, packs them into
-segmented window streams, scores each chunk of streams in one launch of the
-stream kernel (``ops.swa_cuda.sw_stream``; ``sw_stream_multi`` per block of
-queries for a multi-query search; ``sw_stream_striped``, one launch per row
-stripe, for a query over ``MAX_QUERY_ROWS``) and scatters the scores back
-to database order. The timer covers the launches, the kernels and the fetch
-of the scores; parsing, packing and the host-to-device copy stay outside
-it, the same boundary as the JAX package's and the reference's.
+package's numpy host code), length-sorts the records, copies the encoded
+database to the device once a search (``convert.database_to_torch``), plans
+each chunk's segmented window streams on the host
+(``utils.packing.plan_streams``) and packs them on the device
+(``ops.pack_cuda.pack_streams_device``), scores each chunk in one launch of
+the stream kernel (``ops.swa_cuda.sw_stream``; ``sw_stream_multi`` per
+block of queries for a multi-query search; ``sw_stream_striped``, one
+launch per row stripe, for a query over ``MAX_QUERY_ROWS``), puts the bests
+in database order on the device (:func:`scatter_slots`) and fetches them
+once. The timer covers the launches, the kernels, that reorder and the
+fetch; parsing, planning, the copy and the pack stay outside it, the same
+boundary as the JAX package's and the reference's.
 ``search_files_streaming`` reads the database in parts on a prefetch
 thread for a bounded-memory search, and ``checkpoint_dir=`` makes a scan
 resumable chunk by chunk (``_ScanCheckpoint``).
@@ -30,14 +34,15 @@ from typing import Callable, Iterable, Sequence
 import numpy as np
 import torch
 
-from .convert import profile_stripes, profile_to_torch, stream_pack_to_torch
+from .convert import database_to_torch, profile_stripes, profile_to_torch
 from .device import resolve_device
 from .host import (
-    EncodedDatabase, ScoringModel, SeqRecord, StreamPack, encode,
-    lattice_round_up, pack_batch, pack_streams, parse_file_cached, read_fasta,
+    EncodedDatabase, ScoringModel, SeqRecord, StreamPlan, encode,
+    lattice_round_up, pack_batch, parse_file_cached, plan_streams, read_fasta,
     read_first,
 )
 from .ops import swa_cuda
+from .ops.pack_cuda import pack_streams_device
 from .ops.oracle import sw_score_batch
 from .ops.swa_cuda import (
     STREAM_JB, supported_scoring, sw_stream, sw_stream_multi, sw_stream_striped,
@@ -78,7 +83,7 @@ class MultiSearchResult:
     query_seqs: list[str]
     names: list[str]
     scores: np.ndarray  # (NQ, N) int32
-    kernel_time: float  # seconds in launches + execution + score fetch
+    kernel_time: float  # seconds in launches + execution + reorder + fetch
     total_entries: int
 
 
@@ -91,7 +96,7 @@ class SearchResult:
     names: list[str]
     seqs: list[str] | None
     scores: np.ndarray  # (N,) int32
-    kernel_time: float  # seconds in launch + execution + score fetch
+    kernel_time: float  # seconds in launch + execution + reorder + fetch
     total_entries: int
 
 
@@ -384,26 +389,91 @@ def chunk_bounds(
     return bounds
 
 
-def pack_chunk(
-    db: EncodedDatabase, chunk: np.ndarray, lanes: int | None,
+def plan_chunk(
+    lengths: np.ndarray, chunk: np.ndarray, lanes: int | None,
     max_lanes: int | None, win: int = WINDOW_LANES,
-) -> StreamPack:
-    """The records of ``chunk`` packed into :func:`choose_windows` streams
-    of ``win`` lanes."""
-    nw = choose_windows(db.lengths[chunk], win, lanes, max_lanes)
-    return pack_streams(db, chunk, nw, win=win, jb=STREAM_JB, grain=STREAM_GRAIN)
+) -> StreamPlan:
+    """The placement of ``chunk``'s records (ids into ``lengths``) on
+    :func:`choose_windows` streams of ``win`` lanes."""
+    nw = choose_windows(lengths[chunk], win, lanes, max_lanes)
+    return plan_streams(lengths, chunk, nw, win=win, jb=STREAM_JB, grain=STREAM_GRAIN)
+
+
+def device_free_bytes(device: torch.device) -> int | None:
+    """Bytes a search may still take on ``device`` (the card's free memory,
+    ``torch.cuda.mem_get_info``, and PyTorch's cached blocks); None, no
+    limit, off a card."""
+    if device.type != "cuda":
+        return None
+    free, _ = torch.cuda.mem_get_info(device)
+    return free + torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+
+
+def chunk_device_bytes(plan: StreamPlan, queries: int = 1, striped: bool = False) -> int:
+    """Device bytes a chunk's launch holds: its streams and segment table,
+    its bests for ``queries`` (padded) queries twice over (a batch's blocks
+    are concatenated), and for the striped kernel its two boundary arrays
+    (16 B a stream cell)."""
+    cells = plan.nw * plan.L * plan.win
+    out = 4 * queries * len(plan.slot_lb) * plan.win
+    return cells * (17 if striped else 1) + plan.fs.nbytes + 2 * out
+
+
+def chunk_database(db: EncodedDatabase, chunk: np.ndarray) -> EncodedDatabase:
+    """The records ``chunk`` of ``db`` as a database of their own, in that
+    order (a host gather)."""
+    lengths = db.lengths[chunk]
+    offsets = np.zeros(len(chunk) + 1, dtype=np.int64)
+    np.cumsum(lengths, out=offsets[1:])
+    idx = np.repeat(db.offsets[chunk] - offsets[:-1], lengths) + np.arange(offsets[-1])
+    return EncodedDatabase(seq=db.seq[idx], offsets=offsets, names=[""] * len(chunk))
+
+
+class DevicePacker:
+    """Packs chunks of ``db`` on ``device`` (:func:`pack_streams_device`).
+
+    The first call copies the whole encoded database to the device, once
+    for every chunk after it; where it does not fit beside ``held_bytes``
+    (what the largest chunk's launch holds, :func:`chunk_device_bytes`) in
+    :func:`device_free_bytes`, each chunk copies only its own records,
+    gathered on the host (:func:`chunk_database`). Nothing outlives the
+    packer: each search makes its own.
+    """
+
+    def __init__(self, db: EncodedDatabase, device: torch.device, held_bytes: int = 0):
+        self.db, self.device, self.held_bytes = db, device, held_bytes
+        self.whole: tuple[torch.Tensor, torch.Tensor] | None = None
+        self.per_chunk = False
+
+    def __call__(self, plan: StreamPlan) -> tuple[torch.Tensor, torch.Tensor]:
+        if self.whole is None and not self.per_chunk:
+            free = device_free_bytes(self.device)
+            need = self.db.seq.nbytes + self.db.offsets.nbytes + self.held_bytes
+            self.per_chunk = free is not None and need > free
+            if not self.per_chunk:
+                self.whole = database_to_torch(self.db, self.device)
+        if self.per_chunk:
+            local = chunk_database(self.db, plan.order)
+            plan = dataclasses.replace(plan, order=np.arange(len(plan.order)))
+            return pack_streams_device(*database_to_torch(local, self.device), plan)
+        return pack_streams_device(*self.whole, plan)
 
 
 def stream_chunks(
     db: EncodedDatabase, order: np.ndarray, lanes: int | None,
     device: torch.device, max_residues: int | None = None,
-) -> Iterable[tuple[np.ndarray, StreamPack]]:
-    """``(records, pack)`` of each chunk a search launches on
-    (:func:`chunk_bounds`, :func:`pack_chunk`)."""
+) -> Iterable[tuple[np.ndarray, tuple[torch.Tensor, torch.Tensor, int]]]:
+    """``(records, (streams, fs, nslots))`` of each chunk a search launches
+    on (:func:`chunk_bounds`, :func:`plan_chunk`), packed on ``device`` by
+    one :class:`DevicePacker`."""
     max_lanes = resident_lanes(device)
-    for start, stop in chunk_bounds(db, order, max_residues):
-        chunk = order[start:stop]
-        yield chunk, pack_chunk(db, chunk, lanes, max_lanes)
+    plans = [(order[a:b], plan_chunk(db.lengths, order[a:b], lanes, max_lanes))
+             for a, b in chunk_bounds(db, order, max_residues)]
+    striped = max_residues is not None
+    packer = DevicePacker(db, device, max(
+        (chunk_device_bytes(p, striped=striped) for _, p in plans), default=0))
+    for chunk, plan in plans:
+        yield chunk, (*packer(plan), len(plan.slot_lb))
 
 
 def striped_chunk_residues() -> int:
@@ -426,7 +496,9 @@ def _stream_search(
     """Whole-database search through the segmented stream kernels.
 
     The database becomes NW window streams scored in one launch per chunk
-    of ``MAX_STREAM_SLOTS`` segments (:func:`chunk_bounds`). A 3-D
+    of ``MAX_STREAM_SLOTS`` segments (:func:`chunk_bounds`), each chunk
+    planned on the host and packed on the device from one copy of the
+    database (:class:`DevicePacker`). A 3-D
     ``(NQ, Lq, 32)`` profile runs one multi-query launch per block of
     queries (:func:`query_blocks`) over the same device-resident streams.
     The chunks are the single-query search's: the JAX package's smaller
@@ -435,31 +507,37 @@ def _stream_search(
     at 8 x 17 and 1.54x at 64 x 144 (PERF.md). A query over
     ``MAX_QUERY_ROWS`` rows runs the striped kernel, one launch per stripe
     of ``STRIPE_ROWS`` rows, in chunks whose boundaries fit
-    ``STRIPED_SCRATCH_BYTES``. Returns ``(N,)`` or ``(NQ, N)`` scores.
+    ``STRIPED_SCRATCH_BYTES``. Each launch's bests go to their records in a
+    device ``(N,)`` or ``(NQ, N)`` tensor (:func:`scatter_slots`), fetched
+    once at the end into page-locked memory. Returns ``(N,)`` or ``(NQ,
+    N)`` scores.
 
     With ``checkpoint_dir`` each chunk's scores persist as it finishes
     (:class:`_ScanCheckpoint`); a rerun of the same scan reads them back,
-    packs and launches nothing for them, and adds nothing to the kernel
-    time.
+    copies, packs and launches nothing for them, and adds nothing to the
+    kernel time.
     """
     n = db.n
     multi = profile.ndim == 3
     striped = not multi and profile.shape[0] > swa_cuda.MAX_QUERY_ROWS
-    kernel_time = 0.0
     if device.type == "cuda":
         from .ops import _build
 
         _build.load()  # a first use builds the kernel: set-up, not timed
+        # The reorder's first use in a process loads its kernels: set-up too.
+        scatter_slots(torch.zeros((1, 1), dtype=torch.int32, device=device),
+                      np.zeros(1, np.int64), torch.zeros((1, 1, 1), dtype=torch.int32,
+                                                         device=device))
+    queries = 1
     if multi:
-        nq = profile.shape[0]
-        scores = np.zeros((nq, n), dtype=np.int32)
         blocks = query_blocks(profile, go, n, device)
+        queries = sum(b.shape[0] for b in blocks)
     elif striped:
-        scores = np.zeros(n, dtype=np.int32)
         stripes = profile_stripes(profile, go, swa_cuda.STRIPE_ROWS, device)
     else:
-        scores = np.zeros(n, dtype=np.int32)
         prof_dev = profile_to_torch(profile, go, device)
+    shape = (profile.shape[0], n) if multi else (n,)
+    scores = torch.zeros(shape, dtype=torch.int32, device=device)
     # The query rows the stream kernels score: the ROW_ALIGN padding of the
     # profile never raises a score, and the one-pass kernel skips it.
     rows = profile.shape[-2]
@@ -470,44 +548,72 @@ def _stream_search(
         else None
     )
     max_lanes = resident_lanes(device)
+    todo = []
     for start, stop in bounds:
         chunk = order[start:stop]
         done = ckpt.load(start) if ckpt is not None else None
         if done is not None:
-            scores[..., chunk] = done
-            continue
-        pack = pack_chunk(db, chunk, lanes, max_lanes)
-        streams, fs = stream_pack_to_torch(pack, device)
-        kw = dict(nslots=len(pack.slot_ids), jb=STREAM_JB)
+            scores[..., torch.from_numpy(chunk).to(device)] = torch.from_numpy(done).to(device)
+        else:
+            todo.append((start, chunk, plan_chunk(db.lengths, chunk, lanes, max_lanes)))
+    packer = DevicePacker(db, device, scores.numel() * 4 + max(
+        (chunk_device_bytes(p, queries, striped) for *_, p in todo), default=0))
+    fetched = _host_scores(shape, device)
+    kernel_time = 0.0
+    for start, chunk, plan in todo:
+        streams, fs = packer(plan)
+        ids = torch.from_numpy(chunk).to(device)
+        kw = dict(nslots=len(plan.slot_lb), jb=STREAM_JB)
         _sync(device)
         t0 = time.perf_counter()
         if multi:
-            # Every block's launch is enqueued before the one fetch.
-            outs = [sw_stream_multi(b, streams, fs, go, ge, rows=rows, **kw)
-                    for b in blocks]
-            out = torch.cat(outs, dim=1).cpu()
+            # Every block's launch is enqueued before the reorder.
+            out = torch.cat([sw_stream_multi(b, streams, fs, go, ge, rows=rows, **kw)
+                             for b in blocks], dim=1)
         elif striped:
-            # Every stripe's launch is enqueued before the one fetch.
-            out = sw_stream_striped(stripes, streams, fs, go, ge, **kw).cpu()
+            # Every stripe's launch is enqueued before the reorder.
+            out = sw_stream_striped(stripes, streams, fs, go, ge, **kw)
         else:
-            out = sw_stream(prof_dev, streams, fs, go, ge, rows=rows, **kw).cpu()
+            out = sw_stream(prof_dev, streams, fs, go, ge, rows=rows, **kw)
+        scatter_slots(scores, ids, out)
+        _sync(device)
         kernel_time += time.perf_counter() - t0
-        scatter_slots(scores, chunk, out)
+        del streams, fs, out
         if ckpt is not None:
-            ckpt.save(start, scores[..., chunk])
-    return scores, kernel_time
+            ckpt.save(start, scores[..., ids].cpu().numpy())
+    t0 = time.perf_counter()
+    fetched.copy_(scores)
+    if todo:
+        kernel_time += time.perf_counter() - t0
+    return fetched.numpy(), kernel_time
 
 
-def scatter_slots(scores: np.ndarray, chunk: np.ndarray, out: torch.Tensor) -> None:
-    """Write a stream launch's fetched ``(nslots, win)`` bests, or a
-    multi-query launch's ``(nslots, nq_b, win)`` (blocks concatenated on
-    the query axis, zero-profile padding queries past ``scores``' rows),
-    into ``scores[..., chunk]``.
+def _host_scores(shape: tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """The host tensor a search's bests are fetched into: page-locked where
+    they come from a card."""
+    return torch.empty(shape, dtype=torch.int32, pin_memory=device.type == "cuda")
 
-    :func:`pack_chunk` puts chunk records ``[s*win, (s+1)*win)`` in slot
-    ``s`` (``pack.slot_ids``), so the flattened slots are the chunk in
+
+def scatter_slots(scores, chunk, out: torch.Tensor) -> None:
+    """Write a stream launch's ``(nslots, win)`` bests, or a multi-query
+    launch's ``(nslots, nq_b, win)`` (blocks concatenated on the query
+    axis, zero-profile padding queries past ``scores``' rows), into
+    ``scores[..., chunk]``.
+
+    :func:`plan_chunk` puts chunk records ``[s*win, (s+1)*win)`` in slot
+    ``s`` (``plan.slot_ids``), so the flattened slots are the chunk in
     packing order, the final group's padding lanes past its end.
+
+    A numpy ``scores`` takes fetched bests (the host form, which the tests
+    hold the device form to); a tensor ``scores`` takes them where they
+    lie, ``chunk`` made a tensor there if it is not one.
     """
+    if isinstance(scores, torch.Tensor):
+        chunk = torch.as_tensor(chunk, device=scores.device)
+        if out.ndim == 3:
+            out = out.transpose(0, 1).reshape(out.shape[1], -1)[: scores.shape[0]]
+        scores[..., chunk] = out.reshape(*scores.shape[:-1], -1)[..., : chunk.numel()]
+        return
     if out.ndim == 3:
         flat = out.numpy().transpose(1, 0, 2).reshape(out.shape[1], -1)
         scores[:, chunk] = flat[: scores.shape[0], : len(chunk)]

@@ -10,11 +10,17 @@ the same stream.
         [--nq N] [--fixed [--teams]] [--stream-chunk N] [--out FILE.json]
 
 times each layer of a search over it on the GPU, PAM250, gaps -2/-1: the
-FASTA parse and ``pack_streams``, each native (the fastio library that
-``seqalign_tpu_torch.native`` builds) and pure Python, the host-to-device
-copy, the kernel (CUDA
-events), the fetch and scatter, the whole ``search_database`` call, and the
-device's busy share under ``torch.profiler``. It then times the kernel at
+FASTA parse and the host packer ``pack_streams``, each native (the fastio
+library that ``seqalign_tpu_torch.native`` builds) and pure Python; then
+the pipeline's steps: the sort, the plan (``pipeline.plan_chunk``), the
+database's copy to the card (``convert.database_to_torch``'s page-locked
+pieces beside a pageable copy and the arrays registered in place, each
+twice: :func:`copy_database`), the pack kernel (``pack_streams_device``,
+CUDA events), the kernel (CUDA events), the reorder on the card and the
+fetch into page-locked memory; beside them the host packer's steps they
+replaced (pack, copy of the streams, fetch and numpy scatter); the whole
+``search_database`` call, and the device's busy share under
+``torch.profiler``. It then times the kernel at
 each query length of ``--lq`` (the pipeline's own window count) and, with
 the 144-residue query, at each window count of ``--windows``. A query
 longer than ``MAX_QUERY_ROWS`` runs the row-striped kernel (K2) at each
@@ -30,10 +36,11 @@ written to and parsed from ``build/`` of the checkout.
 
 With ``--nq N`` it times the multi-query search instead, for a batch of N
 random queries of each length of ``--lq`` (``--nq 8 --lq 17`` is
-bench.py's multi-query point): the pack, the host-to-device copy, the
-multi-query kernel (CUDA events, every launch of the batch), the fetch and
-scatter, the whole ``search_database_multi`` call and the device's busy
-share; beside them, the single-query kernel looped over the N queries on
+bench.py's multi-query point): the plan, copy and pack of every chunk,
+the multi-query kernel (CUDA events, every launch of the batch), the
+reorder on the card and the fetch (beside the host scatter it replaced),
+the whole ``search_database_multi`` call and the device's busy share;
+beside them, the single-query kernel looped over the N queries on
 the same streams. Where the length runs a team of one thread (up to 24
 rows: the solo kernel), K3 is also timed at each Q built (queries a
 thread, ``queries=``), in turns: the sweep ``swa_cuda.
@@ -254,6 +261,52 @@ def device_busy(fn):
     return wall, busy_us / 1e3, top
 
 
+def copy_database(db: EncodedDatabase, dev, how: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """``convert.database_to_torch``'s copy (``how="pinned"``: page-locked
+    pieces), or one of the two it was measured against: ``"pageable"``
+    (one copy from the arrays as they lie) or ``"registered"`` (the arrays
+    page-locked in place for the copy)."""
+    from .convert import database_to_torch
+
+    if how == "pinned":
+        return database_to_torch(db, dev)
+    arrays = (db.seq, np.asarray(db.offsets, np.int64))
+    if how == "pageable":
+        return tuple(torch.from_numpy(a).to(dev) for a in arrays)
+    if how != "registered":
+        raise ValueError(f"unknown copy {how!r}")
+    cudart = torch.cuda.cudart()
+    out = []
+    for a in arrays:
+        src = torch.from_numpy(a)
+        err = cudart.cudaHostRegister(src.data_ptr(), a.nbytes, 0)
+        if int(err):
+            raise RuntimeError(f"cudaHostRegister failed: {err}")
+        try:
+            out.append(src.to(dev, non_blocking=True))
+            torch.cuda.current_stream(dev).synchronize()
+        finally:
+            cudart.cudaHostUnregister(src.data_ptr())
+    return tuple(out)
+
+
+def reorder_and_fetch(outs, shape, dev) -> tuple[float, np.ndarray]:
+    """Seconds to put each chunk's launch output ``(chunk, out)`` in
+    database order on the card and fetch it once into page-locked memory,
+    as the pipeline's timer ends (the page-locked buffer made first, as
+    the pipeline makes it before its timer); and the scores."""
+    from . import pipeline
+
+    fetched = pipeline._host_scores(shape, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scores = torch.zeros(shape, dtype=torch.int32, device=dev)
+    for chunk, out in outs:
+        pipeline.scatter_slots(scores, chunk, out)
+    fetched.copy_(scores)
+    return time.perf_counter() - t0, fetched.numpy()
+
+
 @contextlib.contextmanager
 def python_ingest():
     """``native_io``'s pure-Python parse and pack in place of the native
@@ -464,7 +517,7 @@ def multi_breakdown(db, nq: int, lq: int, say) -> dict:
     """Where a multi-query search of nq queries of lq residues spends its
     time, and the single-query kernel looped over the same queries."""
     from . import pipeline
-    from .convert import profile_to_torch, stream_pack_to_torch
+    from .convert import profile_to_torch
     from .ops.swa_cuda import (
         STREAM_JB, STREAM_SOLO_QUERIES, STREAM_SOLO_ROWS, stream_kernel_instance,
         stream_team, sw_stream, sw_stream_multi,
@@ -484,34 +537,30 @@ def multi_breakdown(db, nq: int, lq: int, say) -> dict:
     order = np.argsort(-db.lengths, kind="stable")
     blocks = pipeline.query_blocks(
         pipeline.multi_profile(sc.table, queries), go, db.n, dev)
-    steps["sort_and_plan"] = time.perf_counter() - t0
-    steps["pack"] = steps["h2d"] = steps["fetch_and_scatter"] = 0.0
-    chunks = []
-    it = pipeline.stream_chunks(db, order, None, dev)
-    while True:
-        t0 = time.perf_counter()
-        item = next(it, None)
-        steps["pack"] += time.perf_counter() - t0
-        if item is None:
-            break
-        chunk, pack = item
-        (streams, fs), dt = _seconds(lambda: stream_pack_to_torch(pack, dev))
-        steps["h2d"] += dt
-        chunks.append((chunk, streams, fs, len(pack.slot_ids)))
+    steps["sort_and_profiles"] = time.perf_counter() - t0
+    # Plan, copy of the database and pack kernel, chunk by chunk, as the
+    # pipeline runs them before its timer.
+    chunks, steps["plan_copy_pack"] = _seconds(
+        lambda: [(chunk, *packed) for chunk, packed in
+                 pipeline.stream_chunks(db, order, None, dev)])
 
     def k3_all():
         return [sw_stream_multi(b, s, f, go, ge, nslots=ns, rows=lq, **kw)
                 for _, s, f, ns in chunks for b in blocks]
 
     steps["kernel"] = cuda_ms(k3_all, 3) / 1e3
+    outs = [(chunk, torch.cat([sw_stream_multi(b, s, f, go, ge, nslots=ns, rows=lq, **kw)
+                               for b in blocks], dim=1)) for chunk, s, f, ns in chunks]
+    steps["reorder_and_fetch"], fetched = reorder_and_fetch(outs, (nq, db.n), dev)
+    # The host packer's step it replaced: a pageable fetch, a numpy scatter.
+    t0 = time.perf_counter()
     scores = np.zeros((nq, db.n), np.int32)
-    for chunk, s, f, ns in chunks:
-        outs = [sw_stream_multi(b, s, f, go, ge, nslots=ns, rows=lq, **kw) for b in blocks]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = torch.cat(outs, dim=1).cpu().numpy()
-        scores[:, chunk] = out.transpose(1, 0, 2).reshape(out.shape[1], -1)[:nq, : len(chunk)]
-        steps["fetch_and_scatter"] += time.perf_counter() - t0
+    for chunk, out in outs:
+        pipeline.scatter_slots(scores, chunk, out.cpu())
+    steps["host_fetch_and_scatter"] = time.perf_counter() - t0
+    if not np.array_equal(scores, fetched):
+        raise SystemExit(f"{tag} the reorder on the card != the host scatter")
+    del outs
     shape = (f"{len(blocks)} block(s) of {blocks[0].shape[0]} x {blocks[0].shape[1]} "
              f"rows, {len(chunks)} chunk(s), nw="
              + "/".join(str(s.shape[0]) for _, s, _, _ in chunks)
@@ -563,8 +612,9 @@ def multi_breakdown(db, nq: int, lq: int, say) -> dict:
 def main(argv=None) -> int:
     from . import pipeline, sass
     from .convert import profile_stripes, profile_to_torch, stream_pack_to_torch
-    from .host import pack_streams
+    from .host import pack_streams, plan_streams
     from .ops import _build
+    from .ops.pack_cuda import pack_streams_device
     from .ops.swa_cuda import (
         MAX_QUERY_ROWS, STREAM_JB, STRIPE_ROWS, stripe_kernel_instance,
         stripe_rows_per_thread, sw_stream, sw_stream_striped,
@@ -634,33 +684,52 @@ def main(argv=None) -> int:
     say(f"[steps] parse {db.n} records, {residues} residues: {steps['parse']} s "
         f"(Python {steps['parse_python']} s)")
 
-    # The pipeline's steps one by one, as _stream_search runs them.
+    # The pipeline's steps one by one, as _stream_search runs them, and
+    # the host packer's steps they replaced.
     pipeline.search_database(query, db, sc, device=dev)  # builds the kernel
     t0 = time.perf_counter()
     order = np.argsort(-db.lengths, kind="stable")
-    win = pipeline.WINDOW_LANES
-    nw = pipeline.choose_windows(
-        db.lengths[order], win, None, pipeline.resident_lanes(dev)
-    )
-    steps["sort_and_windows"] = time.perf_counter() - t0
+    steps["sort"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    pack = pack_streams(db, order, nw, win=win, jb=STREAM_JB,
-                        grain=pipeline.STREAM_GRAIN)
-    steps["pack"] = time.perf_counter() - t0
-    (streams, fs), steps["h2d"] = _seconds(lambda: stream_pack_to_torch(pack, dev))
+    plan = pipeline.plan_chunk(db.lengths, order, None, pipeline.resident_lanes(dev))
+    steps["plan"] = time.perf_counter() - t0
+    nw, win = plan.nw, plan.win
+    copies = {}
+    for how in ("pageable", "pinned", "registered") * 2:
+        dev_db, dt = _seconds(lambda: copy_database(db, dev, how))
+        copies.setdefault(how, []).append(dt)
+    steps["h2d_residues"] = min(copies["pinned"])
+    result["database_copy_s"] = copies
+    say(f"[steps] the database's copy ({db.seq.nbytes + db.offsets.nbytes} B), twice each "
+        f"way: {copies}; the pipeline's: pinned")
+    streams, fs = pack_streams_device(*dev_db, plan)
+    steps["pack_kernel"] = cuda_ms(lambda: pack_streams_device(*dev_db, plan), 5) / 1e3
     prof = profile_to_torch(make_profile(sc.table, query), go, dev)
-    kw = dict(nslots=len(pack.slot_ids), jb=STREAM_JB)
+    kw = dict(nslots=len(plan.slot_lb), jb=STREAM_JB)
     kernel_ms = cuda_ms(lambda: sw_stream(prof, streams, fs, go, ge, **kw), 5)
     steps["kernel"] = kernel_ms / 1e3
     out = sw_stream(prof, streams, fs, go, ge, **kw)
+    steps["reorder_and_fetch"], scores = reorder_and_fetch([(order, out)], (db.n,), dev)
+    old = result["host_packer_steps_s"] = {}
+    t0 = time.perf_counter()
+    pack = pack_streams(db, order, nw, win=win, jb=STREAM_JB, grain=pipeline.STREAM_GRAIN)
+    old["pack"] = time.perf_counter() - t0
+    (h_streams, h_fs), old["h2d_streams"] = _seconds(lambda: stream_pack_to_torch(pack, dev))
+    if not (torch.equal(h_streams, streams) and torch.equal(h_fs, fs)):
+        raise SystemExit("swissprot: the pack kernel's streams != the host packer's")
+    del h_streams, h_fs, pack
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    scores = np.zeros(db.n, np.int32)
-    scores[order] = out.cpu().numpy().reshape(-1)[: db.n]
-    steps["fetch_and_scatter"] = time.perf_counter() - t0
-    padded = pack.padded_cells_per_query_row / residues
+    host = np.zeros(db.n, np.int32)
+    pipeline.scatter_slots(host, order, out.cpu())
+    old["fetch_and_scatter"] = time.perf_counter() - t0
+    if not np.array_equal(host, scores):
+        raise SystemExit("swissprot: the reorder on the card != the host scatter")
+    padded = plan.padded_cells_per_query_row / residues
     for k, v in steps.items():
         say(f"[steps] {k}: {v} s")
+    for k, v in old.items():
+        say(f"[steps] the host packer's {k}: {v} s")
 
     walls = []
     for _ in range(3):
@@ -715,10 +784,10 @@ def main(argv=None) -> int:
                 say(f"[last pass] lq={lq}: the last of {len(stripes)} passes, {rows} rows, at "
                     f"R = {list(ms)}: {list(ms.values())} ms")
             for w in windows:
-                pw = pack_streams(db, order, w, win=win, jb=STREAM_JB,
+                pw = plan_streams(db.lengths, order, w, win=win, jb=STREAM_JB,
                                   grain=pipeline.STREAM_GRAIN)
-                s_w, fs_w = stream_pack_to_torch(pw, dev)
-                kw_w = dict(nslots=len(pw.slot_ids), jb=STREAM_JB)
+                s_w, fs_w = pack_streams_device(*dev_db, pw)
+                kw_w = dict(nslots=len(pw.slot_lb), jb=STREAM_JB)
                 ms = cuda_ms(lambda: sw_stream_striped(stripes, s_w, fs_w, go, ge, **kw_w), 2)
                 pad_w = pw.padded_cells_per_query_row / residues
                 result["long_windows"].append({"lq": lq, "nw": w, "L": s_w.shape[1],
@@ -743,10 +812,10 @@ def main(argv=None) -> int:
             f"residues (padded/real cells {padded})")
     del streams, fs
     for w in windows:
-        pw = pack_streams(db, order, w, win=win, jb=STREAM_JB,
+        pw = plan_streams(db.lengths, order, w, win=win, jb=STREAM_JB,
                           grain=pipeline.STREAM_GRAIN)
-        s_w, fs_w = stream_pack_to_torch(pw, dev)
-        kw_w = dict(nslots=len(pw.slot_ids), jb=STREAM_JB)
+        s_w, fs_w = pack_streams_device(*dev_db, pw)
+        kw_w = dict(nslots=len(pw.slot_lb), jb=STREAM_JB)
         ms = cuda_ms(lambda: sw_stream(prof, s_w, fs_w, go, ge, **kw_w), 3)
         pad_w = pw.padded_cells_per_query_row / residues
         gcups = len(query) * residues / ms / 1e6

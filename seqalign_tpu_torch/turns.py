@@ -1,9 +1,10 @@
 """Time the stream kernels (K1, K3) of this checkout against another
 checkout's, in turns, on one card; or, with ``--longpair``, its
-sequence-parallel long pair; or, with ``--fixed``, its fixed-batch kernel.
+sequence-parallel long pair; or, with ``--fixed``, its fixed-batch kernel;
+or, with ``--wall``, its whole searches.
 
-    python -m seqalign_tpu_torch.turns --against DIR [--longpair | --fixed] [--reps N]
-        [--cells NAME,...] [--out FILE.json]
+    python -m seqalign_tpu_torch.turns --against DIR [--longpair | --fixed | --wall]
+        [--reps N] [--cells NAME,...] [--out FILE.json]
 
 ``DIR`` is the root of another checkout of the repo (for example the parent
 commit, unpacked with ``git archive`` into ``build/parent``). A worker
@@ -38,9 +39,14 @@ windows on the card before the clock starts: every batch's launch once
 untimed, then ``--reps`` passes under CUDA events, with each pass's
 device-memory peak above the windows and the cells K4 runs, as
 ``swa_cuda.windows_cells`` models them from the batch (a checkout without
-it is taken to run every batch cell). The scores of every run must be equal. Each line names the card
-and its power limit;
-``--out`` gets the same as JSON.
+it is taken to run every batch cell). With ``--wall`` it times each
+checkout's whole ``search_database`` (``search_database_multi``) call at
+the cells of ``WALL_CELLS`` (lq=144, 64 x 144, lq=2000): one call
+untimed, then ``--reps`` calls on the host clock (the search wall, from
+the sorted database to the scores on the host) with their kernel timers,
+and one more under ``torch.profiler`` for the device's busy share. The
+scores of every run must be equal. Each line names the card and its power
+limit; ``--out`` gets the same as JSON.
 """
 
 from __future__ import annotations
@@ -61,6 +67,8 @@ CELLS = (
 # The pipeline's name of each kernel's wrapper: the launches a cell replays.
 WRAPPERS = {"K1": "sw_stream", "K2": "sw_stream_striped", "K3": "sw_stream_multi"}
 LONGPAIR_INPUTS = Path("build/turns/longpair.npz")
+# The whole searches --wall times, named and drawn as in CELLS.
+WALL_CELLS = (("K1", 1, 144, None), ("K3", 64, 144, 200), ("K2", 1, 2000, 2000))
 
 
 def _longpair_inputs(this: Path) -> Path:
@@ -193,6 +201,56 @@ def _fixed_worker(root: str, reps: int) -> dict:
     return out
 
 
+def _wall_worker(root: str, reps: int) -> dict:
+    """One checkout's whole searches (``WALL_CELLS``); imports its package
+    from ``root``."""
+    sys.path[0] = root
+    import hashlib
+    import time
+
+    import torch
+
+    from seqalign_tpu_torch import pipeline
+    from seqalign_tpu_torch.swissprot import (
+        card, device_busy, pam250, random_query, swissprot_db,
+    )
+
+    query, db = swissprot_db()
+    sc = pam250()
+    out = {"root": root, "card": card(), "cells": {}}
+    for kernel, nq, lq, seed in WALL_CELLS:
+        if kernel == "K3":
+            queries = [random_query(lq, seed + k) for k in range(nq)]
+
+            def search():
+                return pipeline.search_database_multi(queries, db, sc, device="cuda")
+        else:
+            q = query if seed is None else random_query(lq, seed)
+
+            def search():
+                return pipeline.search_database(q, db, sc, device="cuda")
+
+        search()  # untimed: the kernels' build
+        walls, timers = [], []
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            scores, kernel_s = search()
+            walls.append(time.perf_counter() - t0)
+            timers.append(kernel_s)
+        peak = torch.cuda.max_memory_allocated() - base
+        wall, busy_ms, _ = device_busy(search)
+        out["cells"][f"wall {kernel} {nq}x{lq}"] = {
+            "launches": None, "ms": [w * 1e3 for w in walls], "memory_peak_bytes": peak,
+            "kernel_timer_ms": [t * 1e3 for t in timers],
+            "busy_share": busy_ms / 1e3 / wall, "profiled_wall_ms": wall * 1e3,
+            "scores_sha256": hashlib.sha256(scores.tobytes()).hexdigest(),
+        }
+    return out
+
+
 def _worker(root: str, reps: int, cells: list[str] | None = None) -> dict:
     """One checkout's cells (those named in ``cells``, or all); imports its
     package from ``root``."""
@@ -253,13 +311,15 @@ def _worker(root: str, reps: int, cells: list[str] | None = None) -> dict:
 
 
 def run(other: Path, reps: int = 3, say=print, longpair: bool = False,
-        fixed: bool = False, cells: str | None = None) -> dict:
+        fixed: bool = False, cells: str | None = None, wall: bool = False) -> dict:
     """The four turns (other, this, this, other) and, per cell, each run's
     fastest replay (call, for the long pair; pass over the batches, for the
-    fixed-batch kernel), both checkouts' launches and other / this."""
+    fixed-batch kernel; search, with ``wall``), both checkouts' launches
+    and other / this."""
     this = Path(__file__).resolve().parents[1]
     extra = ["--longpair", "--inputs", str(_longpair_inputs(this))] if longpair else []
     extra += ["--fixed"] if fixed else []
+    extra += ["--wall"] if wall else []
     extra += ["--cells", cells] if cells else []
     runs = []
     for root in (other, this, this, other):
@@ -290,6 +350,14 @@ def run(other: Path, reps: int = 3, say=print, longpair: bool = False,
             if k in got[0]:
                 cells[cell][f"other_{k}"] = got[0][k]
                 cells[cell][f"this_{k}"] = got[1][k]
+        if "busy_share" in got[0]:
+            for k in ("kernel_timer_ms", "busy_share"):
+                cells[cell][f"other_{k}"] = [got[0][k], got[3][k]]
+                cells[cell][f"this_{k}"] = [got[1][k], got[2][k]]
+            say(f"[turns] {cell}: kernel timer (ms) other {cells[cell]['other_kernel_timer_ms']}, "
+                f"this {cells[cell]['this_kernel_timer_ms']}; busy share other "
+                f"{cells[cell]['other_busy_share']}, this {cells[cell]['this_busy_share']} "
+                f"| {runs[0]['card']}")
         say(f"[turns] {cell}: other {other_ms} ms ({got[0]['launches']} launches, "
             f"peak {got[0]['memory_peak_bytes']} B), this {this_ms} ms "
             f"({got[1]['launches']} launches, peak {got[1]['memory_peak_bytes']} B), "
@@ -308,6 +376,8 @@ def main(argv=None) -> int:
                     help="time sw_longpair (swissprot.LONGPAIR_RUNS) instead of K1 and K3")
     ap.add_argument("--fixed", action="store_true",
                     help="time K4 and K5 over the fixed lane batches instead")
+    ap.add_argument("--wall", action="store_true",
+                    help="time whole searches (WALL_CELLS) instead")
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--cells", default=None,
                     help="only these cells of CELLS, comma-separated (\"K1 1x17,K3 8x17\")")
@@ -320,6 +390,8 @@ def main(argv=None) -> int:
             print(json.dumps(_longpair_worker(args.worker, args.reps, args.inputs)))
         elif args.fixed:
             print(json.dumps(_fixed_worker(args.worker, args.reps)))
+        elif args.wall:
+            print(json.dumps(_wall_worker(args.worker, args.reps)))
         else:
             cells = args.cells.split(",") if args.cells else None
             print(json.dumps(_worker(args.worker, args.reps, cells)))
@@ -327,7 +399,8 @@ def main(argv=None) -> int:
     if not args.against:
         ap.error("--against DIR is required")
     result = run(Path(args.against).resolve(), args.reps,
-                 lambda msg: print(msg, flush=True), args.longpair, args.fixed, args.cells)
+                 lambda msg: print(msg, flush=True), args.longpair, args.fixed, args.cells,
+                 args.wall)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(result, indent=1))

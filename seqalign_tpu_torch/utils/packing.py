@@ -22,6 +22,7 @@ bounded by the lattice ratio (25%) instead of the longest database sequence.
 
 from __future__ import annotations
 
+import heapq
 from dataclasses import dataclass
 from typing import Iterator, Sequence
 
@@ -106,6 +107,108 @@ class StreamPack:
     padded_cells_per_query_row: int  # nw * L * win (perf accounting)
 
 
+@dataclass
+class StreamPlan:
+    """Where :func:`pack_streams` puts every record, before any byte moves.
+
+    Slot ``s`` holds the records ``order[s*win : (s+1)*win]`` (lane ``l``
+    the ``l``-th of them) at positions ``[slot_start[s], slot_start[s] +
+    slot_lb[s])`` of stream ``slot_w[s]``; every other position of a stream,
+    up to ``L``, is '*' padding. ``fs`` is the segment table the kernel
+    reads. The plan is host work; :func:`pack_streams` fills it on the host,
+    ``ops.pack_cuda.pack_streams_device`` on the card.
+    """
+
+    order: np.ndarray  # record ids in packing order
+    nw: int
+    win: int
+    jb: int
+    L: int
+    slot_w: np.ndarray  # (nslots,) int64 stream of each slot
+    slot_start: np.ndarray  # (nslots,) int64 its first position there
+    slot_lb: np.ndarray  # (nslots,) int64 its positions (a grain multiple)
+    fs: np.ndarray  # (L//jb, nw, 2) int32 segment table (see kernel)
+    real_residues: int
+    padded_cells_per_query_row: int  # nw * L * win (perf accounting)
+
+    @property
+    def slot_ids(self) -> list[np.ndarray]:
+        """Per output slot: original record ids."""
+        return [self.order[s * self.win : (s + 1) * self.win]
+                for s in range(len(self.slot_lb))]
+
+
+def plan_streams(
+    lengths: np.ndarray,
+    order: np.ndarray,
+    nw: int,
+    win: int = 1024,
+    jb: int = 4,
+    grain: int = 32,
+    target_len: int | None = None,
+) -> StreamPlan:
+    """Place lane-groups of a sorted database on NW balanced window streams.
+
+    Args:
+      lengths: every record's residue count (``EncodedDatabase.lengths``).
+      order, nw, win, jb, grain, target_len: as :func:`pack_streams`.
+
+    Lane-groups of ``win`` consecutive records (descending length, so
+    near-uniform within a group) become segments; segments are dealt to the
+    currently-shortest stream, the lowest-numbered of equals (greedy
+    balancing — they arrive in descending length order, so streams end
+    within one segment of each other).
+    """
+    if grain % jb:
+        raise ValueError(f"{grain=} must be a multiple of {jb=}")
+    order = np.asarray(order)
+    n = len(order)
+    nslots = -(-n // win)
+    seg = lengths[order].astype(np.int64)
+    top = np.maximum.reduceat(seg, np.arange(0, n, win)) if n else seg
+    slot_lb = np.maximum(-(-top // grain) * grain, grain)
+    # Greedy balance: place each segment on the shortest stream (a heap of
+    # (length, stream) pops the lowest stream of equal lengths).
+    heap = [(0, w) for w in range(nw)]
+    slot_w = np.zeros(nslots, np.int64)
+    slot_start = np.zeros(nslots, np.int64)
+    for s, lb in enumerate(slot_lb.tolist()):
+        off, w = heap[0]
+        slot_w[s], slot_start[s] = w, off
+        heapq.heapreplace(heap, (off + lb, w))
+    L = max(max(off for off, _ in heap), grain)
+    if target_len is not None:
+        if target_len < L or target_len % jb:
+            raise ValueError(
+                f"{target_len=} must be a jb multiple >= natural length {L}"
+            )
+        L = target_len
+    else:
+        # Round up with ~3% granularity (multiples of grain) so kernel
+        # shapes recur across similar databases without meaningful padding
+        # (tail padding is real DP work; the coarse geometric lattice used
+        # for per-batch shapes wastes up to 25% here).
+        step = max(grain, (L >> 5) // grain * grain)
+        L = -(-L // step) * step
+    fs = np.zeros((L // jb, nw, 2), dtype=np.int32)
+    # A segment that starts after another on its stream flushes that one
+    # at its first block; each stream's last segment flushes at the end.
+    slots = np.arange(nslots)
+    by_stream = np.lexsort((slot_start, slot_w))
+    w_sorted = slot_w[by_stream]
+    same = w_sorted[1:] == w_sorted[:-1]
+    later = np.flatnonzero(same) + 1
+    fs[slot_start[by_stream[later]] // jb, w_sorted[later], 0] = slots[by_stream[later - 1]] + 1
+    last = np.flatnonzero(np.append(~same, nslots > 0))
+    fs[L // jb - 1, w_sorted[last], 1] = slots[by_stream[last]] + 1
+    return StreamPlan(
+        order=order, nw=nw, win=win, jb=jb, L=L, slot_w=slot_w,
+        slot_start=slot_start, slot_lb=slot_lb, fs=fs,
+        real_residues=int(seg.sum()),
+        padded_cells_per_query_row=nw * L * win,
+    )
+
+
 def pack_streams(
     db,
     order: np.ndarray,
@@ -126,70 +229,33 @@ def pack_streams(
       grain: segment-length rounding (multiple of jb); coarser = fewer
         boundary entries, finer = less padding.
 
-    Lane-groups of ``win`` consecutive records (descending length, so
-    near-uniform within a group) become segments; segments are dealt to the
-    currently-shortest stream (greedy balancing — they arrive in descending
-    length order, so streams end within one segment of each other).
+    The host fill of :func:`plan_streams`' placement (which see).
     ``target_len`` pads every stream to a fixed length (must be a multiple
-    of ``grain`` and >= the natural length) so compiled kernel shapes can be
+    of ``jb`` and >= the natural length) so compiled kernel shapes can be
     reused across databases; tail padding is '*' continuation of the final
-    segment, which never changes its score.
+    segment, which never changes its score. ``pack_streams.calls`` counts
+    the calls.
     """
     from .native_io import pack_batch
 
-    if grain % jb:
-        raise ValueError(f"{grain=} must be a multiple of {jb=}")
-    n = len(order)
-    lengths = db.lengths
-    nslots = -(-n // win)
-    slot_ids = [order[s * win : (s + 1) * win] for s in range(nslots)]
-    slot_lb = [
-        max(grain, -(-int(lengths[ids].max(initial=1)) // grain) * grain)
-        for ids in slot_ids
-    ]
-    # Greedy balance: place each segment on the shortest stream.
-    stream_len = [0] * nw
-    placement: list[list[int]] = [[] for _ in range(nw)]
-    for s in range(nslots):
-        w = min(range(nw), key=stream_len.__getitem__)
-        placement[w].append(s)
-        stream_len[w] += slot_lb[s]
-    L = max(max(stream_len), grain)
-    if target_len is not None:
-        if target_len < L or target_len % jb:
-            raise ValueError(
-                f"{target_len=} must be a jb multiple >= natural length {L}"
-            )
-        L = target_len
-    else:
-        # Round up with ~3% granularity (multiples of grain) so kernel
-        # shapes recur across similar databases without meaningful padding
-        # (tail padding is real DP work; the coarse geometric lattice used
-        # for per-batch shapes wastes up to 25% here).
-        step = max(grain, (L >> 5) // grain * grain)
-        L = -(-L // step) * step
-    streams = np.full((nw, L, win), PAD_INDEX, dtype=np.int8)
-    fs = np.zeros((L // jb, nw, 2), dtype=np.int32)
-    for w in range(nw):
-        off = 0
-        for k, s in enumerate(placement[w]):
-            if k > 0:
-                # A new segment starts at this block: flush the previous one.
-                fs[off // jb, w, 0] = placement[w][k - 1] + 1
-            pack_batch(
-                db, slot_ids[s], win, slot_lb[s],
-                out=streams[w, off : off + slot_lb[s]],
-            )
-            off += slot_lb[s]
-        if placement[w]:
-            fs[L // jb - 1, w, 1] = placement[w][-1] + 1
+    pack_streams.calls += 1
+    plan = plan_streams(db.lengths, order, nw, win=win, jb=jb, grain=grain,
+                        target_len=target_len)
+    streams = np.full((nw, plan.L, win), PAD_INDEX, dtype=np.int8)
+    slot_ids = plan.slot_ids
+    for s, (w, off, lb) in enumerate(zip(plan.slot_w.tolist(), plan.slot_start.tolist(),
+                                         plan.slot_lb.tolist())):
+        pack_batch(db, slot_ids[s], win, lb, out=streams[w, off : off + lb])
     return StreamPack(
         streams=streams,
-        fs=fs,
+        fs=plan.fs,
         slot_ids=slot_ids,
-        real_residues=int(lengths[order].sum()),
-        padded_cells_per_query_row=nw * L * win,
+        real_residues=plan.real_residues,
+        padded_cells_per_query_row=plan.padded_cells_per_query_row,
     )
+
+
+pack_streams.calls = 0
 
 
 # NOTE: a windowed-sort streaming packer (pack_stream) used to live here;
