@@ -75,10 +75,15 @@ Phases, each printing its own lines; any failure exits nonzero:
    every score is checked against the plain version, and 256 against the
    wavefront engine, on the card; the pack kernel against its plain
    version and the host packer, byte for byte, on small cases (empty
-   records, '*' inside records, windows of 100 lanes, a target length) and
-   on the whole database, where it is timed with CUDA events (the launch
-   alone and the wrapper with its copies of the plan) beside its plain
-   version and its bound; the database's copy to the card three ways
+   records, '*' inside records, windows of 100 lanes, a target length,
+   records starting at every byte offset mod 16, lengths 0-257 around its
+   words and tiles, a slot longer than a CTA's run) and on the whole
+   database, where it is timed with CUDA events (the launch alone, and
+   the wrapper with its one copy of the plan's ids, runs and fs through
+   the search's page-locked pieces; the wrapper's host steps on the host
+   clock) beside its plain version, one torch.take over a prebuilt index
+   (the library's yardstick) and its bound; its registers
+   and no spills; the database's copy to the card three ways
    (pageable, through page-locked pieces, registered in place) beside the
    host packer's streams' copy; the search's wall and its device busy
    share under torch.profiler;
@@ -189,8 +194,9 @@ With ``--against DIR`` (another checkout, for example the parent commit
 unpacked under build/) it then times K1 and K3 in turns against that
 checkout's kernels, one process each, other, this, this, other
 (seqalign_tpu_torch.turns): K1 at lq=17, 144, 512, 1536, K2 at lq=2000,
-K3 at 8 x 17, 64 x 17 and 64 x 144, as each checkout's own pipeline
-launches them, with each search's device-memory peak.
+K3 at 8 x 17, 64 x 17 and 64 x 144, and the stream pack of the lq=144
+search, as each checkout's own pipeline launches them, with each
+search's device-memory peak.
 
 The line before the last is a JSON object describing the kernels (route,
 source, launches on their path, max error, times, the card's bound for the
@@ -1199,8 +1205,13 @@ def read_pack_counts():
 
 
 # Small pack cases on the card, against the host packer and the plain
-# version: (label, records, lengths lo..hi, nw, win, empty records, records
-# with '*' inside, extra target length).
+# version: (label, records or a tuple of their lengths, lengths lo..hi, nw,
+# win, empty records, records with '*' inside, extra target length). The
+# last four are the kernel's edges: records starting at every byte offset
+# mod 16, lengths around its 16-byte words and 64-position tiles, a slot
+# longer than a CTA's run (ops/pack_cuda.PACK_RUN), 100 lanes (byte
+# stores).
+PACK_EDGE_LENGTHS = (0, 1, 15, 16, 17, 63, 64, 65, 255, 256, 257)
 PACK_CASES = (
     ("one window", 700, 1, 60, 1, 256, 0, 0, None),
     ("a window a slot", 1024, 1, 40, 4, 256, 0, 0, None),
@@ -1208,6 +1219,12 @@ PACK_CASES = (
     ("'*' inside records", 900, 3, 70, 4, 256, 0, 120, None),
     ("target length, 64 lanes", 800, 1, 50, 3, 64, 0, 0, 96),
     ("records of 1-500 (tiles of several slots)", 3000, 1, 500, 5, 256, 0, 0, None),
+    ("every byte offset mod 16", (17,) * 600 + (33,) * 200 + (5,) * 100, None, None, 2, 256,
+     0, 30, None),
+    ("lengths 0-257", PACK_EDGE_LENGTHS * 100, None, None, 3, 256, 0, 40, None),
+    ("a slot longer than a run", (1100,) * 256 + (700, 641, 300) * 200, None, None, 3, 256,
+     0, 50, None),
+    ("100 lanes", 2000, 0, 300, 3, 100, 60, 40, None),
 )
 
 
@@ -1219,12 +1236,17 @@ def pack_cases(torch, chk: Checker):
 
     for k, (label, n, lo, hi, nw, win, zeros, stars, extra) in enumerate(PACK_CASES):
         rng = np.random.default_rng(400 + k)
-        recs = [encode(random_protein(rng, int(rng.integers(lo, hi)))) for _ in range(n)]
+        if isinstance(n, tuple):
+            recs = [encode(random_protein(rng, m)) for m in n]
+            n = len(recs)
+        else:
+            recs = [encode(random_protein(rng, int(rng.integers(lo, hi)))) for _ in range(n)]
         for r in rng.choice(n, zeros, replace=False):
             recs[r] = recs[r][:0]
         for r in rng.choice(n, stars, replace=False):
-            recs[r] = recs[r].copy()
-            recs[r][rng.integers(1, len(recs[r]) - 1)] = 31
+            if len(recs[r]) > 2:
+                recs[r] = recs[r].copy()
+                recs[r][rng.integers(1, len(recs[r]) - 1)] = 31
         db = _db_from_encoded(recs)
         order = np.argsort(-db.lengths, kind="stable")
         kw = dict(win=win, jb=STREAM_JB, grain=STREAM_GRAIN)
@@ -1260,12 +1282,15 @@ def pack_cases(torch, chk: Checker):
 
 
 def phase_main_path(torch, chk: Checker, smi: str, query, db, loops, usage):
-    from seqalign_tpu_torch import pipeline
-    from seqalign_tpu_torch.convert import profile_to_torch, stream_pack_to_torch
+    from seqalign_tpu_torch import pipeline, sass
+    from seqalign_tpu_torch.convert import (
+        PinnedPieces, host_to_device, profile_to_torch, stream_pack_to_torch,
+    )
     from seqalign_tpu_torch.host import pack_streams
-    from seqalign_tpu_torch.ops import swa_cuda
+    from seqalign_tpu_torch.ops import _build, swa_cuda
     from seqalign_tpu_torch.ops.pack_cuda import (
-        pack_launch, pack_streams_device, pack_streams_reference, pack_tiles,
+        PACK_RUN, PACK_TILE, gather_index, pack_launch, pack_runs, pack_streams_device,
+        pack_streams_reference, stage_inputs, staged_views,
     )
     from seqalign_tpu_torch.ops.swa_torch import make_profile, sw_wavefront
     from seqalign_tpu_torch.swissprot import QUERY_LEN, copy_database, device_busy
@@ -1339,23 +1364,93 @@ def phase_main_path(torch, chk: Checker, smi: str, query, db, loops, usage):
     chk.compare_pack(f"main path ({db.n} records, nw={nw} L={plan.L})", got, plain,
                      (streams, fs))
     del got, plain
-    ids = torch.from_numpy(order).cuda()
-    tiles = torch.from_numpy(pack_tiles(plan)).cuda()
-    pack_ms = cuda_ms(torch, lambda: pack_launch(*dev_db, ids, tiles, plan), 10)
-    wrapper_ms = cuda_ms(torch, lambda: pack_streams_device(*dev_db, plan), 5)
+    records = db.n
+    staged, parts = stage_inputs(plan, records)
+    ids, run_table, _ = staged_views(host_to_device(staged, "cuda"), parts, plan)
+    # The wrapper as a search's DevicePacker calls it: through one pair of
+    # page-locked buffers, each made at its first call (two calls here,
+    # before the clock) and kept.
+    pieces = PinnedPieces()
+    for _ in range(2):
+        pack_streams_device(*dev_db, plan, pieces)
+    pack_ms = cuda_ms(torch, lambda: pack_launch(*dev_db, ids, run_table, plan), 10)
+    wrapper_ms = cuda_ms(torch, lambda: pack_streams_device(*dev_db, plan, pieces), 5)
     pack_plain_ms = cuda_ms(torch, lambda: pack_streams_reference(*dev_db, plan), 1)
-    # Each input read once (the records' residues, offsets, ids, tiles),
-    # each output written once (streams, fs).
-    pack_bytes = (residues + nbytes(dev_db[1], ids, tiles, fs)
+    # The wrapper's steps on the host clock, ten rounds in turn: the run
+    # table; the staging array built, then copied through the pieces (as
+    # the wrapper does); the same array built straight into a page-locked
+    # buffer made before the clock and copied from there; the whole wrapper.
+    pinned = torch.empty(staged.size + 64, dtype=torch.int32, pin_memory=True)
+
+    def stage_in_place():
+        built, _ = stage_inputs(plan, records, out=pinned.numpy())
+        out = torch.empty(built.size, dtype=torch.int32, device="cuda")
+        return out.copy_(pinned[: built.size], non_blocking=True)
+
+    steps = (("run table", lambda: pack_runs(plan)),
+             ("stage, then copy", lambda: host_to_device(
+                 stage_inputs(plan, records)[0], "cuda", pieces)),
+             ("stage into a page-locked buffer, copy", stage_in_place),
+             ("wrapper", lambda: pack_streams_device(*dev_db, plan, pieces)))
+    if not torch.equal(steps[1][1](), stage_in_place()):
+        fail("the staging array built in place != built, then copied")
+    step_times = {step: [] for step, _ in steps}
+    for _ in range(10):
+        for step, fn in steps:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            step_times[step].append(time.perf_counter() - t0)
+    del pinned
+    wrapper_steps_s = {step: {"min": min(t), "median": float(np.median(t))}
+                       for step, t in step_times.items()}
+    print(f"[main] the pack wrapper's steps (s, host clock, 10 rounds in turn): "
+          f"{wrapper_steps_s} | {smi}", flush=True)
+    # The library's yardstick: one torch.take of the residues with one
+    # PAD_INDEX byte in front, over an index built before the clock (8 B,
+    # int64, for every output byte).
+    idx, live = gather_index(dev_db[1], plan)
+    idx = torch.where(live, idx + 1, 0)
+    del live
+    padded_seq = torch.cat([torch.full((1,), 31, dtype=torch.int8, device="cuda"), dev_db[0]])
+    if not torch.equal(torch.take(padded_seq, idx), streams):
+        fail("torch.take over the pack's index != the host packer's streams")
+    library_ms = cuda_ms(torch, lambda: torch.take(padded_seq, idx), 5)
+    index_bytes = nbytes(idx)
+    del idx, padded_seq
+    # The bytes the kernel must move: each input read once (the records'
+    # residues, offsets, the int32 ids, the run table), its output written
+    # once (the streams; fs is a view of the inputs' copy, not written).
+    # The count made for the kernel's first design, printed beside it so
+    # that the two designs' shares compare, read the ids as int64 and a
+    # table of 20 B a 64-position tile, and wrote fs.
+    nruns = run_table.shape[0]
+    pack_bytes = (residues + nbytes(dev_db[1]) + 4 * len(plan.order) + 20 * nruns
                   + plan.nw * plan.L * plan.win)
+    ntiles = int(np.sum(-(-run_table[:, 4].cpu().numpy() // PACK_TILE)))
+    tile_bytes = (pack_bytes + 4 * len(plan.order) + 20 * (ntiles - nruns)
+                  + plan.fs.nbytes)
     pack_bound_ms, pack_bound_by = bound(pack_bytes, 0, 0.0)
+    tile_bound_ms, _ = bound(tile_bytes, 0, 0.0)
+    pack_usage = {m: u for m, u in sass.resource_usage(_build.build()).items()
+                  if "stream_pack_kernel" in m}
+    if len(pack_usage) != 2:
+        fail(f"the pack kernel's two instances are not in the library: {list(pack_usage)}")
+    for m, u in pack_usage.items():
+        print(f"[main] {m}: {u.get('REG')} registers, {u.get('SHARED')} B shared, "
+              f"{u.get('LOCAL')} B local, {u.get('STACK')} B stack", flush=True)
+        if u.get("LOCAL", 0) or u.get("STACK", 0):
+            fail(f"{m} spills")
     print(f"[main] pack kernel: {pack_ms} ms a launch ({pack_bytes} B moved, "
-          f"{pack_bytes / pack_ms / 1e9} TB/s), the wrapper with its copies of the "
-          f"plan {wrapper_ms} ms, its plain version {pack_plain_ms} ms; bound "
-          f"{pack_bound_ms} ms by {pack_bound_by} ({pack_bound_ms / pack_ms} of it) "
-          f"| {smi}", flush=True)
-    ntiles = tiles.shape[0]
-    del dev_db, ids, tiles
+          f"{pack_bytes / pack_ms / 1e9} TB/s; {nruns} runs of up to {PACK_RUN} "
+          f"positions), the wrapper with its one copy of ids, runs and fs "
+          f"({staged.nbytes} B) {wrapper_ms} ms, its plain version {pack_plain_ms} ms, "
+          f"torch.take over a {index_bytes} B index {library_ms} ms; bound "
+          f"{pack_bound_ms} ms by {pack_bound_by} ({pack_bound_ms / pack_ms} of it); "
+          f"by the first design's count ({tile_bytes} B, {ntiles} tiles) "
+          f"{tile_bound_ms} ms ({tile_bound_ms / pack_ms} of it) | {smi}", flush=True)
+    del dev_db, ids, run_table
 
     go, ge = sc.gap_open_total, sc.gap_extend
     prof = profile_to_torch(make_profile(sc.table, query), go, "cuda")
@@ -1418,10 +1513,13 @@ def phase_main_path(torch, chk: Checker, smi: str, query, db, loops, usage):
             "launches": packs["stream_pack"], "ms": pack_ms, "wrapper_ms": wrapper_ms,
             "plain_ms": pack_plain_ms, "bound_ms": pack_bound_ms,
             "bound_by": pack_bound_by, "bytes": pack_bytes,
-            "host_pack_s": host_pack_s,
+            "tile_count_bytes": tile_bytes, "tile_count_bound_ms": tile_bound_ms,
+            "library_ms": library_ms, "library_index_bytes": index_bytes,
+            "wrapper_steps_s": wrapper_steps_s,
+            "staged_bytes": staged.nbytes, "host_pack_s": host_pack_s,
             "database_copy_s": h2d, "host_streams_copy_s": h2d_streams,
             "shape": f"{db.n} records, {residues} residues -> nw={nw} L={plan.L} "
-                     f"win={win}, {ntiles} tiles",
+                     f"win={win}, {nruns} runs of up to {PACK_RUN} positions",
         },
     }, (order, streams, fs, kw["nslots"]), scores
 
@@ -3108,9 +3206,11 @@ def main(argv=None) -> int:
                     "fill native/fastio.cc:529)",
         "launches": main_path["pack"]["launches"],
         "max_abs_err": chk.max_abs_err["stream_pack"],
-        "library_ms": None,
         **{k: v for k, v in main_path["pack"].items() if k != "launches"},
-        "ms_is": "the launch alone, CUDA events; wrapper_ms adds its copies of the plan",
+        "ms_is": "the launch alone, CUDA events; wrapper_ms adds its one copy of the "
+                 "plan's ids, runs and fs",
+        "library_is": "torch.take of the residues with one PAD_INDEX byte in front, over "
+                      "an int64 index built before the clock (8 B a stream byte)",
         "card": smi,
     }] + [{
         "name": name,
@@ -3143,6 +3243,8 @@ def main(argv=None) -> int:
         kernels[0]["in_turns"] = {c: v for c, v in turns.items() if c.startswith("K1")}
         kernels[1]["in_turns"] = {c: v for c, v in turns.items() if c.startswith("K3")}
         kernels[2]["in_turns"] = {c: v for c, v in turns.items() if c.startswith("K2")}
+        pack_kernel = next(k for k in kernels if k["name"] == "stream_pack")
+        pack_kernel["in_turns"] = {c: v for c, v in turns.items() if c.startswith("P ")}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

@@ -56,28 +56,62 @@ def stream_pack_to_torch(
     return streams.to(device), fs.to(device)
 
 
-# database_to_torch copies to a card through two page-locked buffers of
-# this many bytes in turn: 210 MB took 8-12 ms so, against 32 ms as one
-# pageable copy and 54-73 ms registered in place (H100, PERF.md; swissprot
+# host_to_device copies to a card through two page-locked buffers of this
+# many bytes in turn: 210 MB took 8-15 ms so, against 26-40 ms as one
+# pageable copy and 33-73 ms registered in place (H100, PERF.md; swissprot
 # times the three).
 PIECE_BYTES = 32 << 20
 
 
+class PinnedPieces:
+    """Two page-locked host buffers of up to ``nbytes`` that copies to a
+    card go through in turn, each with the event of its last copy, so that
+    the host fills one while the other's copy runs. Each is made at its
+    first copy, as large as that copy, and made anew only for a larger
+    one; the owner keeps them for its next copies: ``pipeline.DevicePacker``
+    holds one pair for a search, its database's copy and every pack's
+    inputs."""
+
+    def __init__(self, nbytes: int = PIECE_BYTES):
+        self.nbytes = nbytes
+        self._bufs: list[torch.Tensor | None] = [None, None]
+        self._sent: list[torch.cuda.Event | None] = [None, None]
+        self._next = 0
+
+    def send(self, src: torch.Tensor, dst: torch.Tensor) -> None:
+        """Copy the host tensor ``src`` (at most ``nbytes``) into the card
+        tensor ``dst`` through the next buffer, enqueued on the current
+        stream."""
+        nbytes = src.numel() * src.element_size()
+        k, self._next = self._next, self._next ^ 1
+        if self._sent[k] is not None:
+            self._sent[k].synchronize()  # the buffer's last copy has left it
+        if self._bufs[k] is None or self._bufs[k].numel() < nbytes:
+            self._bufs[k] = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+        buf = self._bufs[k][:nbytes].view(src.dtype)
+        buf.copy_(src.reshape(-1))
+        dst.view(-1).copy_(buf, non_blocking=True)
+        self._sent[k] = torch.cuda.Event()
+        self._sent[k].record(torch.cuda.current_stream(dst.device))
+
+
 def database_to_torch(
-    db: EncodedDatabase, device: torch.device | str
+    db: EncodedDatabase, device: torch.device | str, pieces: PinnedPieces | None = None
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``(seq, offsets)`` of an EncodedDatabase on ``device``: its residues
     as 1-D int8 and its ``(N + 1,)`` int64 record offsets, the inputs of
     ``ops.pack_cuda.pack_streams_device`` (:func:`host_to_device`)."""
-    return (host_to_device(db.seq, device),
-            host_to_device(np.asarray(db.offsets, np.int64), device))
+    return (host_to_device(db.seq, device, pieces),
+            host_to_device(np.asarray(db.offsets, np.int64), device, pieces))
 
 
-def host_to_device(array: np.ndarray, device: torch.device | str) -> torch.Tensor:
+def host_to_device(
+    array: np.ndarray, device: torch.device | str, pieces: PinnedPieces | None = None
+) -> torch.Tensor:
     """``array`` as a tensor on ``device``: on the CPU a view; on a card a
-    copy through two page-locked buffers of ``PIECE_BYTES`` in turn (the
-    host fills one while the other's copy runs), enqueued on the current
-    stream, so that what is launched after it there reads it whole."""
+    copy through ``pieces`` (a pair made for this copy where none is
+    given), enqueued on the current stream, so that what is launched after
+    it there reads it whole."""
     with warnings.catch_warnings():
         # A cache's memory map is read-only; the tensor is only read.
         warnings.simplefilter("ignore", UserWarning)
@@ -85,22 +119,14 @@ def host_to_device(array: np.ndarray, device: torch.device | str) -> torch.Tenso
     dev = torch.device(device)
     if dev.type != "cuda" or not src.numel():
         return src.to(dev)
+    pieces = PinnedPieces() if pieces is None else pieces
+    size = src.element_size()
     out = torch.empty(src.shape, dtype=src.dtype, device=dev)
     flat, dst = src.view(-1), out.view(-1)
-    step = max(1, PIECE_BYTES // src.element_size())
-    bufs = [torch.empty(min(step, flat.numel()), dtype=src.dtype, pin_memory=True)
-            for _ in range(2)]
-    copied: list[torch.cuda.Event | None] = [None, None]
-    stream = torch.cuda.current_stream(dev)
-    for k, a in enumerate(range(0, flat.numel(), step)):
+    step = max(1, pieces.nbytes // size)
+    for a in range(0, flat.numel(), step):
         b = min(a + step, flat.numel())
-        buf = bufs[k % 2][: b - a]
-        if copied[k % 2] is not None:
-            copied[k % 2].synchronize()  # the buffer's last copy has left it
-        buf.copy_(flat[a:b])
-        dst[a:b].copy_(buf, non_blocking=True)
-        copied[k % 2] = torch.cuda.Event()
-        copied[k % 2].record(stream)
+        pieces.send(flat[a:b], dst[a:b])
     return out
 
 

@@ -34,7 +34,7 @@ from typing import Callable, Iterable, Sequence
 import numpy as np
 import torch
 
-from .convert import database_to_torch, profile_stripes, profile_to_torch
+from .convert import PinnedPieces, database_to_torch, profile_stripes, profile_to_torch
 from .device import resolve_device
 from .host import (
     EncodedDatabase, ScoringModel, SeqRecord, StreamPlan, encode,
@@ -436,7 +436,9 @@ class DevicePacker:
     for every chunk after it; where it does not fit beside ``held_bytes``
     (what the largest chunk's launch holds, :func:`chunk_device_bytes`) in
     :func:`device_free_bytes`, each chunk copies only its own records,
-    gathered on the host (:func:`chunk_database`). Nothing outlives the
+    gathered on the host (:func:`chunk_database`). Every copy, the
+    database's and each pack's inputs, goes through the packer's one pair
+    of page-locked buffers (``convert.PinnedPieces``). Nothing outlives the
     packer: each search makes its own.
     """
 
@@ -444,6 +446,7 @@ class DevicePacker:
         self.db, self.device, self.held_bytes = db, device, held_bytes
         self.whole: tuple[torch.Tensor, torch.Tensor] | None = None
         self.per_chunk = False
+        self.pieces = PinnedPieces()
 
     def __call__(self, plan: StreamPlan) -> tuple[torch.Tensor, torch.Tensor]:
         if self.whole is None and not self.per_chunk:
@@ -451,12 +454,13 @@ class DevicePacker:
             need = self.db.seq.nbytes + self.db.offsets.nbytes + self.held_bytes
             self.per_chunk = free is not None and need > free
             if not self.per_chunk:
-                self.whole = database_to_torch(self.db, self.device)
+                self.whole = database_to_torch(self.db, self.device, self.pieces)
         if self.per_chunk:
             local = chunk_database(self.db, plan.order)
             plan = dataclasses.replace(plan, order=np.arange(len(plan.order)))
-            return pack_streams_device(*database_to_torch(local, self.device), plan)
-        return pack_streams_device(*self.whole, plan)
+            return pack_streams_device(*database_to_torch(local, self.device, self.pieces),
+                                       plan, self.pieces)
+        return pack_streams_device(*self.whole, plan, self.pieces)
 
 
 def stream_chunks(

@@ -611,7 +611,7 @@ def multi_breakdown(db, nq: int, lq: int, say) -> dict:
 
 def main(argv=None) -> int:
     from . import pipeline, sass
-    from .convert import profile_stripes, profile_to_torch, stream_pack_to_torch
+    from .convert import PinnedPieces, profile_stripes, profile_to_torch, stream_pack_to_torch
     from .host import pack_streams, plan_streams
     from .ops import _build
     from .ops.pack_cuda import pack_streams_device
@@ -702,8 +702,12 @@ def main(argv=None) -> int:
     result["database_copy_s"] = copies
     say(f"[steps] the database's copy ({db.seq.nbytes + db.offsets.nbytes} B), twice each "
         f"way: {copies}; the pipeline's: pinned")
-    streams, fs = pack_streams_device(*dev_db, plan)
-    steps["pack_kernel"] = cuda_ms(lambda: pack_streams_device(*dev_db, plan), 5) / 1e3
+    # The wrapper as the search calls it: through one kept pair of pieces,
+    # each made at its first call (two calls here, before the clock).
+    pieces = PinnedPieces()
+    for _ in range(2):
+        streams, fs = pack_streams_device(*dev_db, plan, pieces)
+    steps["pack_kernel"] = cuda_ms(lambda: pack_streams_device(*dev_db, plan, pieces), 5) / 1e3
     prof = profile_to_torch(make_profile(sc.table, query), go, dev)
     kw = dict(nslots=len(plan.slot_lb), jb=STREAM_JB)
     kernel_ms = cuda_ms(lambda: sw_stream(prof, streams, fs, go, ge, **kw), 5)

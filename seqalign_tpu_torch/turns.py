@@ -14,11 +14,14 @@ checkout's kernels and, on the Swiss-Prot-scale database
 (``swissprot.swissprot_db``, PAM250, gaps -2/-1), runs one search of each
 cell of ``CELLS`` through that checkout's pipeline: K1 at lq=17, 144, 512
 and 1536 and K2 at lq=2000 (``search_database``), K3 at 8 x 17, 64 x 17
-and 64 x 144 (``search_database_multi``); ``--cells`` keeps only the cells
-named (``"K1 1x17,K3 8x17"``). It records the kernel launches the search
-makes (the arguments the pipeline passes to ``sw_stream``,
-``sw_stream_striped`` or ``sw_stream_multi``) and replays them ``--reps``
-times under CUDA events: the kernels' time as
+and 64 x 144 (``search_database_multi``), and the stream pack P of the
+lq=144 search; ``--cells`` keeps only the cells named (``"K1 1x17,K3
+8x17"``). It records the kernel launches the search makes (the arguments
+the pipeline passes to ``sw_stream``, ``sw_stream_striped``,
+``sw_stream_multi`` or ``pack_streams_device``) and replays them
+``--reps`` times under CUDA events (P's calls with their copies of the
+plan's inputs, and a hash of the streams they return, which must be equal
+in every run): the kernels' time as
 each checkout's pipeline launches them, with its own windows, query blocks
 and kernel instances; and the search's device-memory peak above what was
 held before it. With ``--longpair`` it runs the long pair's cells instead
@@ -62,10 +65,12 @@ from pathlib import Path
 CELLS = (
     ("K1", 1, 17, 17), ("K1", 1, 144, None), ("K1", 1, 512, 512),
     ("K1", 1, 1536, 1536), ("K2", 1, 2000, 2000), ("K3", 8, 17, 100),
-    ("K3", 64, 17, 300), ("K3", 64, 144, 200),
+    ("K3", 64, 17, 300), ("K3", 64, 144, 200), ("P", 1, 144, None),
 )
-# The pipeline's name of each kernel's wrapper: the launches a cell replays.
-WRAPPERS = {"K1": "sw_stream", "K2": "sw_stream_striped", "K3": "sw_stream_multi"}
+# The pipeline's name of each kernel's wrapper: the calls a cell replays
+# (P: the stream pack's, its copy of the plan's inputs included).
+WRAPPERS = {"K1": "sw_stream", "K2": "sw_stream_striped", "K3": "sw_stream_multi",
+            "P": "pack_streams_device"}
 LONGPAIR_INPUTS = Path("build/turns/longpair.npz")
 # The whole searches --wall times, named and drawn as in CELLS.
 WALL_CELLS = (("K1", 1, 144, None), ("K3", 64, 144, 200), ("K2", 1, 2000, 2000))
@@ -306,6 +311,12 @@ def _worker(root: str, reps: int, cells: list[str] | None = None) -> dict:
             "launches": len(launches), "ms": ms, "memory_peak_bytes": peak,
             "scores_sha256": hashlib.sha256(scores.tobytes()).hexdigest(),
         }
+        if kernel == "P":  # the streams and fs each pack call returns
+            digest = hashlib.sha256()
+            for a, kw in launches:
+                for t in fn(*a, **kw):
+                    digest.update(t.cpu().numpy().tobytes())
+            out["cells"][f"{kernel} {nq}x{lq}"]["streams_sha256"] = digest.hexdigest()
         del launches
     return out
 
@@ -337,6 +348,8 @@ def run(other: Path, reps: int = 3, say=print, longpair: bool = False,
         got = [r["cells"][cell] for r in runs]
         if len({g["scores_sha256"] for g in got}) != 1:
             raise SystemExit(f"turns: {cell}: the checkouts' scores differ")
+        if len({g.get("streams_sha256") for g in got}) != 1:
+            raise SystemExit(f"turns: {cell}: the checkouts' streams differ")
         other_ms = [min(got[0]["ms"]), min(got[3]["ms"])]
         this_ms = [min(got[1]["ms"]), min(got[2]["ms"])]
         cells[cell] = {

@@ -6,6 +6,7 @@ pipeline's use of both: one plain pack a chunk and no host pack, nothing
 packed for a resumed chunk, and each chunk's own records copied where the
 database does not fit the device."""
 
+import dataclasses
 import json
 from pathlib import Path
 
@@ -20,7 +21,7 @@ from seqalign_tpu_torch.convert import database_to_torch, stream_pack_to_torch
 from seqalign_tpu_torch.models import PAD_INDEX
 from seqalign_tpu_torch.ops import pack_cuda, swa_cuda
 from seqalign_tpu_torch.ops.pack_cuda import (
-    pack_streams_device, pack_streams_reference, pack_tiles,
+    pack_runs, pack_streams_device, pack_streams_reference, stage_inputs, staged_views,
 )
 from seqalign_tpu_torch.parallel import multi_device_search
 from seqalign_tpu_torch.utils import packing
@@ -47,8 +48,13 @@ def _records(rng, n, lo, hi, zeros=0, stars=0):
     return recs
 
 
+# The pack kernel's edges: record lengths around its 16-byte words and
+# 64-position tiles, and one slot longer than a CTA's run.
+EDGE_LENGTHS = (0, 1, 15, 16, 17, 63, 64, 65, 255, 256, 257)
+
 # name: (records, lo, hi, nw or "slots", win, empty records, '*' records,
-# target_len over the natural length)
+# target_len over the natural length); records may be a tuple of lengths
+# (lo and hi None).
 CASES = {
     "nw_1": (700, 1, 60, 1, 256, 0, 0, None),
     "nw_equals_slots": (1024, 1, 40, "slots", 256, 0, 0, None),
@@ -56,13 +62,28 @@ CASES = {
     "zero_length_records": (600, 0, 30, 2, 128, 80, 0, None),
     "star_inside_records": (900, 3, 70, 4, 256, 0, 120, None),
     "target_len": (800, 1, 50, 3, 64, 0, 0, 96),
+    # 17-residue records start at every byte offset mod 16.
+    "every_offset_mod_16": ((17,) * 48 + (33,) * 16 + (5,) * 16, None, None, 2, 64, 0, 4, None),
+    "edge_lengths": (EDGE_LENGTHS * 24, None, None, 2, 128, 0, 20, None),
+    "slot_longer_than_a_run": ((2 * pack_cuda.PACK_RUN + 77,) * 3 + (700, 641, 300) * 20,
+                               None, None, 2, 64, 0, 10, None),
+    "win_100": (700, 0, 80, 3, 100, 30, 20, None),
 }
 
 
 def _case(name, jb, grain):
     n, lo, hi, nw, win, zeros, stars, extra = CASES[name]
     rng = np.random.default_rng(sum(map(ord, name)) + jb)
-    db = pipeline._db_from_encoded(_records(rng, n, lo, hi, zeros, stars))
+    if isinstance(n, tuple):
+        recs = [random_records(rng, 1, k, k + 1)[0] for k in n]
+        n = len(recs)
+        for k in rng.choice(n, stars, replace=False):
+            if len(recs[k]) > 2:
+                recs[k] = recs[k].copy()
+                recs[k][rng.integers(1, len(recs[k]) - 1)] = PAD_INDEX
+    else:
+        recs = _records(rng, n, lo, hi, zeros, stars)
+    db = pipeline._db_from_encoded(recs)
     order = np.argsort(-db.lengths, kind="stable")
     if nw == "slots":
         nw = -(-n // win)
@@ -100,17 +121,84 @@ def test_plan_and_plain_pack_equal_jax_pack_streams(name, jb, grain):
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_tiles_cover_every_stream_position_once(name):
+    """The kernel's run table: every position of every stream once, each
+    run inside its slot, or (s = -1, written with no read) a stream's tail
+    past its last slot, longest first."""
     db, order, nw, kw = _case(name, 16, 16)
     plan = packing.plan_streams(db.lengths, order, nw, **kw)
-    tiles = pack_tiles(plan)
-    assert tiles.dtype == np.int32 and tiles.shape[1] == 5
+    runs = pack_runs(plan)
+    assert runs.dtype == np.int32 and runs.shape[1] == 5
+    assert (np.diff(runs[:, 4]) <= 0).all()
     cover = np.zeros((plan.nw, plan.L), np.int64)
-    for w, p, q, s, npos in tiles:
-        assert 1 <= npos <= pack_cuda.PACK_TILE
+    in_slot = np.zeros((plan.nw, plan.L), bool)
+    for w, start, lb in zip(plan.slot_w, plan.slot_start, plan.slot_lb):
+        in_slot[w, start : start + lb] = True
+    for w, p, q, s, npos in runs:
+        assert 1 <= npos <= pack_cuda.PACK_RUN
         cover[w, p : p + npos] += 1
         if s >= 0:  # inside its slot
             assert p - q == plan.slot_start[s] and q + npos <= plan.slot_lb[s]
+            assert w == plan.slot_w[s]
+        else:  # a tail: no slot there, and no residue written
+            assert not in_slot[w, p : p + npos].any()
     assert (cover == 1).all()
+    # Every residue lies in a slot's run; the tails are all padding.
+    want = jax_packing.pack_streams(db, order, nw, **kw).streams
+    assert (want[~in_slot] == PAD_INDEX).all()
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_staged_inputs_split_back_into_the_plan(name):
+    """The one int32 array the wrapper copies holds the ids, the run table
+    and fs, each at a multiple of STAGE_ALIGN words, as views of it."""
+    db, order, nw, kw = _case(name, 4, 32)
+    plan = packing.plan_streams(db.lengths, order, nw, **kw)
+    staged, parts = stage_inputs(plan)
+    assert staged.dtype == np.int32
+    assert all(part.start % pack_cuda.STAGE_ALIGN == 0 for part in parts)
+    tensor = torch.from_numpy(staged)
+    ids, runs, fs = staged_views(tensor, parts, plan)
+    for view in (ids, runs, fs):
+        assert view.dtype == torch.int32 and view.is_contiguous()
+        assert view.untyped_storage().data_ptr() == tensor.untyped_storage().data_ptr()
+    np.testing.assert_array_equal(ids.numpy(), plan.order)
+    np.testing.assert_array_equal(runs.numpy(), pack_runs(plan))
+    np.testing.assert_array_equal(fs.numpy(), plan.fs)
+    assert fs.shape == plan.fs.shape
+
+
+@pytest.mark.parametrize("name", ["nw_1", "win_100"])
+def test_staged_inputs_build_into_the_start_of_out(name):
+    """Given ``out``, the same array is built into its start, as a view of
+    it; an ``out`` too short for it raises."""
+    db, order, nw, kw = _case(name, 4, 32)
+    plan = packing.plan_streams(db.lengths, order, nw, **kw)
+    want, parts = stage_inputs(plan)
+    out = np.full(len(want) + 100, -7, np.int32)
+    got, got_parts = stage_inputs(plan, out=out)
+    assert got_parts == parts and np.shares_memory(got, out)
+    np.testing.assert_array_equal(got, want)
+    assert (out[len(want):] == -7).all()
+    with pytest.raises(ValueError, match="words"):
+        stage_inputs(plan, out=out[: len(want) - 1])
+
+
+def test_an_id_past_int32_raises():
+    db, order, nw, kw = _case("nw_1", 16, 16)
+    plan = packing.plan_streams(db.lengths, order, nw, **kw)
+    stage_inputs(plan)
+    big = plan.order.astype(np.int64)
+    big[3] = np.iinfo(np.int32).max + 1
+    with pytest.raises(ValueError, match="int32"):
+        stage_inputs(dataclasses.replace(plan, order=big))
+    big[3] = -1  # no record id either
+    with pytest.raises(ValueError, match="int32"):
+        stage_inputs(dataclasses.replace(plan, order=big))
+    with pytest.raises(ValueError, match="past the database"):
+        stage_inputs(plan, records=int(plan.order.max()))
+    with pytest.raises(ValueError, match="past the database"):
+        pack_streams_device(torch.from_numpy(db.seq), torch.from_numpy(db.offsets),
+                            dataclasses.replace(plan, order=big))
 
 
 @pytest.mark.parametrize("name", ["partial_last_slot", "zero_length_records"])
@@ -180,7 +268,7 @@ def test_search_packs_each_chunk_once_on_the_device(multi, monkeypatch):
     copies = []
     real = pipeline.database_to_torch
     monkeypatch.setattr(pipeline, "database_to_torch",
-                        lambda d, dev: copies.append(d.n) or real(d, dev))
+                        lambda d, dev, *rest: copies.append(d.n) or real(d, dev, *rest))
     chunks = len(pipeline.chunk_bounds(db, np.argsort(-db.lengths, kind="stable")))
     before = _pack_counts()
     if multi:
@@ -206,7 +294,7 @@ def test_resumed_checkpoint_chunk_packs_nothing(tmp_path, monkeypatch):
     copies = []
     real = pipeline.database_to_torch
     monkeypatch.setattr(pipeline, "database_to_torch",
-                        lambda d, dev: copies.append(d.n) or real(d, dev))
+                        lambda d, dev, *rest: copies.append(d.n) or real(d, dev, *rest))
     first, _ = pipeline.search_database(q, db, sc, checkpoint_dir=ck)
     assert copies == [db.n]
     n0 = pack_streams_reference.calls
@@ -239,7 +327,7 @@ def test_per_chunk_copy_where_the_database_does_not_fit(route, monkeypatch):
     copies = []
     real = pipeline.database_to_torch
     monkeypatch.setattr(pipeline, "database_to_torch",
-                        lambda d, dev: copies.append(d.n) or real(d, dev))
+                        lambda d, dev, *rest: copies.append(d.n) or real(d, dev, *rest))
     if route == "multi":
         got, _ = pipeline.search_database_multi(qs[1:], db, sc)
         want, _ = jax_pipeline.search_database_multi(qs[1:], db, sc, engine="wavefront")
@@ -261,7 +349,7 @@ def test_entries_of_one_device_share_one_copy(monkeypatch):
     copies = []
     real = pipeline.database_to_torch
     monkeypatch.setattr(pipeline, "database_to_torch",
-                        lambda d, dev: copies.append(d.n) or real(d, dev))
+                        lambda d, dev, *rest: copies.append(d.n) or real(d, dev, *rest))
     n0 = pack_streams_reference.calls
     got, _ = multi_device_search(prof, db, sc.gap_open_total, sc.gap_extend, ["cpu"] * 3)
     assert copies == [db.n] and pack_streams_reference.calls == n0 + 3
