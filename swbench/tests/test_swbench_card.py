@@ -1,0 +1,38 @@
+"""On a card: the reference and the database generator there, against the
+CPU. Skips without one (``python -m pytest swbench/tests -m cuda`` on the
+chip machine)."""
+
+import numpy as np
+import pytest
+import torch
+
+from swbench.data import make_database
+from swbench.reference import sw_scores
+from swbench.scoring import AMINO_ACIDS, code, load_table
+from swbench.tests.tiny import tiny_config
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+def test_reference_on_the_card_equals_the_cpu(card):
+    rng = np.random.default_rng(11)
+    aa = np.array([code(a) for a in AMINO_ACIDS])
+    queries = [aa[rng.integers(0, 20, n)] for n in (144, 31)]
+    lengths = rng.integers(1, 1500, 300)
+    seq = aa[rng.integers(0, 20, lengths.sum())]
+    table = load_table("BLOSUM62")
+    assert np.array_equal(sw_scores(queries, seq, lengths, table, -11, -1, card),
+                          sw_scores(queries, seq, lengths, table, -11, -1, "cpu"))
+
+
+@pytest.mark.cuda
+def test_database_on_the_card_is_deterministic(card):
+    cfg = tiny_config("t", "BLOSUM62", -11, -1)
+    one, two = make_database(cfg, 2**31 + 5, card), make_database(cfg, 2**31 + 5, card)
+    assert np.array_equal(one.seq, two.seq) and np.array_equal(one.offsets, two.offsets)
