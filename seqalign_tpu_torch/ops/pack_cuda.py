@@ -20,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import trace
 from ..convert import PinnedPieces, host_to_device
 from ..host import PAD_INDEX
 from ..utils.packing import StreamPlan
@@ -137,15 +138,18 @@ def pack_streams_device(
     copy. On a CPU tensor it runs :func:`pack_streams_reference`.
     """
     _check(seq, offsets)
-    if seq.device.type == "cpu":
-        return pack_streams_reference(seq, offsets, plan)
-    if seq.device.type != "cuda":
-        raise ValueError(f"no pack kernel for device {seq.device}")
-    staged, parts = stage_inputs(plan, offsets.shape[0] - 1)
-    ids, runs, fs = staged_views(host_to_device(staged, seq.device, pieces), parts, plan)
-    streams = pack_launch(seq, offsets, ids, runs, plan)
-    pack_streams_device.launches += 1
-    return streams, fs
+    with trace.span("pack") as sp:
+        if seq.device.type == "cpu":
+            return pack_streams_reference(seq, offsets, plan)
+        if seq.device.type != "cuda":
+            raise ValueError(f"no pack kernel for device {seq.device}")
+        with trace.span("stage"):
+            staged, parts = stage_inputs(plan, offsets.shape[0] - 1)
+        sp.add(bytes=staged.nbytes)
+        ids, runs, fs = staged_views(host_to_device(staged, seq.device, pieces), parts, plan)
+        streams = pack_launch(seq, offsets, ids, runs, plan)
+        pack_streams_device.launches += 1
+        return streams, fs
 
 
 pack_streams_device.launches = 0

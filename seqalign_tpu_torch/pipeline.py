@@ -13,7 +13,8 @@ launch per row stripe, for a query over ``MAX_QUERY_ROWS``), puts the bests
 in database order on the device (:func:`scatter_slots`) and fetches them
 once. The timer covers the launches, the kernels, that reorder and the
 fetch; parsing, planning, the copy and the pack stay outside it, the same
-boundary as the JAX package's and the reference's.
+boundary as the JAX package's and the reference's. Each step is a span of
+:mod:`.trace`, recorded while ``torch.profiler`` records.
 ``search_files_streaming`` reads the database in parts on a prefetch
 thread for a bounded-memory search, and ``checkpoint_dir=`` makes a scan
 resumable chunk by chunk (``_ScanCheckpoint``).
@@ -34,6 +35,7 @@ from typing import Callable, Iterable, Sequence
 import numpy as np
 import torch
 
+from . import trace
 from .convert import PinnedPieces, database_to_torch, profile_stripes, profile_to_torch
 from .device import resolve_device
 from .host import (
@@ -144,45 +146,48 @@ def search_database(
     """
     eng = _engine(engine)
     dev = resolve_device() if device is None else torch.device(device)
+    with trace.span("search", queries=1, query_residues=len(query_idx), records=db.n,
+                    db_residues=int(db.offsets[-1] - db.offsets[0])):
+        n = db.n
+        scores = np.zeros(n, dtype=np.int32)
+        if n == 0 or len(query_idx) == 0:
+            return scores, 0.0
 
-    n = db.n
-    scores = np.zeros(n, dtype=np.int32)
-    if n == 0 or len(query_idx) == 0:
-        return scores, 0.0
+        if eng == "oracle":
+            t0 = time.perf_counter()
+            scores = sw_score_batch(
+                query_idx, [db.record(i) for i in range(n)], scoring.table,
+                scoring.gap_open, scoring.gap_extend,
+            ).astype(np.int32)
+            return scores, time.perf_counter() - t0
 
-    if eng == "oracle":
-        t0 = time.perf_counter()
-        scores = sw_score_batch(
-            query_idx, [db.record(i) for i in range(n)], scoring.table,
-            scoring.gap_open, scoring.gap_extend,
-        ).astype(np.int32)
-        return scores, time.perf_counter() - t0
+        with trace.span("make_profile"):
+            profile = make_profile(scoring.table, query_idx)
+        go, ge = scoring.gap_open_total, scoring.gap_extend
+        with trace.span("sort"):
+            order = np.argsort(-db.lengths, kind="stable") if sort else np.arange(n)
 
-    profile = make_profile(scoring.table, query_idx)
-    go, ge = scoring.gap_open_total, scoring.gap_extend
-    order = np.argsort(-db.lengths, kind="stable") if sort else np.arange(n)
+        if eng == "stream":
+            if not supported_scoring(profile, go, ge):
+                _note_wavefront()
+                eng = "wavefront"
+            else:
+                return _stream_search(
+                    profile, db, go, ge, order, lanes, dev,
+                    checkpoint_dir=checkpoint_dir,
+                )
 
-    if eng == "stream":
-        if not supported_scoring(profile, go, ge):
-            _note_wavefront()
-            eng = "wavefront"
-        else:
-            return _stream_search(
-                profile, db, go, ge, order, lanes, dev,
-                checkpoint_dir=checkpoint_dir,
-            )
-
-    engine_fn = get_engine(eng)
-    prof_dev = torch.from_numpy(profile).to(dev)
-    kernel_time = 0.0
-    for ids, batch in lane_batches(db, order, lanes or BATCH_LANES):
-        batch = torch.from_numpy(batch).to(dev)
-        _sync(dev)
-        t0 = time.perf_counter()
-        out = engine_fn(prof_dev, batch, go, ge).cpu()
-        kernel_time += time.perf_counter() - t0
-        scores[ids] = out.numpy()[: len(ids)]
-    return scores, kernel_time
+        engine_fn = get_engine(eng)
+        prof_dev = torch.from_numpy(profile).to(dev)
+        kernel_time = 0.0
+        for ids, batch in lane_batches(db, order, lanes or BATCH_LANES):
+            batch = torch.from_numpy(batch).to(dev)
+            _sync(dev)
+            t0 = time.perf_counter()
+            out = engine_fn(prof_dev, batch, go, ge).cpu()
+            kernel_time += time.perf_counter() - t0
+            scores[ids] = out.numpy()[: len(ids)]
+        return scores, kernel_time
 
 
 def _engine(engine: str | None) -> str:
@@ -239,48 +244,57 @@ def search_database_multi(
     eng = _engine(engine)
     dev = resolve_device() if device is None else torch.device(device)
     nq = len(query_idxs)
-    scores = np.zeros((nq, db.n), dtype=np.int32)
-    if nq == 0 or db.n == 0:
-        return scores, 0.0
+    with trace.span("search", queries=nq, query_residues=sum(len(q) for q in query_idxs),
+                    records=db.n, db_residues=int(db.offsets[-1] - db.offsets[0])):
+        scores = np.zeros((nq, db.n), dtype=np.int32)
+        if nq == 0 or db.n == 0:
+            return scores, 0.0
 
-    go, ge = scoring.gap_open_total, scoring.gap_extend
-    kernel_time = 0.0
-    each = range(nq)
-    if eng == "stream":
-        # Only the short queries form the padded (NQ, Lq, 32) batch profile;
-        # search_database checks each long query's scoring on its own.
-        rows = swa_cuda.MAX_QUERY_ROWS
-        short = [k for k, q in enumerate(query_idxs) if len(q) <= rows]
-        long = [k for k, q in enumerate(query_idxs) if len(q) > rows]
-        batch = (
-            multi_profile(scoring.table, [query_idxs[k] for k in short])
-            if short else None
-        )
-        if batch is None or supported_scoring(batch, go, ge):
-            each = long
-            if long:
-                print(
-                    f"Note: {len(long)} of {nq} queries exceed "
-                    f"MAX_QUERY_ROWS={rows}; each is searched on its own "
-                    "through the row-striped kernel, the rest as one batch.",
-                    file=sys.stderr,
+        go, ge = scoring.gap_open_total, scoring.gap_extend
+        kernel_time = 0.0
+        each = range(nq)
+        if eng == "stream":
+            # Only the short queries form the padded (NQ, Lq, 32) batch
+            # profile; search_database checks each long query's scoring on
+            # its own.
+            rows = swa_cuda.MAX_QUERY_ROWS
+            short = [k for k, q in enumerate(query_idxs) if len(q) <= rows]
+            long = [k for k, q in enumerate(query_idxs) if len(q) > rows]
+            with trace.span("make_profile"):
+                batch = (
+                    multi_profile(scoring.table, [query_idxs[k] for k in short])
+                    if short else None
                 )
-            if short:
-                order = np.argsort(-db.lengths, kind="stable") if sort else np.arange(db.n)
-                scores[short], kernel_time = _stream_search(
-                    batch, db, go, ge, order, lanes, dev
-                )
-        else:
-            _note_wavefront()
-            eng = "wavefront"
+            if batch is None or supported_scoring(batch, go, ge):
+                each = long
+                if long:
+                    print(
+                        f"Note: {len(long)} of {nq} queries exceed "
+                        f"MAX_QUERY_ROWS={rows}; each is searched on its own "
+                        "through the row-striped kernel, the rest as one batch.",
+                        file=sys.stderr,
+                    )
+                if short:
+                    with trace.span("sort"):
+                        order = (np.argsort(-db.lengths, kind="stable") if sort
+                                 else np.arange(db.n))
+                    fetched, kernel_time = _stream_search(
+                        batch, db, go, ge, order, lanes, dev,
+                        query_residues=sum(len(query_idxs[k]) for k in short),
+                    )
+                    with trace.span("copy_out", bytes=fetched.nbytes):
+                        scores[short] = fetched
+            else:
+                _note_wavefront()
+                eng = "wavefront"
 
-    for k in each:
-        q = query_idxs[k]
-        scores[k], dt = search_database(
-            q, db, scoring, engine=eng, lanes=lanes, sort=sort, device=dev
-        )
-        kernel_time += dt
-    return scores, kernel_time
+        for k in each:
+            q = query_idxs[k]
+            scores[k], dt = search_database(
+                q, db, scoring, engine=eng, lanes=lanes, sort=sort, device=dev
+            )
+            kernel_time += dt
+        return scores, kernel_time
 
 
 def multi_profile(table: np.ndarray, query_idxs: Sequence[np.ndarray]) -> np.ndarray:
@@ -450,16 +464,21 @@ class DevicePacker:
 
     def __call__(self, plan: StreamPlan) -> tuple[torch.Tensor, torch.Tensor]:
         if self.whole is None and not self.per_chunk:
-            free = device_free_bytes(self.device)
-            need = self.db.seq.nbytes + self.db.offsets.nbytes + self.held_bytes
-            self.per_chunk = free is not None and need > free
-            if not self.per_chunk:
-                self.whole = database_to_torch(self.db, self.device, self.pieces)
+            with trace.span("h2d") as sp:
+                free = device_free_bytes(self.device)
+                nbytes = self.db.seq.nbytes + self.db.offsets.nbytes
+                self.per_chunk = free is not None and nbytes + self.held_bytes > free
+                if not self.per_chunk:
+                    self.whole = database_to_torch(self.db, self.device, self.pieces)
+                    sp.add(bytes=nbytes)
         if self.per_chunk:
-            local = chunk_database(self.db, plan.order)
+            with trace.span("h2d") as sp:
+                with trace.span("gather"):
+                    local = chunk_database(self.db, plan.order)
+                data = database_to_torch(local, self.device, self.pieces)
+                sp.add(bytes=local.seq.nbytes + local.offsets.nbytes)
             plan = dataclasses.replace(plan, order=np.arange(len(plan.order)))
-            return pack_streams_device(*database_to_torch(local, self.device, self.pieces),
-                                       plan, self.pieces)
+            return pack_streams_device(*data, plan, self.pieces)
         return pack_streams_device(*self.whole, plan, self.pieces)
 
 
@@ -496,6 +515,7 @@ def _stream_search(
     lanes: int | None,
     device: torch.device,
     checkpoint_dir: str | None = None,
+    query_residues: int | None = None,
 ) -> tuple[np.ndarray, float]:
     """Whole-database search through the segmented stream kernels.
 
@@ -520,6 +540,10 @@ def _stream_search(
     (:class:`_ScanCheckpoint`); a rerun of the same scan reads them back,
     copies, packs and launches nothing for them, and adds nothing to the
     kernel time.
+
+    ``query_residues`` (the profile's rows where None) counts the real cells
+    of each launch for the trace (:mod:`.trace`): a batch's profile pads its
+    queries to the longest.
     """
     n = db.n
     multi = profile.ndim == 3
@@ -533,19 +557,30 @@ def _stream_search(
                       np.zeros(1, np.int64), torch.zeros((1, 1, 1), dtype=torch.int32,
                                                          device=device))
     queries = 1
-    if multi:
-        blocks = query_blocks(profile, go, n, device)
-        queries = sum(b.shape[0] for b in blocks)
-    elif striped:
-        stripes = profile_stripes(profile, go, swa_cuda.STRIPE_ROWS, device)
-    else:
-        prof_dev = profile_to_torch(profile, go, device)
-    shape = (profile.shape[0], n) if multi else (n,)
-    scores = torch.zeros(shape, dtype=torch.int32, device=device)
     # The query rows the stream kernels score: the ROW_ALIGN padding of the
     # profile never raises a score, and the one-pass kernel skips it.
     rows = profile.shape[-2]
-    bounds = chunk_bounds(db, order, striped_chunk_residues() if striped else None)
+    with trace.span("profile") as sp:
+        if multi:
+            blocks = query_blocks(profile, go, n, device)
+            queries = sum(b.shape[0] for b in blocks)
+            launches = {"launches_k3": len(blocks)}
+            launched_rows = queries * rows
+        elif striped:
+            stripes = profile_stripes(profile, go, swa_cuda.STRIPE_ROWS, device)
+            launches = {"launches_k2": len(stripes)}
+            launched_rows = sum(s.shape[0] for s in stripes)
+        else:
+            prof_dev = profile_to_torch(profile, go, device)
+            launches = {"launches_k1": 1}
+            launched_rows = rows
+        sp.add(rows=launched_rows)
+    if query_residues is None:
+        query_residues = rows
+    shape = (profile.shape[0], n) if multi else (n,)
+    scores = torch.zeros(shape, dtype=torch.int32, device=device)
+    with trace.span("plan"):
+        bounds = chunk_bounds(db, order, striped_chunk_residues() if striped else None)
     ckpt = (
         _ScanCheckpoint(checkpoint_dir, profile, db, go, ge, order, bounds)
         if checkpoint_dir
@@ -559,7 +594,10 @@ def _stream_search(
         if done is not None:
             scores[..., torch.from_numpy(chunk).to(device)] = torch.from_numpy(done).to(device)
         else:
-            todo.append((start, chunk, plan_chunk(db.lengths, chunk, lanes, max_lanes)))
+            with trace.span("plan") as sp:
+                plan = plan_chunk(db.lengths, chunk, lanes, max_lanes)
+                sp.add(chunks=1, streams=plan.nw, positions=plan.L)
+            todo.append((start, chunk, plan))
     packer = DevicePacker(db, device, scores.numel() * 4 + max(
         (chunk_device_bytes(p, queries, striped) for *_, p in todo), default=0))
     fetched = _host_scores(shape, device)
@@ -568,27 +606,33 @@ def _stream_search(
         streams, fs = packer(plan)
         ids = torch.from_numpy(chunk).to(device)
         kw = dict(nslots=len(plan.slot_lb), jb=STREAM_JB)
-        _sync(device)
+        with trace.span("wait"):
+            _sync(device)
         t0 = time.perf_counter()
-        if multi:
-            # Every block's launch is enqueued before the reorder.
-            out = torch.cat([sw_stream_multi(b, streams, fs, go, ge, rows=rows, **kw)
-                             for b in blocks], dim=1)
-        elif striped:
-            # Every stripe's launch is enqueued before the reorder.
-            out = sw_stream_striped(stripes, streams, fs, go, ge, **kw)
-        else:
-            out = sw_stream(prof_dev, streams, fs, go, ge, rows=rows, **kw)
-        scatter_slots(scores, ids, out)
-        _sync(device)
+        with trace.span("launch", **launches, cells_real=query_residues * plan.real_residues,
+                        cells_launched=launched_rows * plan.padded_cells_per_query_row):
+            if multi:
+                # Every block's launch is enqueued before the reorder.
+                out = torch.cat([sw_stream_multi(b, streams, fs, go, ge, rows=rows, **kw)
+                                 for b in blocks], dim=1)
+            elif striped:
+                # Every stripe's launch is enqueued before the reorder.
+                out = sw_stream_striped(stripes, streams, fs, go, ge, **kw)
+            else:
+                out = sw_stream(prof_dev, streams, fs, go, ge, rows=rows, **kw)
+        with trace.span("reorder"):
+            scatter_slots(scores, ids, out)
+        with trace.span("wait"):
+            _sync(device)
         kernel_time += time.perf_counter() - t0
         del streams, fs, out
         if ckpt is not None:
             ckpt.save(start, scores[..., ids].cpu().numpy())
-    t0 = time.perf_counter()
-    fetched.copy_(scores)
-    if todo:
-        kernel_time += time.perf_counter() - t0
+    with trace.span("fetch", bytes=fetched.nbytes):
+        t0 = time.perf_counter()
+        fetched.copy_(scores)
+        if todo:
+            kernel_time += time.perf_counter() - t0
     return fetched.numpy(), kernel_time
 
 

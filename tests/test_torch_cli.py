@@ -388,6 +388,19 @@ def test_trace_writes_a_trace(query, files, capsys, tmp_path):
     assert jcode == 0 and _drop_time(out) == _drop_time(jout)
 
 
+@pytest.mark.parametrize("query", ["q", "multi3"])
+def test_trace_names_the_search_and_its_steps(query, files, capsys, tmp_path):
+    """``--trace``'s Chrome trace holds the search's own spans: one
+    ``seqalign.search`` and its steps."""
+    trace = tmp_path / "trace"
+    code, _, _ = _run(cli.main, ["--files", files[query], files["db"], "--trace", str(trace)],
+                      capsys)
+    (written,) = trace.glob("seqalign_trace_*.json")
+    names = [str(e.get("name", "")) for e in json.loads(written.read_text())["traceEvents"]]
+    assert code == 0 and names.count("seqalign.search") == 1
+    assert {"seqalign.sort", "seqalign.plan", "seqalign.launch", "seqalign.fetch"} <= set(names)
+
+
 def test_trace_unavailable_is_a_note(files, capsys, monkeypatch):
     import torch.profiler
 
