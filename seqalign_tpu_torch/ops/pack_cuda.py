@@ -138,14 +138,13 @@ def pack_streams_device(
     copy. On a CPU tensor it runs :func:`pack_streams_reference`.
     """
     _check(seq, offsets)
-    with trace.span("pack") as sp:
+    with trace.span("pack"):
         if seq.device.type == "cpu":
             return pack_streams_reference(seq, offsets, plan)
         if seq.device.type != "cuda":
             raise ValueError(f"no pack kernel for device {seq.device}")
         with trace.span("stage"):
             staged, parts = stage_inputs(plan, offsets.shape[0] - 1)
-        sp.add(bytes=staged.nbytes)
         ids, runs, fs = staged_views(host_to_device(staged, seq.device, pieces), parts, plan)
         streams = pack_launch(seq, offsets, ids, runs, plan)
         pack_streams_device.launches += 1

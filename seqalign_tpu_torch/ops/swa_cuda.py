@@ -234,6 +234,18 @@ def stream_team(rows: int) -> tuple[int, int]:
     return t, r
 
 
+def stream_rows_stepped(rows: int, nq: int = 1) -> int:
+    """The query rows a K1 or K3 launch of ``nq`` queries over ``rows`` rows
+    steps on a card: :func:`stream_team`'s ``T R`` a query (the rows past
+    ``rows`` as padding), a solo launch's queries filled up to a multiple
+    of its Q."""
+    t, r = stream_team(rows)
+    if _solo((t, r)):
+        q = stream_solo_queries(rows, nq)
+        nq = -(-nq // q) * q
+    return nq * t * r
+
+
 def team_threads(rows_per_thread: int) -> int:
     """Threads of a full CTA of the one-pass team kernels (K1, K3, K4, K5)
     at R rows a thread: ``team_threads<R>()`` of ``csrc/sw_stream.cuh``, one
@@ -501,6 +513,12 @@ def stripe_rows_per_thread(rows: int) -> int:
         f"a K2 pass of {rows} rows exceeds the {STRIPE_TEAM} x "
         f"{STRIPE_ROWS_PER_THREAD_BUILT[-1]} rows its kernel holds"
     )
+
+
+def stripe_rows_stepped(rows: int) -> int:
+    """The rows a K2 pass over ``rows`` rows steps on a card: its warp's
+    ``STRIPE_TEAM`` x :func:`stripe_rows_per_thread` rows."""
+    return STRIPE_TEAM * stripe_rows_per_thread(rows)
 
 
 def stripe_kernel_instance(rows: int, bnd_in: bool, bnd_out: bool,

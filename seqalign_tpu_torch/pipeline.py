@@ -146,8 +146,7 @@ def search_database(
     """
     eng = _engine(engine)
     dev = resolve_device() if device is None else torch.device(device)
-    with trace.span("search", queries=1, query_residues=len(query_idx), records=db.n,
-                    db_residues=int(db.offsets[-1] - db.offsets[0])):
+    with trace.span("search"):
         n = db.n
         scores = np.zeros(n, dtype=np.int32)
         if n == 0 or len(query_idx) == 0:
@@ -244,8 +243,7 @@ def search_database_multi(
     eng = _engine(engine)
     dev = resolve_device() if device is None else torch.device(device)
     nq = len(query_idxs)
-    with trace.span("search", queries=nq, query_residues=sum(len(q) for q in query_idxs),
-                    records=db.n, db_residues=int(db.offsets[-1] - db.offsets[0])):
+    with trace.span("search"):
         scores = np.zeros((nq, db.n), dtype=np.int32)
         if nq == 0 or db.n == 0:
             return scores, 0.0
@@ -282,7 +280,7 @@ def search_database_multi(
                         batch, db, go, ge, order, lanes, dev,
                         query_residues=sum(len(query_idxs[k]) for k in short),
                     )
-                    with trace.span("copy_out", bytes=fetched.nbytes):
+                    with trace.span("copy_out"):
                         scores[short] = fetched
             else:
                 _note_wavefront()
@@ -464,19 +462,17 @@ class DevicePacker:
 
     def __call__(self, plan: StreamPlan) -> tuple[torch.Tensor, torch.Tensor]:
         if self.whole is None and not self.per_chunk:
-            with trace.span("h2d") as sp:
+            with trace.span("h2d"):
                 free = device_free_bytes(self.device)
-                nbytes = self.db.seq.nbytes + self.db.offsets.nbytes
-                self.per_chunk = free is not None and nbytes + self.held_bytes > free
+                need = self.db.seq.nbytes + self.db.offsets.nbytes + self.held_bytes
+                self.per_chunk = free is not None and need > free
                 if not self.per_chunk:
                     self.whole = database_to_torch(self.db, self.device, self.pieces)
-                    sp.add(bytes=nbytes)
         if self.per_chunk:
-            with trace.span("h2d") as sp:
+            with trace.span("h2d"):
                 with trace.span("gather"):
                     local = chunk_database(self.db, plan.order)
                 data = database_to_torch(local, self.device, self.pieces)
-                sp.add(bytes=local.seq.nbytes + local.offsets.nbytes)
             plan = dataclasses.replace(plan, order=np.arange(len(plan.order)))
             return pack_streams_device(*data, plan, self.pieces)
         return pack_streams_device(*self.whole, plan, self.pieces)
@@ -560,21 +556,19 @@ def _stream_search(
     # The query rows the stream kernels score: the ROW_ALIGN padding of the
     # profile never raises a score, and the one-pass kernel skips it.
     rows = profile.shape[-2]
-    with trace.span("profile") as sp:
+    # The query rows each chunk's launches step on a card, for the trace:
+    # each team's T x R rows, a block's zero queries and each stripe's warp.
+    with trace.span("profile"):
         if multi:
             blocks = query_blocks(profile, go, n, device)
             queries = sum(b.shape[0] for b in blocks)
-            launches = {"launches_k3": len(blocks)}
-            launched_rows = queries * rows
+            launched_rows = sum(swa_cuda.stream_rows_stepped(rows, b.shape[0]) for b in blocks)
         elif striped:
             stripes = profile_stripes(profile, go, swa_cuda.STRIPE_ROWS, device)
-            launches = {"launches_k2": len(stripes)}
-            launched_rows = sum(s.shape[0] for s in stripes)
+            launched_rows = sum(swa_cuda.stripe_rows_stepped(s.shape[0]) for s in stripes)
         else:
             prof_dev = profile_to_torch(profile, go, device)
-            launches = {"launches_k1": 1}
-            launched_rows = rows
-        sp.add(rows=launched_rows)
+            launched_rows = swa_cuda.stream_rows_stepped(rows)
     if query_residues is None:
         query_residues = rows
     shape = (profile.shape[0], n) if multi else (n,)
@@ -594,9 +588,8 @@ def _stream_search(
         if done is not None:
             scores[..., torch.from_numpy(chunk).to(device)] = torch.from_numpy(done).to(device)
         else:
-            with trace.span("plan") as sp:
+            with trace.span("plan"):
                 plan = plan_chunk(db.lengths, chunk, lanes, max_lanes)
-                sp.add(chunks=1, streams=plan.nw, positions=plan.L)
             todo.append((start, chunk, plan))
     packer = DevicePacker(db, device, scores.numel() * 4 + max(
         (chunk_device_bytes(p, queries, striped) for *_, p in todo), default=0))
@@ -609,7 +602,7 @@ def _stream_search(
         with trace.span("wait"):
             _sync(device)
         t0 = time.perf_counter()
-        with trace.span("launch", **launches, cells_real=query_residues * plan.real_residues,
+        with trace.span("launch", cells_real=query_residues * plan.real_residues,
                         cells_launched=launched_rows * plan.padded_cells_per_query_row):
             if multi:
                 # Every block's launch is enqueued before the reorder.
@@ -628,7 +621,7 @@ def _stream_search(
         del streams, fs, out
         if ckpt is not None:
             ckpt.save(start, scores[..., ids].cpu().numpy())
-    with trace.span("fetch", bytes=fetched.nbytes):
+    with trace.span("fetch"):
         t0 = time.perf_counter()
         fetched.copy_(scores)
         if todo:

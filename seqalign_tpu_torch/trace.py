@@ -1,47 +1,31 @@
-"""Spans and counters of the search, recorded while ``torch.profiler`` records.
+"""The search's steps on ``torch.profiler``'s timeline, and the cells its
+launches step.
 
 ``span(name, **counts)`` marks one step of a search. While a profiler
-session records, it opens ``torch.profiler.record_function("seqalign.<name>")``,
-so the step is an event on the profiler's timeline, and appends a record of
-it to a list in memory:
+session records, it is ``torch.profiler.record_function("seqalign.<name>")``:
+the step is an event on the profiler's timeline and clock, nested in the
+steps open on its thread. A span given counters also appends
+``{"name": "seqalign.<name>", "counts": counts}`` to a list in memory, which
+``recorded()`` returns, since the profiler's events carry no counters. The
+one span with counters is ``seqalign.launch``: ``cells_real`` and
+``cells_launched`` (``swbench``'s ``cell_fill_pct`` reads them). Counters
+come from data the host holds (shapes, plans); no span reads a device value
+or waits for the device.
 
-    {"name": "seqalign.<name>", "search": the id of its root
-     "seqalign.search" span (None outside one), "id": its own id,
-     "parent": the id of the span it is opened in (None for none),
-     "start_ns", "end_ns": Unix-epoch ns, the clock the profiler stamps its
-     events on, read just before the event opens and just after it
-     closes, "counts": its counters}
-
-``recorded()`` returns that list. A span records nothing outside a profiler
-session: ``span`` then returns one shared object that does nothing, reads no
-clock and calls no profiler function. The first span that finds a session
-recording after one that found none clears the list, so after a profiled
-stretch it holds that stretch's spans (two sessions with no span between
-them share one list). Counters come from data the host holds (shapes, plans,
-``nbytes``); no span reads a device value or waits for the device.
-
-Each thread keeps its own stack of open spans, the parents of the next. A
-``seqalign.search`` span opened with none open is a root; opened inside
-another span it is that span's child.
+Outside a profiler session ``span`` returns one shared object that does
+nothing: it reads no clock, records nothing and calls no profiler function.
+The list keeps the counted spans of every profiled stretch of the process
+until ``clear()`` empties it.
 """
 
 from __future__ import annotations
-
-import itertools
-import threading
-import time
 
 import torch
 from torch.autograd import profiler as _autograd_profiler
 
 PREFIX = "seqalign."
-SEARCH = PREFIX + "search"
 
 _records: list[dict] = []
-_ids = itertools.count(1)
-_local = threading.local()
-# Whether the last span looked at found no profiler session recording.
-_idle = True
 
 
 class _Off:
@@ -55,72 +39,26 @@ class _Off:
     def __exit__(self, *exc):
         return False
 
-    def add(self, **counts) -> None:
-        pass
-
 
 _OFF = _Off()
 
 
-class _Span:
-    """A span being recorded: a ``record_function`` event and its record."""
-
-    __slots__ = ("record", "_event")
-
-    def __init__(self, name: str, counts: dict):
-        self.record = {"name": PREFIX + name, "counts": counts}
-        self._event = torch.profiler.record_function(PREFIX + name)
-
-    def __enter__(self):
-        start = time.time_ns()
-        self._event.__enter__()
-        stack = _stack()
-        rec = self.record
-        rec["id"] = next(_ids)
-        if stack:
-            rec["parent"], rec["search"] = stack[-1]["id"], stack[-1]["search"]
-        else:
-            rec["parent"], rec["search"] = None, rec["id"] if rec["name"] == SEARCH else None
-        rec["start_ns"], rec["end_ns"] = start, None
-        stack.append(rec)
-        _records.append(rec)
-        return self
-
-    def __exit__(self, *exc):
-        _stack().pop()
-        self._event.__exit__(*exc)
-        self.record["end_ns"] = time.time_ns()
-        return False
-
-    def add(self, **counts) -> None:
-        """Add to the span's counters while it is open."""
-        mine = self.record["counts"]
-        for key, n in counts.items():
-            mine[key] = mine.get(key, 0) + n
-
-
-def _stack() -> list[dict]:
-    stack = getattr(_local, "stack", None)
-    if stack is None:
-        stack = _local.stack = []
-    return stack
-
-
 def span(name: str, **counts):
     """A context manager marking the step ``name`` (``seqalign.<name>`` on
-    the profiler's timeline), with ``counts`` its counters; ``add`` adds to
-    them while it is open. Records only while a profiler session records."""
-    global _idle
+    the profiler's timeline), with ``counts`` its counters. Records only
+    while a profiler session records."""
     if not _autograd_profiler._is_profiler_enabled:
-        _idle = True
         return _OFF
-    if _idle:
-        _idle = False
-        _records.clear()
-    return _Span(name, counts)
+    if counts:
+        _records.append({"name": PREFIX + name, "counts": counts})
+    return torch.profiler.record_function(PREFIX + name)
 
 
 def recorded() -> list[dict]:
-    """The records of the spans of the last profiled stretch, in the order
-    they opened; a span still open has ``end_ns`` None."""
+    """The counted spans recorded since the process started or the last
+    ``clear()``, in the order they opened."""
     return _records
+
+
+def clear() -> None:
+    _records.clear()
