@@ -5,7 +5,9 @@ Reads the query and the database FASTA (the port's copy of the JAX
 package's numpy host code), length-sorts the records, copies the encoded
 database to the device once a search (``convert.database_to_torch``), plans
 each chunk's segmented window streams on the host
-(``utils.packing.plan_streams``) and packs them on the device
+(``utils.packing.plan_streams``; the order, the chunks and their plans are
+kept between searches of the same records, :class:`PlanMemo`) and packs them
+on the device
 (``ops.pack_cuda.pack_streams_device``), scores each chunk in one launch of
 the stream kernel (``ops.swa_cuda.sw_stream``; ``sw_stream_multi`` per
 block of queries for a multi-query search; ``sw_stream_striped``, one
@@ -29,6 +31,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import sys
+import threading
 import time
 from typing import Callable, Iterable, Sequence
 
@@ -75,6 +78,9 @@ MULTI_SCRATCH_BYTES = 8 << 30
 # leaves room for the streams' padding; the Swiss-Prot-scale database
 # (205 M residues, 3.5 GB of boundaries) stays one chunk.
 STRIPED_SCRATCH_BYTES = 8 << 30
+# Databases whose plans PlanMemo keeps, the last searched (and of each, its
+# last cuts into chunks).
+PLAN_MEMO_SIZE = 4
 
 
 @dataclasses.dataclass
@@ -164,7 +170,7 @@ def search_database(
             profile = make_profile(scoring.table, query_idx)
         go, ge = scoring.gap_open_total, scoring.gap_extend
         with trace.span("sort"):
-            order = np.argsort(-db.lengths, kind="stable") if sort else np.arange(n)
+            planned = PLANS.find(db, sort)
 
         if eng == "stream":
             if not supported_scoring(profile, go, ge):
@@ -172,14 +178,14 @@ def search_database(
                 eng = "wavefront"
             else:
                 return _stream_search(
-                    profile, db, go, ge, order, lanes, dev,
+                    profile, db, go, ge, planned, lanes, dev,
                     checkpoint_dir=checkpoint_dir,
                 )
 
         engine_fn = get_engine(eng)
         prof_dev = torch.from_numpy(profile).to(dev)
         kernel_time = 0.0
-        for ids, batch in lane_batches(db, order, lanes or BATCH_LANES):
+        for ids, batch in lane_batches(db, planned.order, lanes or BATCH_LANES):
             batch = torch.from_numpy(batch).to(dev)
             _sync(dev)
             t0 = time.perf_counter()
@@ -274,10 +280,9 @@ def search_database_multi(
                     )
                 if short:
                     with trace.span("sort"):
-                        order = (np.argsort(-db.lengths, kind="stable") if sort
-                                 else np.arange(db.n))
+                        planned = PLANS.find(db, sort)
                     fetched, kernel_time = _stream_search(
-                        batch, db, go, ge, order, lanes, dev,
+                        batch, db, go, ge, planned, lanes, dev,
                         query_residues=sum(len(query_idxs[k]) for k in short),
                     )
                     with trace.span("copy_out"):
@@ -411,6 +416,93 @@ def plan_chunk(
     return plan_streams(lengths, chunk, nw, win=win, jb=STREAM_JB, grain=STREAM_GRAIN)
 
 
+@dataclasses.dataclass
+class Cut:
+    """One way of cutting a database's order into chunks: their bounds
+    (:func:`chunk_bounds`) and the stream plans made of them so far
+    (:func:`plan_chunk`), by the chunk's start."""
+
+    bounds: list[tuple[int, int]]
+    plans: dict[int, StreamPlan]
+
+
+class Planned:
+    """The length-derived plan of one database's records: its length order
+    (``np.argsort(-lengths, kind="stable")``, ``arange`` unsorted) and its
+    cuts into chunks, by ``(lanes, max_lanes, max_residues)`` and the
+    constants the plan reads. Host arrays only, from the memo's own copy of
+    the offsets."""
+
+    def __init__(self, offsets: np.ndarray, sort: bool):
+        self.offsets = np.array(offsets)
+        self.lengths = np.diff(self.offsets)
+        self.sort = sort
+        self.order = (np.argsort(-self.lengths, kind="stable") if sort
+                      else np.arange(len(self.lengths)))
+        self.cuts: dict[tuple, Cut] = {}
+
+
+class PlanMemo:
+    """The plans of the last ``PLAN_MEMO_SIZE`` databases searched, kept
+    between searches: what a search plans depends on the records' lengths,
+    the lanes and the card, never on the query.
+
+    An entry is found by the content of ``db.offsets``, compared with the
+    entry's own copy (under 1 ms at Swiss-Prot scale), never by the object:
+    a database changed in place, or another of the same size, misses and is
+    planned afresh, exactly as without the memo. Of each database it keeps
+    its last ``PLAN_MEMO_SIZE`` cuts. A lock guards it, since a search may
+    run on any thread. What it returns is shared by every search of the
+    records, and nothing writes it.
+    """
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.entries: list[Planned] = []  # the last used last
+
+    def find(self, db: EncodedDatabase, sort: bool) -> Planned:
+        """The entry of ``db``'s records, sorted by length or not."""
+        with self.lock:
+            for k, e in enumerate(self.entries):
+                if e.sort == sort and np.array_equal(e.offsets, db.offsets):
+                    self.entries.append(self.entries.pop(k))
+                    return e
+            self.entries.append(Planned(db.offsets, sort))
+            del self.entries[:-PLAN_MEMO_SIZE]
+            return self.entries[-1]
+
+    def cut(self, planned: Planned, db: EncodedDatabase, lanes: int | None,
+            max_lanes: int | None, max_residues: int | None) -> Cut:
+        """``planned``'s chunks for these arguments of :func:`chunk_bounds`
+        and :func:`plan_chunk`."""
+        key = (lanes, max_lanes, max_residues, MAX_STREAM_SLOTS, WINDOW_LANES,
+               STREAM_GRAIN, STREAM_JB)
+        with self.lock:
+            cut = planned.cuts.pop(key, None)
+            if cut is None:
+                cut = Cut(chunk_bounds(db, planned.order, max_residues), {})
+            planned.cuts[key] = cut
+            for old in list(planned.cuts)[:-PLAN_MEMO_SIZE]:
+                del planned.cuts[old]
+            return cut
+
+    def plans(self, planned: Planned, cut: Cut, chunks: list[tuple[int, int]],
+              lanes: int | None, max_lanes: int | None) -> list[StreamPlan]:
+        """The plans of ``cut``'s chunks ``(start, stop)``, those the memo
+        lacks made now, in the search's ``plan`` span, which counts both."""
+        with self.lock:
+            hits = sum(start in cut.plans for start, _ in chunks)
+            with trace.span("plan", plan_hits=hits, plan_misses=len(chunks) - hits):
+                for start, stop in chunks:
+                    if start not in cut.plans:
+                        cut.plans[start] = plan_chunk(
+                            planned.lengths, planned.order[start:stop], lanes, max_lanes)
+                return [cut.plans[start] for start, _ in chunks]
+
+
+PLANS = PlanMemo()
+
+
 def device_free_bytes(device: torch.device) -> int | None:
     """Bytes a search may still take on ``device`` (the card's free memory,
     ``torch.cuda.mem_get_info``, and PyTorch's cached blocks); None, no
@@ -507,7 +599,7 @@ def _stream_search(
     db: EncodedDatabase,
     go: int,
     ge: int,
-    order: np.ndarray,
+    planned: Planned,
     lanes: int | None,
     device: torch.device,
     checkpoint_dir: str | None = None,
@@ -515,10 +607,12 @@ def _stream_search(
 ) -> tuple[np.ndarray, float]:
     """Whole-database search through the segmented stream kernels.
 
-    The database becomes NW window streams scored in one launch per chunk
-    of ``MAX_STREAM_SLOTS`` segments (:func:`chunk_bounds`), each chunk
-    planned on the host and packed on the device from one copy of the
-    database (:class:`DevicePacker`). A 3-D
+    The database, in ``planned``'s order (:meth:`PlanMemo.find`), becomes
+    NW window streams scored in one launch per chunk of
+    ``MAX_STREAM_SLOTS`` segments (:func:`chunk_bounds`), each chunk
+    planned on the host (once for the records, :class:`PlanMemo`) and
+    packed on the device from one copy of the database
+    (:class:`DevicePacker`). A 3-D
     ``(NQ, Lq, 32)`` profile runs one multi-query launch per block of
     queries (:func:`query_blocks`) over the same device-resident streams.
     The chunks are the single-query search's: the JAX package's smaller
@@ -573,24 +667,26 @@ def _stream_search(
         query_residues = rows
     shape = (profile.shape[0], n) if multi else (n,)
     scores = torch.zeros(shape, dtype=torch.int32, device=device)
+    max_lanes = resident_lanes(device)
+    order = planned.order
     with trace.span("plan"):
-        bounds = chunk_bounds(db, order, striped_chunk_residues() if striped else None)
+        cut = PLANS.cut(planned, db, lanes, max_lanes,
+                        striped_chunk_residues() if striped else None)
     ckpt = (
-        _ScanCheckpoint(checkpoint_dir, profile, db, go, ge, order, bounds)
+        _ScanCheckpoint(checkpoint_dir, profile, db, go, ge, order, cut.bounds)
         if checkpoint_dir
         else None
     )
-    max_lanes = resident_lanes(device)
-    todo = []
-    for start, stop in bounds:
-        chunk = order[start:stop]
+    chunks = []
+    for start, stop in cut.bounds:
         done = ckpt.load(start) if ckpt is not None else None
         if done is not None:
-            scores[..., torch.from_numpy(chunk).to(device)] = torch.from_numpy(done).to(device)
+            ids = torch.from_numpy(order[start:stop]).to(device)
+            scores[..., ids] = torch.from_numpy(done).to(device)
         else:
-            with trace.span("plan"):
-                plan = plan_chunk(db.lengths, chunk, lanes, max_lanes)
-            todo.append((start, chunk, plan))
+            chunks.append((start, stop))
+    plans = PLANS.plans(planned, cut, chunks, lanes, max_lanes)
+    todo = [(start, order[start:stop], plan) for (start, stop), plan in zip(chunks, plans)]
     packer = DevicePacker(db, device, scores.numel() * 4 + max(
         (chunk_device_bytes(p, queries, striped) for *_, p in todo), default=0))
     fetched = _host_scores(shape, device)

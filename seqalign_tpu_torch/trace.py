@@ -6,11 +6,13 @@ session records, it is ``torch.profiler.record_function("seqalign.<name>")``:
 the step is an event on the profiler's timeline and clock, nested in the
 steps open on its thread. A span given counters also appends
 ``{"name": "seqalign.<name>", "counts": counts}`` to a list in memory, which
-``recorded()`` returns, since the profiler's events carry no counters. The
-one span with counters is ``seqalign.launch``: ``cells_real`` and
-``cells_launched`` (``swbench``'s ``cell_fill_pct`` reads them). Counters
-come from data the host holds (shapes, plans); no span reads a device value
-or waits for the device.
+``recorded()`` returns, since the profiler's events carry no counters. Two
+spans have counters: ``seqalign.launch``, ``cells_real`` and
+``cells_launched`` (``swbench``'s ``cell_fill_pct`` reads them), and a
+search's ``seqalign.plan`` of its chunks' plans, ``plan_hits`` and
+``plan_misses`` (from the pipeline's plan memo or made now; ``swbench``'s
+``plan_hit_pct``). Counters come from data the host holds (shapes, plans);
+no span reads a device value or waits for the device.
 
 Outside a profiler session ``span`` returns one shared object that does
 nothing: it reads no clock, records nothing and calls no profiler function.

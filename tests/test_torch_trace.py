@@ -1,7 +1,8 @@
 """The search's spans (``seqalign_tpu_torch.trace``) under ``torch.profiler``,
 on a database of a few hundred records: one root span a search with every
 step inside it, the launches' cell counts against the plans and the
-kernels' teams, and the kernel timer against the spans it covers.
+kernels' teams, the plan span's memo hits and misses, and the kernel timer
+against the spans it covers.
 
 The file imports neither JAX nor the JAX package, so that its card case runs
 on a machine without them:
@@ -88,8 +89,18 @@ def inside(ev, outer):
     return outer[3] == ev[3] and outer[1] <= ev[1] and ev[2] <= outer[2]
 
 
+def launches(records):
+    return [r for r in records if r["name"] == "seqalign.launch"]
+
+
+def plan_record(hits, misses):
+    return {"name": "seqalign.plan", "counts": {"plan_hits": hits, "plan_misses": misses}}
+
+
 def plans_made(monkeypatch):
-    """The plans the search makes, as ``pipeline.plan_chunk`` returns them."""
+    """The plans the search makes, as ``pipeline.plan_chunk`` returns them,
+    from a memo of its own that holds none yet."""
+    monkeypatch.setattr(pipeline, "PLANS", pipeline.PlanMemo())
     plans, plan_chunk = [], pipeline.plan_chunk
 
     def spy(*args, **kwargs):
@@ -151,6 +162,7 @@ def test_launch_counters_match_the_wrappers_and_the_plans(name, chunk_residues, 
     queries = [protein(rng, n) for n in lengths]
     db = database(rng, 1500 if chunk_residues else 300)
     _, spans, records, _, _ = traced(lambda: search(queries, db, scoring))
+    records = launches(records)
     assert len(records) == len(plans) == sum(ev[0] == "seqalign.launch" for ev in spans)
     assert (len(plans) > 2) == bool(chunk_residues)
     for r, plan in zip(records, plans):
@@ -194,7 +206,7 @@ def test_a_search_inside_another_is_its_child(scoring, monkeypatch):
     assert inside(inner, root) and all(inside(ev, root) for ev in spans)
     # The batch's K3 launch (one query of 10 rows, solo at R = 10, Q = 1),
     # then the long query's six K2 stripes.
-    assert [r["counts"] for r in records] == [
+    assert [r["counts"] for r in launches(records)] == [
         {"cells_real": n * int(db.offsets[-1]), "cells_launched": rows * p.padded_cells_per_query_row}
         for n, rows, p in zip((10, 42), (10, 6 * 32 * 8), plans)]
     assert timed_seconds(spans) == pytest.approx(kernel_s, abs=1e-3)
@@ -213,20 +225,50 @@ def test_outside_a_profiler_nothing_is_recorded(scoring):
 
 def test_a_new_session_starts_a_new_record(scoring):
     """``clear()`` starts the record anew; a search outside the profiler
-    adds nothing to it, and every profiled search adds its launches."""
+    adds nothing to it, and every profiled search adds its plan span (its
+    one chunk planned now the first time, from the memo after) and its
+    launches."""
     rng = np.random.default_rng(59)
     db = database(rng, 50)
     q = protein(rng, 12)
     _, _, first, _, _ = traced(lambda: pipeline.search_database(q, db, scoring, device="cpu"))
-    assert len(first) == 1
+    launch = launches(first)
+    assert len(launch) == 1
+    assert first == [plan_record(0, 1)] + launch
     pipeline.search_database(q, db, scoring, device="cpu")
     assert trace.recorded() == first
     with profile(activities=[ProfilerActivity.CPU]):
         pipeline.search_database(q, db, scoring, device="cpu")
-    assert trace.recorded() == first * 2
+    again = [plan_record(1, 0)] + launch
+    assert trace.recorded() == first + again
     _, _, second, _, _ = traced(lambda: [pipeline.search_database(q, db, scoring, device="cpu")
                                          for _ in range(2)])
-    assert second == first * 2
+    assert second == again * 2
+
+
+@pytest.mark.parametrize("name,chunk_residues", [("single", None), ("multi", None),
+                                                 ("striped", None), ("striped", 2000)])
+def test_the_plan_span_counts_the_memos_hits_and_misses(name, chunk_residues, scoring,
+                                                        monkeypatch):
+    """Each traced search's ``seqalign.plan`` record counts its chunks:
+    every one planned now on the first search of a database, every one from
+    the memo after, for a batch and for a long query alike."""
+    shrink(monkeypatch, name)
+    if chunk_residues:
+        monkeypatch.setattr(pipeline, "STRIPED_SCRATCH_BYTES", 2 * chunk_residues * 16)
+    plans = plans_made(monkeypatch)
+    rng = np.random.default_rng(67)
+    lengths, _ = CASES[name]
+    queries = [protein(rng, n) for n in lengths]
+    db = database(rng, 1500 if chunk_residues else 300)
+    (want, _), _, first, _, _ = traced(lambda: search(queries, db, scoring))
+    chunks = len(plans)
+    assert (chunks > 2) == bool(chunk_residues)
+    (got, _), _, later, _, _ = traced(lambda: [search(queries, db, scoring) for _ in range(2)][-1])
+    assert len(plans) == chunks
+    np.testing.assert_array_equal(got, want)
+    assert [r for r in first if r["name"] == "seqalign.plan"] == [plan_record(0, chunks)]
+    assert [r for r in later if r["name"] == "seqalign.plan"] == [plan_record(chunks, 0)] * 2
 
 
 def test_a_span_on_another_thread_records_its_counters():
@@ -276,12 +318,13 @@ def test_spans_hold_the_device_work_on_the_card(scoring, monkeypatch):
     q = protein(rng, 144)
     search([q], db, scoring, device="cuda")  # builds and loads the kernels
     want, _ = search([q], db, scoring, device="cpu")
-    launches = swa_cuda.sw_stream.launches
+    k1 = swa_cuda.sw_stream.launches
     plans = plans_made(monkeypatch)
     (scores, _), spans, records, _, prof = traced(lambda: search([q], db, scoring,
                                                                  device="cuda"), "cuda")
     np.testing.assert_array_equal(scores, want)
-    assert swa_cuda.sw_stream.launches - launches == len(records) == 1
+    records = launches(records)
+    assert swa_cuda.sw_stream.launches - k1 == len(records) == 1
     (plan,) = plans
     assert records[0]["counts"] == {"cells_real": 144 * int(db.offsets[-1]),
                                     "cells_launched": 144 * plan.padded_cells_per_query_row}
