@@ -21,7 +21,7 @@ from types import ModuleType
 import numpy as np
 import torch
 
-from . import check, trace as tracing
+from . import alignments, check, trace as tracing
 from .data import Database, make_database, random_queries, seed_words
 from .peaks import bytes_bound_s, nvidia_smi, ops_bound_s
 from .scoring import load_table
@@ -109,6 +109,7 @@ class Run:
     trace: tracing.Trace | None = None
     sms: int | None = None
     sm_clock_hz: float | None = None
+    memory_peak_bytes: int | None = None  # the card's allocator, through the window
 
 
 def program_scoring(config: dict, table: np.ndarray):
@@ -151,14 +152,16 @@ def _warm_up(cell: Cell, pipeline, db: Database, whole, scoring, seed: int) -> N
 
 def _window(cell: Cell, pipeline, requests, whole, scoring, samples, seconds: float,
             traced: bool, log):
-    """The closed loop: ``(searches, their queries, their answers, the
-    window's start, the profiler or None)``. Search ``k``'s answer is
-    ``(records, scores)``: its scores of sample ``k`` mod the pool and of
-    the records its queries were copied from. The search in flight at
-    ``seconds`` finishes and counts."""
+    """The closed loop: ``(searches, their queries, their answers, their
+    hits, the window's start, the profiler or None)``. Search ``k``'s
+    answer is ``(records, scores)``: its scores of sample ``k`` mod the
+    pool, of the records its queries were copied from and of the records
+    of its hits. Its hits are what ``submit`` returned third, one list of
+    ``alignments.Hit`` a query, or None where it returned two. The search
+    in flight at ``seconds`` finishes and counts."""
     residues = int(whole.offsets[-1])
     searches: list[Search] = []
-    queries, answers = [], []
+    queries, answers, hits = [], [], []
     profiler = contextlib.nullcontext()
     if traced:
         from torch.profiler import ProfilerActivity, profile
@@ -175,7 +178,8 @@ def _window(cell: Cell, pipeline, requests, whole, scoring, samples, seconds: fl
             try:
                 with (torch.profiler.record_function(tracing.SEARCH_SPAN) if traced
                       else contextlib.nullcontext()):
-                    scores, kernel_s = cell.traffic.submit(pipeline, qs, whole, scoring)
+                    answer = cell.traffic.submit(pipeline, qs, whole, scoring)
+                scores, kernel_s = answer[:2]
                 ok = True
             except Exception:  # a failed search is counted, and the run goes on
                 log(traceback.format_exc())
@@ -186,12 +190,18 @@ def _window(cell: Cell, pipeline, requests, whole, scoring, samples, seconds: fl
             queries.append(qs)
             if ok:
                 records = np.union1d(samples[k % len(samples)], np.asarray(sources, dtype=np.int64))
+                found = answer[2] if len(answer) > 2 else None
+                if found is not None:
+                    records = np.union1d(records, np.array([h.record for q in found for h in q],
+                                                           dtype=np.int64))
                 answers.append((records, np.asarray(scores)[:, records]))
+                hits.append(found)
             else:
                 answers.append(None)
+                hits.append(None)
             if t1 - first >= seconds:
                 break
-    return searches, queries, answers, first, prof
+    return searches, queries, answers, hits, first, prof
 
 
 def execute(cell: Cell, seed: int, seconds: float, traced: bool, device: torch.device,
@@ -215,11 +225,11 @@ def execute(cell: Cell, seed: int, seconds: float, traced: bool, device: torch.d
     _sync(device)
 
     setup_s = time.time() - started
-    searches, queries, answers, first, prof = _window(
+    searches, queries, answers, hits, first, prof = _window(
         cell, pipeline, requests, whole, scoring, samples, seconds, traced, log)
     _sync(device)
-    run = Run(setup_s, searches[-1].end - first, searches)
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
+    run = Run(setup_s, searches[-1].end - first, searches, memory_peak_bytes=peak or None)
     out_device = {"platform": "gpu" if device.type == "cuda" else device.type,
                   "kind": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
                   "count": 1, "memory_peak_bytes": int(peak)}
@@ -257,8 +267,21 @@ def execute(cell: Cell, seed: int, seconds: float, traced: bool, device: torch.d
         f"{time.perf_counter() - t0:.1f} s; largest score {got['max_score']}")
     for ex in got["examples"]:
         log(f"mismatch: {ex}")
+    correct = got["mismatches"] == 0 and got["compared"] >= 1
+    aligned = None
+    if any(h is not None for h in hits):
+        t0 = time.perf_counter()
+        aligned = alignments.compare(db, queries, answers, hits, chosen,
+                                     cell.workload["params"]["k"], table,
+                                     config["scoring"]["gap_open"],
+                                     config["scoring"]["gap_extend"])
+        log(f"alignments: {aligned['compared']} hits judged in "
+            f"{time.perf_counter() - t0:.1f} s")
+        for ex in aligned["examples"]:
+            log(f"alignment mismatch: {ex}")
+        correct = correct and aligned["mismatches"] == 0 and aligned["compared"] >= 1
     failed = sum(not s.ok for s in searches)
-    line = {"correct": got["mismatches"] == 0 and failed == 0 and got["compared"] >= 1,
+    line = {"correct": correct and failed == 0,
             "attempted": len(searches), "failed": failed, "metrics": metrics,
             "device": out_device}
     if breakdown is not None:
@@ -277,4 +300,7 @@ def execute(cell: Cell, seed: int, seconds: float, traced: bool, device: torch.d
     line["checks"] = {"mismatches": {"value": got["mismatches"], "limit": 0},
                       "failed_searches": {"value": failed, "limit": 0},
                       "scores_compared": {"value": got["compared"], "at_least": 1}}
+    if aligned is not None:
+        line["checks"]["alignment_mismatches"] = {"value": aligned["mismatches"], "limit": 0}
+        line["checks"]["alignments_compared"] = {"value": aligned["compared"], "at_least": 1}
     return line

@@ -3,10 +3,12 @@
 Before the window a pool of record samples is drawn from the seed, each
 with the database's longest and shortest records in it. Each search of the
 window keeps its scores of one sample (search ``k`` of sample ``k`` mod the
-pool) and of the records its queries were copied from, whose scores are
-the search's highest. Once the window has closed, a number of the finished searches drawn
-from the seed, and always the one with the most query residues, are scored
-again by the reference on their sample, and every score is compared
+pool), of the records its queries were copied from, whose scores are the
+search's highest, and of the records of the hits it aligned, where its
+traffic kind returns them (``alignments.py`` judges the alignments
+themselves). Once the window has closed, a number of the finished searches
+drawn from the seed, and always the one with the most query residues, are
+scored again by the reference on their sample, and every score is compared
 exactly: the limit on mismatches is 0, since a score either is the
 recurrence's or is not.
 """

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from swbench import cell as cells, control, run as entry
+from swbench.tests.tamper import TAMPERS, from_port
 from swbench.tests.tiny import SWBENCH, make_root
 
 SEED = 2**31 + 99
@@ -30,7 +31,7 @@ def execute(root, name, traced=False, seconds=0.3):
                                log=lambda msg: None)
 
 
-@pytest.mark.parametrize("name", ["tiny-single", "tiny-batch"])
+@pytest.mark.parametrize("name", ["tiny-single", "tiny-batch", "tiny-align"])
 @pytest.mark.parametrize("traced", [False, True])
 def test_last_line_schema(root, name, traced):
     cell, line = execute(root, name, traced)
@@ -43,7 +44,8 @@ def test_last_line_schema(root, name, traced):
     for name_, m in line["metrics"].items():
         assert set(m) == {"value", "unit"} and m["unit"] == units[name_] and m["value"] > 0
     if not traced:
-        assert set(line["metrics"]) == set(units)  # every end-to-end metric is read
+        # Every end-to-end metric is read; the card's memory only where there is a card.
+        assert set(line["metrics"]) == set(units) - {"device_peak_gib"}
     else:
         assert "host_ms" in line["metrics"]  # the CPU has no device trace to read
         assert {"busy_s", "window_s"} <= set(line["device"])
@@ -123,7 +125,7 @@ def one_altered(real):
     return search
 
 
-@pytest.mark.parametrize("name", ["tiny-single", "tiny-batch"])
+@pytest.mark.parametrize("name", ["tiny-single", "tiny-batch", "tiny-align"])
 @pytest.mark.parametrize("fault", [stale, half_left_out, one_altered])
 def test_faults_make_correct_false(root, monkeypatch, name, fault):
     from seqalign_tpu_torch import pipeline
@@ -134,7 +136,7 @@ def test_faults_make_correct_false(root, monkeypatch, name, fault):
     assert line["checks"]["mismatches"]["value"] > 0
 
 
-@pytest.mark.parametrize("name", ["tiny-single", "tiny-pam", "tiny-batch"])
+@pytest.mark.parametrize("name", ["tiny-single", "tiny-pam", "tiny-batch", "tiny-align"])
 def test_control_is_not_correct(root, name):
     """The reference in saturating 8-bit integers, in the program's place:
     the queries' copies of their records score past 127."""
@@ -143,6 +145,58 @@ def test_control_is_not_correct(root, name):
     (reading,) = control.control_readings(cell, SEED, 12, torch.device("cpu"), widths=(8,))
     assert reading["compared"] > 0 and reading["max_score"] > 127
     assert reading["mismatches"] > 0
+
+
+@pytest.mark.parametrize("name", ["tiny-single", "tiny-batch", "tiny-pam"])
+def test_kinds_without_hits_keep_their_checks(root, name):
+    """A kind whose ``submit`` returns two items is judged as before: by
+    its scores, with the same three checks."""
+    _, line = execute(root, name)
+    assert line["correct"] is True
+    assert list(line["checks"]) == ["mismatches", "failed_searches", "scores_compared"]
+
+
+def test_aligned_cell_is_correct(root):
+    _, line = execute(root, "tiny-align")
+    assert line["correct"] is True
+    checks = line["checks"]
+    assert list(checks)[-2:] == ["alignment_mismatches", "alignments_compared"]
+    assert checks["alignment_mismatches"] == {"value": 0, "limit": 0}
+    assert checks["alignments_compared"]["value"] >= 3
+
+
+def planted(tamper):
+    """``topk_alignments`` answering with ``tamper`` of its ``k + 1`` best."""
+    from seqalign_tpu_torch.ops import traceback
+
+    real = traceback.topk_alignments
+
+    def align(query, db, scores, k, table, gap_open, gap_extend, **kwargs):
+        hits = from_port(real(query, db, scores, k + 1, table, gap_open, gap_extend, **kwargs))
+        return [(h.record, traceback.Alignment(h.score, h.query_start, h.query_end,
+                                               h.record_start, h.record_end, h.query_aligned,
+                                               h.record_aligned, h.cigar))
+                for h in tamper(hits, table, gap_open, gap_extend)]
+    return align
+
+
+def test_a_sound_planted_answer_stays_correct(root, monkeypatch):
+    from seqalign_tpu_torch.ops import traceback
+
+    monkeypatch.setattr(traceback, "topk_alignments", planted(lambda hits, *_: hits[:-1]))
+    _, line = execute(root, "tiny-align")
+    assert line["correct"] is True and line["checks"]["alignments_compared"]["value"] >= 3
+
+
+@pytest.mark.parametrize("tamper", TAMPERS, ids=lambda t: t.__name__)
+def test_alignment_faults_make_correct_false(root, monkeypatch, tamper):
+    from seqalign_tpu_torch.ops import traceback
+
+    monkeypatch.setattr(traceback, "topk_alignments", planted(tamper))
+    _, line = execute(root, "tiny-align")
+    assert line["correct"] is False
+    assert line["checks"]["alignment_mismatches"]["value"] > 0
+    assert line["checks"]["mismatches"]["value"] == 0  # the scores are the program's own
 
 
 def test_failed_searches_are_counted(root, monkeypatch):

@@ -14,7 +14,7 @@ PROGRAM = "seqalign_tpu_torch"
 # The yardstick: what decides `correct` and makes the inputs, and what they
 # import of the benchmark.
 INDEPENDENT = ["reference.py", "scoring.py", "data.py", "check.py", "control.py", "peaks.py",
-               "stats.py", "trace.py"]
+               "stats.py", "trace.py", "alignments.py"]
 MODULES = sorted(p for p in SWBENCH.rglob("*.py") if "tests" not in p.parts)
 
 

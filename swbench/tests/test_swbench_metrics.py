@@ -100,7 +100,24 @@ def test_innermost_host_ops():
     assert trace.innermost(evs) == [("leaf", 1.2, 1.5), ("next", 3.0, 4.0)]
 
 
-@pytest.mark.parametrize("name", ["gcups", "host_ms", "h2d_ms", "sw_roofline", "device_idle_pct"])
-def test_single_cell_readers_read_as_their_originals(name):
+@pytest.mark.parametrize("name, single", [("gcups", "window_gcups.single"),
+                                          ("host_ms", "host_ms.single"),
+                                          ("h2d_ms", "h2d_ms.single"),
+                                          ("sw_roofline", "sw_roofline.single"),
+                                          ("device_idle_pct", "device_idle_pct.single")])
+def test_single_cell_readers_read_as_their_originals(name, single):
     run = run_of([5.0, 5.0], [1.0, 2.0], [10**12 // 2] * 2, tr=synthetic_trace())
-    assert reader(f"{name}.single").read(run) == reader(name).read(run) is not None
+    assert reader(single).read(run) == reader(name).read(run) is not None
+
+
+def test_device_peak_is_the_allocators_peak_in_gib():
+    run = run_of([1.0], [0.5], [1])
+    run.memory_peak_bytes = 439_502_848
+    assert reader("device_peak_gib").read(run) == pytest.approx(439_502_848 / 2**30)
+
+
+@pytest.mark.parametrize("peak", [None, 0])
+def test_device_peak_reads_nothing_without_a_card(peak):
+    run = run_of([1.0], [0.5], [1])
+    run.memory_peak_bytes = peak
+    assert reader("device_peak_gib").read(run) is None

@@ -27,6 +27,8 @@ CELLS = {
     "tiny-batch": ("tiny-blosum62", "batch",
                    {"queries": 4, "lengths": {"min": 32, "max": 40}, "mutate": 0.3}),
     "tiny-pam": ("tiny-pam250", "single", {"lengths": [40], "mutate": 0.0}),
+    "tiny-align": ("tiny-pam250", "align",
+                   {"lengths": [9, 23, 40, 120], "mutate": 0.0, "k": 3}),
 }
 
 
