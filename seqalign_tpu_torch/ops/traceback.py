@@ -12,9 +12,24 @@ asserted by tests. Output is the pair of gapped strings plus a CIGAR.
 The fill runs in the native traceback library (``native/traceback.cc``,
 built at first use by ``seqalign_tpu_torch.native``), or in NumPy on a host
 with no C++ compiler or for a table outside int8. Pairs above
-``_DIRECT_CELLS`` are localized first; for the top-k hits, their alignment
-ends come from one call of the plain-torch ``sw_wavefront_ends`` on the
-search's device (:func:`topk_alignments`).
+``_DIRECT_CELLS`` are localized first. For the top-k hits
+(:func:`topk_alignments`), their alignment ends come from one call of the
+plain-torch ``sw_wavefront_ends`` on the search's device where the table's
+'*' row and column score at most 0; under BLOSUM62 and PAM250, which score
+'*' against '*' +1, they come from the host's forward pass over each pair
+(``_score_ends``: the native ``sw_tb_ends``, one thread).
+
+Spans (``seqalign_tpu_torch.trace``, recorded only under a profiler):
+``align``, the whole of :func:`topk_alignments` (counter ``hits``: the hits
+asked, at most the records); inside it ``select``, the top-k choice
+(``records``); ``ends``, each localization of ends (``cells_host``: a host
+pass's rows x columns, the forward pass or the windowed reverse one;
+``cells_device``: the engine's query residues x the records' residues, no
+padding); ``fill``, each traceback-state fill (``cells_host``: its rows x
+columns: a direct pair, a localized pair's rectangle, or a rectangle past
+``MAX_CELLS`` that ``_myers_miller`` aligns, whose passes step about twice
+its cells); and ``walk``, the walk back to the gapped strings and the
+CIGAR.
 
 Memory: O(Lq * Lb) bytes (one uint8 state per cell per matrix). For
 pathological pairs beyond ``MAX_CELLS`` the caller should band or chunk; the
@@ -28,7 +43,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from .. import native
+from .. import native, trace
 
 MAX_CELLS = 1 << 30  # 1G cells * 3 bytes ~ 3 GB hard cap
 
@@ -197,49 +212,50 @@ def _score_ends(q, d, table, go, ge):
     fill's first-encountered rule (j outer ascending, i inner ascending).
     """
     lq, lb = len(q), len(d)
-    lib = _native_for(table)
-    if lib is not None:
-        q8 = np.ascontiguousarray(q, dtype=np.int8)
-        d8 = np.ascontiguousarray(d, dtype=np.int8)
-        t8 = np.ascontiguousarray(table, dtype=np.int8)
-        bj = ctypes.c_int64()
-        bi = ctypes.c_int64()
-        best = int(
-            lib.sw_tb_ends(
-                q8.ctypes.data, lq, d8.ctypes.data, lb, t8.ctypes.data,
-                go, ge, ctypes.byref(bj), ctypes.byref(bi),
+    with trace.span("ends", cells_host=lq * lb):
+        lib = _native_for(table)
+        if lib is not None:
+            q8 = np.ascontiguousarray(q, dtype=np.int8)
+            d8 = np.ascontiguousarray(d, dtype=np.int8)
+            t8 = np.ascontiguousarray(table, dtype=np.int8)
+            bj = ctypes.c_int64()
+            bi = ctypes.c_int64()
+            best = int(
+                lib.sw_tb_ends(
+                    q8.ctypes.data, lq, d8.ctypes.data, lb, t8.ctypes.data,
+                    go, ge, ctypes.byref(bj), ctypes.byref(bi),
+                )
             )
-        )
-        if best == np.iinfo(np.int64).min:
-            raise MemoryError("native ends pass allocation failed")
-        return best, (int(bj.value), int(bi.value))
-    qv = np.asarray(q, dtype=np.int64)
-    ramp = np.arange(lq, dtype=np.int64) * ge
-    h_prev = np.zeros(lq + 1, dtype=np.int64)
-    e_prev = np.zeros(lq + 1, dtype=np.int64)
-    f_prev = np.zeros(lq + 1, dtype=np.int64)
-    best, pos = 0, (0, 0)
-    for j in range(1, lb + 1):
-        srow = table[qv, d[j - 1]]
-        m = np.maximum(np.maximum(h_prev[:-1], e_prev[:-1]), f_prev[:-1])
-        h = np.zeros(lq + 1, dtype=np.int64)
-        h[1:] = np.maximum(m + srow, 0)
-        e = np.zeros(lq + 1, dtype=np.int64)
-        e[1:] = np.maximum(
-            np.maximum(h_prev[1:] + go, e_prev[1:] + ge), f_prev[1:] + go
-        )
-        e[1:] = np.maximum(e[1:], 0)
-        f = np.zeros(lq + 1, dtype=np.int64)
-        pref = np.maximum.accumulate(
-            np.maximum(h[:-1], e[:-1]) + go - ramp
-        )
-        f[1:] = np.maximum(pref + ramp, 0)
-        rm = int(h.max())
-        if rm > best:
-            best = rm
-            pos = (j, int(h.argmax()))
-        h_prev, e_prev, f_prev = h, e, f
-    return best, pos
+            if best == np.iinfo(np.int64).min:
+                raise MemoryError("native ends pass allocation failed")
+            return best, (int(bj.value), int(bi.value))
+        qv = np.asarray(q, dtype=np.int64)
+        ramp = np.arange(lq, dtype=np.int64) * ge
+        h_prev = np.zeros(lq + 1, dtype=np.int64)
+        e_prev = np.zeros(lq + 1, dtype=np.int64)
+        f_prev = np.zeros(lq + 1, dtype=np.int64)
+        best, pos = 0, (0, 0)
+        for j in range(1, lb + 1):
+            srow = table[qv, d[j - 1]]
+            m = np.maximum(np.maximum(h_prev[:-1], e_prev[:-1]), f_prev[:-1])
+            h = np.zeros(lq + 1, dtype=np.int64)
+            h[1:] = np.maximum(m + srow, 0)
+            e = np.zeros(lq + 1, dtype=np.int64)
+            e[1:] = np.maximum(
+                np.maximum(h_prev[1:] + go, e_prev[1:] + ge), f_prev[1:] + go
+            )
+            e[1:] = np.maximum(e[1:], 0)
+            f = np.zeros(lq + 1, dtype=np.int64)
+            pref = np.maximum.accumulate(
+                np.maximum(h[:-1], e[:-1]) + go - ramp
+            )
+            f[1:] = np.maximum(pref + ramp, 0)
+            rm = int(h.max())
+            if rm > best:
+                best = rm
+                pos = (j, int(h.argmax()))
+            h_prev, e_prev, f_prev = h, e, f
+        return best, pos
 
 
 # Above this many cells, localize the alignment first (two linear-space
@@ -333,88 +349,90 @@ def _direct_traceback(
             cigar=flipped.cigar.translate(str.maketrans("ID", "DI")),
         )
 
-    lib = _native_for(table)
-    if lib is not None:
-        states = _states_buffer((lb + 1) * (lq + 1)).reshape(lb + 1, lq + 1)
-        q8 = np.ascontiguousarray(q, dtype=np.int8)
-        d8 = np.ascontiguousarray(d, dtype=np.int8)
-        t8 = np.ascontiguousarray(table, dtype=np.int8)
-        bj = ctypes.c_int64()
-        bi = ctypes.c_int64()
-        best = int(
-            lib.sw_tb_fill(
-                q8.ctypes.data, lq, d8.ctypes.data, lb, t8.ctypes.data,
-                go, ge, states.ctypes.data,
-                ctypes.byref(bj), ctypes.byref(bi),
+    with trace.span("fill", cells_host=lq * lb):
+        lib = _native_for(table)
+        if lib is not None:
+            states = _states_buffer((lb + 1) * (lq + 1)).reshape(lb + 1, lq + 1)
+            q8 = np.ascontiguousarray(q, dtype=np.int8)
+            d8 = np.ascontiguousarray(d, dtype=np.int8)
+            t8 = np.ascontiguousarray(table, dtype=np.int8)
+            bj = ctypes.c_int64()
+            bi = ctypes.c_int64()
+            best = int(
+                lib.sw_tb_fill(
+                    q8.ctypes.data, lq, d8.ctypes.data, lb, t8.ctypes.data,
+                    go, ge, states.ctypes.data,
+                    ctypes.byref(bj), ctypes.byref(bi),
+                )
             )
-        )
-        if best == np.iinfo(np.int64).min:
-            raise MemoryError("native traceback fill allocation failed")
-        best_pos = (int(bj.value), int(bi.value))
-    else:
-        _, tb_h, tb_e, tb_f, best, best_pos = _fill_matrices(
-            q, d, table, go, ge
-        )
-        # Pack to the native layout so one walkback serves both paths.
-        states = tb_h | (tb_e << 2) | (tb_f << 4)
+            if best == np.iinfo(np.int64).min:
+                raise MemoryError("native traceback fill allocation failed")
+            best_pos = (int(bj.value), int(bi.value))
+        else:
+            _, tb_h, tb_e, tb_f, best, best_pos = _fill_matrices(
+                q, d, table, go, ge
+            )
+            # Pack to the native layout so one walkback serves both paths.
+            states = tb_h | (tb_e << 2) | (tb_f << 4)
 
-    # Walk back from the best H cell.
-    j, i = best_pos
-    mat = 1  # start in H
-    qa, da, ops = [], [], []
-    while j > 0 and i > 0:
-        st = int(states[j, i])
-        if mat == 1:  # H cell: came from diagonal (or terminates)
-            src = st & 3
-            if src == 0:  # floored cell (H == 0): the alignment starts here
-                break
-            qa.append(query_str[i - 1])
-            da.append(db_str[j - 1])
-            ops.append("M")
-            i -= 1
-            j -= 1
-            mat = src
-        elif mat == 2:  # E cell: gap in query dimension... consumes db char
-            src = (st >> 2) & 3
-            qa.append("-")
-            da.append(db_str[j - 1])
-            ops.append("D")
-            j -= 1
-            if src == 0:
-                break
-            mat = src
-        else:  # F cell: gap in db, consumes query char
-            src = (st >> 4) & 3
-            qa.append(query_str[i - 1])
-            da.append("-")
-            ops.append("I")
-            i -= 1
-            if src == 0:
-                break
-            mat = src
+    with trace.span("walk"):
+        # Walk back from the best H cell.
+        j, i = best_pos
+        mat = 1  # start in H
+        qa, da, ops = [], [], []
+        while j > 0 and i > 0:
+            st = int(states[j, i])
+            if mat == 1:  # H cell: came from diagonal (or terminates)
+                src = st & 3
+                if src == 0:  # floored cell (H == 0): the alignment starts here
+                    break
+                qa.append(query_str[i - 1])
+                da.append(db_str[j - 1])
+                ops.append("M")
+                i -= 1
+                j -= 1
+                mat = src
+            elif mat == 2:  # E cell: gap in query dimension... consumes db char
+                src = (st >> 2) & 3
+                qa.append("-")
+                da.append(db_str[j - 1])
+                ops.append("D")
+                j -= 1
+                if src == 0:
+                    break
+                mat = src
+            else:  # F cell: gap in db, consumes query char
+                src = (st >> 4) & 3
+                qa.append(query_str[i - 1])
+                da.append("-")
+                ops.append("I")
+                i -= 1
+                if src == 0:
+                    break
+                mat = src
 
-    qa.reverse()
-    da.reverse()
-    ops.reverse()
-    # Run-length encode the CIGAR.
-    cigar = []
-    k = 0
-    while k < len(ops):
-        r = k
-        while r < len(ops) and ops[r] == ops[k]:
-            r += 1
-        cigar.append(f"{r-k}{ops[k]}")
-        k = r
-    return Alignment(
-        score=best,
-        query_start=i,
-        query_end=best_pos[1],
-        db_start=j,
-        db_end=best_pos[0],
-        query_aligned="".join(qa),
-        db_aligned="".join(da),
-        cigar="".join(cigar),
-    )
+        qa.reverse()
+        da.reverse()
+        ops.reverse()
+        # Run-length encode the CIGAR.
+        cigar = []
+        k = 0
+        while k < len(ops):
+            r = k
+            while r < len(ops) and ops[r] == ops[k]:
+                r += 1
+            cigar.append(f"{r-k}{ops[k]}")
+            k = r
+        return Alignment(
+            score=best,
+            query_start=i,
+            query_end=best_pos[1],
+            db_start=j,
+            db_end=best_pos[0],
+            query_aligned="".join(qa),
+            db_aligned="".join(da),
+            cigar="".join(cigar),
+        )
 
 
 def _localized_traceback(
@@ -508,7 +526,8 @@ def _localized_traceback(
         # optimal local alignment between its own end cells is an optimal
         # *anchored global* alignment of the substrings (the zero floor
         # can only raise H, so no anchored path exceeds it).
-        ops = _myers_miller(rq, rd, table, go, ge)
+        with trace.span("fill", cells_host=len(rq) * len(rd)):
+            ops = _myers_miller(rq, rd, table, go, ge)
         sub = _alignment_from_ops(
             ops, rq, rd,
             query_str[i0:ei] if query_str is not None else None,
@@ -726,46 +745,47 @@ def _alignment_from_ops(ops, q, d, query_str, db_str, go, ge, table):
         query_str = decode(np.asarray(q))
     if db_str is None:
         db_str = decode(np.asarray(d))
-    qa, da = [], []
-    qi = di = 0
-    score = 0
-    prev = None
-    for op in ops:
-        if op == "M":
-            qa.append(query_str[qi])
-            da.append(db_str[di])
-            score += int(table[q[qi], d[di]])
-            qi += 1
-            di += 1
-        elif op == "I":
-            qa.append(query_str[qi])
-            da.append("-")
-            score += go if prev != "I" else ge
-            qi += 1
-        else:
-            qa.append("-")
-            da.append(db_str[di])
-            score += go if prev != "D" else ge
-            di += 1
-        prev = op
-    cigar = []
-    k = 0
-    while k < len(ops):
-        r = k
-        while r < len(ops) and ops[r] == ops[k]:
-            r += 1
-        cigar.append(f"{r - k}{ops[k]}")
-        k = r
-    return Alignment(
-        score=score,
-        query_start=0,
-        query_end=qi,
-        db_start=0,
-        db_end=di,
-        query_aligned="".join(qa),
-        db_aligned="".join(da),
-        cigar="".join(cigar),
-    )
+    with trace.span("walk"):
+        qa, da = [], []
+        qi = di = 0
+        score = 0
+        prev = None
+        for op in ops:
+            if op == "M":
+                qa.append(query_str[qi])
+                da.append(db_str[di])
+                score += int(table[q[qi], d[di]])
+                qi += 1
+                di += 1
+            elif op == "I":
+                qa.append(query_str[qi])
+                da.append("-")
+                score += go if prev != "I" else ge
+                qi += 1
+            else:
+                qa.append("-")
+                da.append(db_str[di])
+                score += go if prev != "D" else ge
+                di += 1
+            prev = op
+        cigar = []
+        k = 0
+        while k < len(ops):
+            r = k
+            while r < len(ops) and ops[r] == ops[k]:
+                r += 1
+            cigar.append(f"{r - k}{ops[k]}")
+            k = r
+        return Alignment(
+            score=score,
+            query_start=0,
+            query_end=qi,
+            db_start=0,
+            db_end=di,
+            query_aligned="".join(qa),
+            db_aligned="".join(da),
+            cigar="".join(cigar),
+        )
 
 
 def align_pair(
@@ -807,16 +827,18 @@ def _batched_engine_ends(query_idx, db, recs, table, gap_open, gap_extend,
     if t[PAD_INDEX, :].max() > 0 or t[:, PAD_INDEX].max() > 0:
         return None
     seqs = [db.record(int(r)) for r in recs]
-    lb = -(-max(len(s) for s in seqs) // 256) * 256
-    dbm = np.full((lb, len(recs)), PAD_INDEX, dtype=np.int32)
-    for kth, s in enumerate(seqs):
-        dbm[: len(s), kth] = s
-    prof = torch.from_numpy(make_profile(t, query_idx)).to(device)
-    go = int(gap_open) + int(gap_extend)
-    _, bj, bi = sw_wavefront_ends(
-        prof, torch.from_numpy(dbm).to(device), go, int(gap_extend)
-    )
-    bj, bi = bj.cpu().numpy(), bi.cpu().numpy()
+    with trace.span("ends",
+                    cells_device=len(query_idx) * sum(len(s) for s in seqs)):
+        lb = -(-max(len(s) for s in seqs) // 256) * 256
+        dbm = np.full((lb, len(recs)), PAD_INDEX, dtype=np.int32)
+        for kth, s in enumerate(seqs):
+            dbm[: len(s), kth] = s
+        prof = torch.from_numpy(make_profile(t, query_idx)).to(device)
+        go = int(gap_open) + int(gap_extend)
+        _, bj, bi = sw_wavefront_ends(
+            prof, torch.from_numpy(dbm).to(device), go, int(gap_extend)
+        )
+        bj, bi = bj.cpu().numpy(), bi.cpu().numpy()
     return {int(r): (int(bj[kth]), int(bi[kth])) for kth, r in enumerate(recs)}
 
 
@@ -842,33 +864,36 @@ def topk_alignments(
     ``device`` (default ``device.resolve_device()``, the search's);
     False forces host-only localization.
     """
-    order = np.argsort(-np.asarray(scores), kind="stable")[:k]
-    recs = [int(r) for r in order]
-    ends: dict[int, tuple[int, int]] = {}
-    if engine_ends is not False:
-        lq = len(query_idx)
-        big = [
-            r for r in recs
-            if (len(db.record(r)) + 1) * (lq + 1) > _DIRECT_CELLS
-        ]
-        if big:
-            if device is None:
-                from ..device import resolve_device
+    n = len(scores)
+    with trace.span("align", hits=min(k, n)):
+        with trace.span("select", records=n):
+            order = np.argsort(-np.asarray(scores), kind="stable")[:k]
+        recs = [int(r) for r in order]
+        ends: dict[int, tuple[int, int]] = {}
+        if engine_ends is not False:
+            lq = len(query_idx)
+            big = [
+                r for r in recs
+                if (len(db.record(r)) + 1) * (lq + 1) > _DIRECT_CELLS
+            ]
+            if big:
+                if device is None:
+                    from ..device import resolve_device
 
-                device = resolve_device()
-            ends = _batched_engine_ends(
-                query_idx, db, big, table, gap_open, gap_extend, device
-            ) or {}
-    out = []
-    for rec in recs:
-        aln = sw_traceback(
-            query_idx,
-            db.record(rec),
-            table,
-            gap_open,
-            gap_extend,
-            query_str=query_str,
-            end=ends.get(rec),
-        )
-        out.append((rec, aln))
-    return out
+                    device = resolve_device()
+                ends = _batched_engine_ends(
+                    query_idx, db, big, table, gap_open, gap_extend, device
+                ) or {}
+        out = []
+        for rec in recs:
+            aln = sw_traceback(
+                query_idx,
+                db.record(rec),
+                table,
+                gap_open,
+                gap_extend,
+                query_str=query_str,
+                end=ends.get(rec),
+            )
+            out.append((rec, aln))
+        return out

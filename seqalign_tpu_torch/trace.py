@@ -6,13 +6,21 @@ session records, it is ``torch.profiler.record_function("seqalign.<name>")``:
 the step is an event on the profiler's timeline and clock, nested in the
 steps open on its thread. A span given counters also appends
 ``{"name": "seqalign.<name>", "counts": counts}`` to a list in memory, which
-``recorded()`` returns, since the profiler's events carry no counters. Two
-spans have counters: ``seqalign.launch``, ``cells_real`` and
-``cells_launched`` (``swbench``'s ``cell_fill_pct`` reads them), and a
-search's ``seqalign.plan`` of its chunks' plans, ``plan_hits`` and
-``plan_misses`` (from the pipeline's plan memo or made now; ``swbench``'s
-``plan_hit_pct``). Counters come from data the host holds (shapes, plans);
-no span reads a device value or waits for the device.
+``recorded()`` returns, since the profiler's events carry no counters.
+These spans have counters:
+
+- ``seqalign.launch``: ``cells_real`` and ``cells_launched`` (``swbench``'s
+  ``cell_fill_pct`` reads them);
+- a search's ``seqalign.plan`` of its chunks' plans: ``plan_hits`` and
+  ``plan_misses``, from the pipeline's plan memo or made now
+  (``plan_hit_pct``);
+- the alignment step after a search (``ops.traceback.topk_alignments``):
+  ``seqalign.align``, ``hits``; ``seqalign.select``, ``records``;
+  ``seqalign.ends``, ``cells_host`` or ``cells_device``; ``seqalign.fill``,
+  ``cells_host`` (``align_host_cell_pct`` reads the last two).
+
+Counters come from data the host holds (shapes, plans); no span reads a
+device value or waits for the device.
 
 Outside a profiler session ``span`` returns one shared object that does
 nothing: it reads no clock, records nothing and calls no profiler function.
