@@ -14,14 +14,16 @@ Phases, each printing its own lines; any failure exits nonzero:
    sw_striped.cu: K2; all on the team step of
    sw_team.cuh, with K2's block instance; sw_windows.cu and
    sw_windows_const_s.cu: K4 and K5, the team kernel of sw_windows.cuh;
-   isa_probe.cu: the issue-rate probe), one nvcc each in parallel, for
+   tb_fill.cu: the alignment step's passes, an ends-only and a
+   state-writing instance; isa_probe.cu: the issue-rate probe), one nvcc
+   each in parallel, for
    sm_90a into build/;
    read every instance's registers, local memory and stack (no spills) and the
    inner DP loop of its SASS (integer instructions per cell, for the
    bound): K1 and K3 (a step of R rows, one instance per R built; 2 Q R
    cells a step for the solo kernel), K2, the fixed-batch kernel K4 and
    its constant-S mode K5 (a step of R rows, four a loop for K4's solo
-   instances; K5's loop without LDS);
+   instances; K5's loop without LDS), and tb_fill_kernel (an LDS a cell);
    then measure the card's issue rate of VIADDMNMX, VIMNMX3, IADD3, IMNMX,
    IMAD, LDS and SHFL, alone and in pairs (seqalign_tpu_torch.probe), and
    the bound those rates give each kernel;
@@ -145,14 +147,23 @@ Phases, each printing its own lines; any failure exits nonzero:
    against search_files', the device busy share and the ingest the
    prefetch hides (swissprot.streaming_breakdown);
 11. --align and --trace through the CLI: --align 10 over the FASTA for the
-   144- and 2000-residue queries, with PAM250 whose '*' scores -8 (so the
-   ends engine may run): K1 (K2) once, each hit's traceback score equal to
-   its kernel score and the hits the 10 best, the 2000-residue query's long
-   hits localized by one call of sw_wavefront_ends on the card; on a
-   3,012-record FASTA with 12 long records, --align 10 equal to --engine
-   wavefront --align 10 but for Total Time; --trace, in a CLI process of
-   its own, writes a torch.profiler trace that names K1's kernel and holds
-   its one launch;
+   144- and 2000-residue queries, with PAM250 whose '*' scores -8: K1 (K2)
+   once, each hit's traceback score equal to its kernel score and the hits
+   the 10 best, the hits' passes in the alignment step's kernel
+   (tb_fill_kernel, csrc/tb_fill.cu) in one launch where every hit is
+   direct, else three (the long hits' forward ends, their reverse ends,
+   every fill), and every hit's alignment equal to the host route's (every
+   pass on the host); on a 3,012-record FASTA with 12 long records,
+   --align 10 equal to --engine wavefront --align 10 but for Total Time;
+   --trace, in a CLI process of its own, writes a torch.profiler trace
+   that names K1's kernel and holds its one launch; then tb_fill_kernel
+   against the native passes it replaces (sw_tb_ends, sw_tb_fill) at the
+   step's shapes, launch by launch as topk_alignments takes them: the
+   lq=5,478 self-hit under BLOSUM62 11/1 and the two searches' 10 hits
+   under the CLI's PAM250 and under BLOSUM62 11/1, each pass's best, end
+   cell and state bytes equal; and the kernel's device times on the
+   self-hit (python -m seqalign_tpu_torch.ops.traceback_cuda, a process of
+   its own), with its bound at the card's rate and at one SM's;
 12. multi-device and multi-host (seqalign_tpu_torch.parallel) on the one
    card, whose entries stand in for several cards: multi_device_search
    over local_devices() and over 2 and 4 entries of cuda:0 with the
@@ -322,11 +333,17 @@ def phase_build():
     _build.load()
     print(f"[build] {path.relative_to(ROOT)} in "
           f"{time.perf_counter() - t0} s", flush=True)
-    usage = {sass.kernel_key(m): u for m, u in sass.resource_usage(path).items()
-             if sass.kernel_key(m)}
+    raw_usage = sass.resource_usage(path)
+    usage = {sass.kernel_key(m): u for m, u in raw_usage.items() if sass.kernel_key(m)}
     loops = {}
     for mangled, instrs in sass.sass_functions(path).items():
         key = sass.kernel_key(mangled)
+        if key is None and "tb_fill_kernel" in mangled:
+            # The alignment step's kernel is no team kernel of sass.KERNELS:
+            # its instance by name, its loop's cells its LDS (a table gather
+            # a cell), as the team kernels'.
+            key = f"tb_fill_kernel<{'true' if 'tb_fill_kernelILb1E' in mangled else 'false'}>"
+            usage[key] = raw_usage.get(mangled, {})
         if key is None:
             continue
         loop = sass.inner_loop(instrs, key)
@@ -351,7 +368,8 @@ def phase_build():
         const_s = key.startswith("sw_windows_kernel<") and key.endswith("true>")
         if const_s != (loop["cells_from"] != "LDS"):
             fail(f"{key}: the DP loop {'has' if const_s else 'lacks'} a profile gather")
-        if not const_s and loop["cells"] != sass.expected_cells(key):
+        if (not const_s and not key.startswith("tb_fill_kernel<")
+                and loop["cells"] != sass.expected_cells(key)):
             fail(f"{key}: {loop['cells']} LDS per loop iteration, not "
                  f"{sass.expected_cells(key)}")
         loops[key] = loop
@@ -371,6 +389,7 @@ def phase_build():
     team |= {windows_kernel_instance(t * r, 1, const_s, (t, r))
              for r in WINDOWS_ROWS_PER_THREAD_BUILT for const_s in (False, True)
              for t in ((1, 2) if r in WINDOWS_SOLO_ROWS else (2,))}
+    team |= {"tb_fill_kernel<false>", "tb_fill_kernel<true>"}
     if not team <= set(loops):
         fail(f"SASS of the kernels not all found: {sorted(loops)}")
     for key in sorted(solo, key=lambda k: [int(x) for x in k[22:-1].split(", ")]):
@@ -2424,39 +2443,55 @@ def star_negative_pam250(path: Path) -> None:
     path.write_text("\n".join(rows) + "\n")
 
 
+def cli_scoring(matrix: Path, gap_open: int, gap_extend: int):
+    """The scoring the CLI builds from ``--substitution_matrix matrix
+    --gapopen gap_open --gapextend gap_extend``."""
+    from seqalign_tpu_torch.host import load_substitution_matrix, sw_default_scoring
+
+    sc = sw_default_scoring()
+    sc.gap_open, sc.gap_extend = gap_open, gap_extend
+    load_substitution_matrix(str(matrix), sc)
+    sc.use_match_mismatch = False
+    sc.finalize()
+    return sc
+
+
 def phase_align_trace(smi: str, db, fasta, query, k1_scores, long_query, long_scores):
     """--align 10 and --trace through the CLI on the card. At Swiss-Prot
-    scale, the 144- and 2000-residue queries: K1 (K2) once, the ends of the
-    hits above the direct-fill threshold found by one call of
-    sw_wavefront_ends, each hit's score equal to its K1 (K2) score, the hits
-    the 10 best. On a 3,012-record FASTA with 12 long records, the same
+    scale, the 144- and 2000-residue queries: K1 (K2) once, the hits'
+    passes in tb_fill_kernel (one launch where every hit is direct, else
+    three: the forward ends of the hits above the direct-fill threshold,
+    their reverse ends, every fill), each hit's score equal to its K1 (K2)
+    score, the hits the 10 best, every alignment equal to the host
+    route's. On a 3,012-record FASTA with 12 long records, the same
     queries' alignments equal --engine wavefront's, but for Total Time.
     --trace, in a CLI process of its own, writes a trace that names K1's
-    kernel and holds its one launch."""
+    kernel and holds its one launch. Returns each query's run, its hits'
+    records under ``records``."""
+    import dataclasses
     import shutil
 
-    import torch
-
-    from seqalign_tpu_torch.device import resolve_device
-    from seqalign_tpu_torch.ops import swa_cuda, swa_torch
+    from seqalign_tpu_torch.ops import swa_cuda
     from seqalign_tpu_torch.ops import traceback as tb
+    from seqalign_tpu_torch.ops import traceback_cuda as tbc
 
     out_dir = fasta.parent
     matrix = out_dir / "pam250_star.txt"
     star_negative_pam250(matrix)
     base = ["--substitution_matrix", matrix, "--gapopen", "-2", "--gapextend", "-1"]
+    table = cli_scoring(matrix, -2, -1).table
     results = {}
     for lq, want, kernel in ((len(query), k1_scores, "sw_stream"),
                              (len(long_query), long_scores, "sw_stream_striped_pass")):
         tag = f"[align lq={lq}]"
         reset_counts(swa_cuda)
-        swa_torch.sw_wavefront_ends.calls = 0
+        tbc.run.launches = 0
         t0 = time.perf_counter()
         code, out, err = cli_run(["--files", out_dir / f"q{lq}.fa", fasta, *base,
                                   "--align", "10", "--json"])
         wall = time.perf_counter() - t0
         counts = read_counts(swa_cuda)
-        ends = swa_torch.sw_wavefront_ends.calls
+        launches = tbc.run.launches
         if code != 0:
             fail(f"{tag} CLI rc={code}: {err[-2000:]}")
         hits = json.loads(out.splitlines()[-1])["alignments"]
@@ -2464,35 +2499,31 @@ def phase_align_trace(smi: str, db, fasta, query, k1_scores, long_query, long_sc
         big = [h["entry"] for h in hits
                if (db.lengths[h["entry"]] + 1) * (lq + 1) > tb._DIRECT_CELLS]
         print(f"{tag} --align 10 over {db.n} records: launches {counts}, "
-              f"sw_wavefront_ends calls {ends} for {len(big)} hits above "
+              f"tb_fill_kernel launches {launches} for {len(big)} hits above "
               f"{tb._DIRECT_CELLS} cells; wall {wall} s | {smi}", flush=True)
         per = passes(kernel, lq)
         long = kernel == "sw_stream_striped_pass"
         if counts[kernel] != per or sum(counts.values()) != per + counts["sw_stream_striped calls"]:
             fail(f"{tag} the --align scan did not run through {kernel} alone")
-        if ends != (1 if big else 0) or (long and not big):
-            fail(f"{tag} {ends} calls of sw_wavefront_ends for {len(big)} long hits")
+        if launches != (3 if big else 1) or (long and not big):
+            fail(f"{tag} {launches} launches of tb_fill_kernel for {len(big)} long hits")
         if [h["entry"] for h in hits] != [int(r) for r in top]:
             fail(f"{tag} the hits are not the 10 best of the scan")
         if [h["score"] for h in hits] != [int(want[r]) for r in top]:
             fail(f"{tag} a hit's traceback score != its kernel score")
+        q = query if lq == len(query) else long_query
+        t0 = time.perf_counter()
+        host = tb.topk_alignments(q, db, want, 10, table, -2, -1, engine_ends=False)
+        host_s = time.perf_counter() - t0
+        for h, (rec, aln) in zip(hits, host):
+            if h["entry"] != rec or any(h[f] != v for f, v in dataclasses.asdict(aln).items()):
+                fail(f"{tag} record {rec}'s alignment on the card != the host route's")
         print(f"{tag} 10 hits (records {[h['entry'] for h in hits]}, lengths "
               f"{[int(db.lengths[h['entry']]) for h in hits]}): traceback scores == "
-              "kernel scores", flush=True)
-        results[lq] = {"wall_s": wall, "ends_calls": ends, "long_hits": len(big)}
-        if big:
-            # The ends engine's call on these hits again, timed alone.
-            table = scoring("PAM250").table.copy()
-            table[31, :] = table[:, 31] = -8
-            q = query if lq == len(query) else long_query
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            tb._batched_engine_ends(q, db, big, table, -2, -1, resolve_device())
-            torch.cuda.synchronize()
-            results[lq]["ends_s"] = time.perf_counter() - t0
-            print(f"{tag} sw_wavefront_ends on the {len(big)} long hits (longest "
-                  f"{int(db.lengths[big].max())}): {results[lq]['ends_s']} s | {smi}",
-                  flush=True)
+              f"kernel scores; every alignment == the host route's (every pass on the "
+              f"host, {host_s} s)", flush=True)
+        results[lq] = {"wall_s": wall, "tb_launches": launches, "long_hits": len(big),
+                       "host_route_s": host_s, "records": [h["entry"] for h in hits]}
 
     # The same queries on a small FASTA, against the wavefront engine.
     rng = np.random.default_rng(98)
@@ -2505,15 +2536,17 @@ def phase_align_trace(smi: str, db, fasta, query, k1_scores, long_query, long_sc
     for lq in (len(query), len(long_query)):
         outs = []
         for extra in ([], ["--engine", "wavefront"]):
-            swa_torch.sw_wavefront_ends.calls = 0
+            tbc.run.launches = 0
             code, out, err = cli_run(["--files", out_dir / f"q{lq}.fa", small, *base,
                                       "--align", "10", *extra])
             if code != 0 or out.count("CIGAR") != 10:
                 fail(f"[align lq={lq}] small FASTA {extra}: rc={code} {err[-2000:]}")
             outs.append([ln for ln in out.splitlines() if not ln.startswith("Total Time:")])
-            if lq == len(long_query) and swa_torch.sw_wavefront_ends.calls != 1:
-                fail(f"[align lq={lq}] small FASTA {extra}: the long hits' ends were "
-                     "not found by sw_wavefront_ends")
+            # Only the 2000-residue query's hits pass the direct-fill
+            # threshold (the long records): three launches, else one.
+            if tbc.run.launches != (3 if lq == len(long_query) else 1):
+                fail(f"[align lq={lq}] small FASTA {extra}: {tbc.run.launches} launches "
+                     "of tb_fill_kernel")
         if outs[0] != outs[1]:
             fail(f"[align lq={lq}] --align 10 output != --engine wavefront's")
         print(f"[align lq={lq}] --align 10 on {n_short + n_long} records: stream == "
@@ -2546,6 +2579,172 @@ def phase_align_trace(smi: str, db, fasta, query, k1_scores, long_query, long_sc
           f"{len(names)} event names, one launch of K1's {kernels}", flush=True)
     results["trace_kernels"] = kernels
     return results
+
+
+def native_pass(p, table, go: int, ge: int):
+    """The native host function a pass of the alignment step replaces on
+    the card (``sw_tb_ends``, or ``sw_tb_fill`` for states), on one host
+    thread: ``(best, (j, i))``, with states ``(states, best, (j, i))``."""
+    import ctypes
+
+    from seqalign_tpu_torch.ops import traceback as tb
+
+    lib = tb._load_native()
+    if lib is None:
+        fail("[tb_fill] the native traceback library did not load")
+    t = np.ascontiguousarray(table.T if p.flip else table, dtype=np.int8)
+    q = np.ascontiguousarray(p.q, dtype=np.int8)
+    d = np.ascontiguousarray(p.d, dtype=np.int8)
+    bj, bi = ctypes.c_int64(), ctypes.c_int64()
+    if p.states:
+        st = np.zeros((len(d) + 1, len(q) + 1), np.uint8)
+        best = lib.sw_tb_fill(q.ctypes.data, len(q), d.ctypes.data, len(d), t.ctypes.data,
+                              go, ge, st.ctypes.data, ctypes.byref(bj), ctypes.byref(bi))
+        return st, int(best), (int(bj.value), int(bi.value))
+    best = lib.sw_tb_ends(q.ctypes.data, len(q), d.ctypes.data, len(d), t.ctypes.data,
+                          go, ge, ctypes.byref(bj), ctypes.byref(bi))
+    return int(best), (int(bj.value), int(bi.value))
+
+
+def tb_drive(tag: str, smi: str, steps: list, table, gap_open: int, gap_extend: int,
+             device) -> list:
+    """Drive the traceback ``steps`` of several pairs as topk_alignments
+    does on the card (``traceback._run_on_card``): every pending ends pass
+    in one launch of tb_fill_kernel, then every fill; each launch's result
+    held against the native pass on the same pair, the best, its end cell
+    and the state bytes [1:, 1:] (row and column 0 are never written, nor
+    read by the walk). Returns each launch's kind, pairs, cells, host wall
+    of ``traceback_cuda.run`` (upload, kernel, download) and the native
+    passes' host time."""
+    from seqalign_tpu_torch.ops import traceback_cuda as tbc
+
+    go, ge = gap_open + gap_extend, gap_extend
+    waiting, rounds = {}, []
+
+    def advance(k, result):
+        try:
+            waiting[k] = steps[k].send(result)
+        except StopIteration:
+            pass
+
+    for k in range(len(steps)):
+        advance(k, None)
+    while waiting:
+        states = all(p.states for p in waiting.values())
+        keys = sorted(k for k, p in waiting.items() if p.states == states)
+        group = [waiting.pop(k) for k in keys]
+        if not all(tbc.fits(p, table, go, ge) for p in group):
+            fail(f"{tag} a pass the kernel cannot take")
+        if len(tbc.batches(group, states)) != 1:
+            fail(f"{tag} the passes need more than one launch")
+        launch = tbc.plan(group, table, states)
+        prepared = tbc.prepare(launch, device)
+        t0 = time.perf_counter()
+        found = tbc.run(launch, prepared, go, ge)
+        card_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        want = [native_pass(p, table, go, ge) for p in group]
+        native_ms = (time.perf_counter() - t0) * 1e3
+        err = 0
+        for p, g, w in zip(group, found, want):
+            err = max(err, abs(g[-2] - w[-2]))
+            if g[-2:] != w[-2:] or (states and not np.array_equal(g[0][1:, 1:], w[0][1:, 1:])):
+                fail(f"{tag} {'fill' if states else 'ends'} of a {len(p.q)} x {len(p.d)} "
+                     f"pair (flip {p.flip}): the card's {g[-2:]} != native {w[-2:]}, or "
+                     "its state bytes differ")
+        kind = "fill" if states else ("ends" if not rounds else "reverse ends")
+        cells = sum(len(p.q) * len(p.d) for p in group)
+        rounds.append({"pass": kind, "pairs": len(group), "cells": cells,
+                       "longest": max(len(p.q) * len(p.d) for p in group),
+                       "card_wall_ms": card_ms, "native_ms": native_ms, "max_abs_err": err})
+        print(f"{tag} {kind}: {len(group)} pairs, {cells} cells (largest "
+              f"{rounds[-1]['longest']}) == native sw_tb_{'fill' if states else 'ends'}"
+              f" (best, end cell{', state bytes' if states else ''}); card {card_ms} ms "
+              f"(host wall of the upload, launch and download), native {native_ms} ms | {smi}",
+              flush=True)
+        for k, g in zip(keys, found):  # walks the states before the next launch
+            advance(k, g)
+    return rounds
+
+
+# The lq=5,478 self-hit of phase 11's kernel check: the longest query of
+# the CUDASW++ set, as the kernel timer (ops.traceback_cuda) draws it.
+TB_SELF = 5478
+
+
+def phase_tb_fill(torch, smi: str, db, out_dir: Path, query, long_query, align, loops,
+                  usage, factor):
+    """tb_fill_kernel (csrc/tb_fill.cu) against the native passes it
+    replaces, at the alignment step's shapes: the lq=5,478 self-hit under
+    BLOSUM62 11/1 (its forward ends, reverse ends and fill, 30.0 M cells
+    each), and phase 11's two searches' 10 hits (``align``'s records) under
+    the CLI's PAM250 2/1 and under BLOSUM62 11/1, whose '*' scores +1;
+    each launch as topk_alignments takes it (``tb_drive``). Then the
+    kernel timer in a process of its own (torch.profiler, as phase 11's
+    trace): each instance's device time on the self-hit, alone and with
+    nine records beside it; the bound of that work at the card's rate and
+    at one SM's (a CTA a pair)."""
+    from seqalign_tpu_torch.host import ScoringModel, load_builtin
+    from seqalign_tpu_torch.ops import traceback as tb
+    from seqalign_tpu_torch.probe import INT32_PER_S
+    from seqalign_tpu_torch.swissprot import random_query
+
+    dev = torch.device("cuda")
+    pam = cli_scoring(out_dir / "pam250_star.txt", -2, -1)
+    blosum = load_builtin("BLOSUM62", ScoringModel(gap_open=-11, gap_extend=-1,
+                                                   use_match_mismatch=False))
+    cases = [("self-hit BLOSUM62 11/1", blosum, [(random_query(TB_SELF, TB_SELF),) * 2])]
+    for q in (query, long_query):
+        recs = align[len(q)]["records"]
+        for name, sc in (("PAM250 2/1", pam), ("BLOSUM62 11/1", blosum)):
+            cases.append((f"lq={len(q)} hits {name}", sc,
+                          [(q, db.record(r)) for r in recs]))
+    rounds, err = {}, 0
+    for label, sc, pairs in cases:
+        steps = [tb._traceback_steps(np.asarray(a), np.asarray(b), sc.table, sc.gap_open,
+                                     sc.gap_extend) for a, b in pairs]
+        rounds[label] = tb_drive(f"[tb_fill {label}]", smi, steps, sc.table, sc.gap_open,
+                                 sc.gap_extend, dev)
+        err = max([err] + [r["max_abs_err"] for r in rounds[label]])
+    self_hit = {r["pass"]: r for r in rounds[cases[0][0]]}
+    if list(self_hit) != ["ends", "reverse ends", "fill"]:
+        fail(f"[tb_fill] the self-hit took {list(self_hit)}, not ends, reverse ends, fill")
+
+    timer = out_dir / "tb_time.json"
+    proc = subprocess.run(
+        [sys.executable, "-m", "seqalign_tpu_torch.ops.traceback_cuda", "--out", str(timer)],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        fail(f"[tb_fill] the kernel timer: rc={proc.returncode} {proc.stderr[-2000:]}")
+    timed = json.loads(timer.read_text())
+    kernel_ms = {k: v["device_ms"].get("kernel") for k, v in timed.items()
+                 if isinstance(v, dict) and "device_ms" in v}
+    if any(v is None for v in kernel_ms.values()):
+        fail(f"[tb_fill] the kernel timer's profile holds no kernel time: {kernel_ms}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cells = TB_SELF * TB_SELF
+    out = {"self_cells": cells, "kernel_ms": kernel_ms, "timer": timed, "rounds": rounds,
+           "max_abs_err": err, "sms": sms}
+    for kind, states in (("ends", False), ("fill", True)):
+        key = f"tb_fill_kernel<{'true' if states else 'false'}>"
+        per_cell = loops[key]["pipe_per_cell"]
+        written = (TB_SELF + 1) * (16 + -(-TB_SELF // 16) * 16) if states else 0
+        ms, by = bound(written, cells, per_cell)
+        out[kind] = {"instance": key, "registers": usage.get(key, {}).get("REG"),
+                     "ms": kernel_ms[f"self.{kind}"], "bound_ms": ms, "bound_by": by,
+                     "bound_ms_one_sm": cells * per_cell / (INT32_PER_S / sms) * 1e3,
+                     "pipe_per_cell": per_cell, "factor": factor[key],
+                     "plain_ms": self_hit[kind]["native_ms"],
+                     "card_wall_ms": self_hit[kind]["card_wall_ms"]}
+        o = out[kind]
+        print(f"[tb_fill] {key} ({o['registers']} registers, {per_cell} instructions a "
+              f"cell on the busier pipe), the {TB_SELF}-residue self-hit's {kind}: "
+              f"{o['ms']} ms on the card (profiler, the timer's process); bound "
+              f"{ms} ms by {by} at the card's rate ({100 * ms / o['ms']}%), "
+              f"{o['bound_ms_one_sm']} ms at one SM's of {sms} "
+              f"({100 * o['bound_ms_one_sm'] / o['ms']}%); native sw_tb_"
+              f"{'fill' if states else 'ends'} {o['plain_ms']} ms | {smi}", flush=True)
+    return out
 
 
 # Phase 12: the stand-in meshes (entries of the one card), the lane batch
@@ -3081,6 +3280,10 @@ def main(argv=None) -> int:
                                 long_query, long_scores)
     align = phase_align_trace(smi, db, fasta, query, k1_scores, long_query, long_scores)
     t0 = time.perf_counter()
+    tb_fill = phase_tb_fill(torch, smi, db, fasta.parent, query, long_query, align, loops,
+                            usage, factor)
+    print(f"[tb_fill] in {time.perf_counter() - t0} s", flush=True)
+    t0 = time.perf_counter()
     parallel = phase_parallel(torch, smi, db, query, k1_scores,
                               main_path["main_path_kernel_s"], batch8, fasta)
     print(f"[parallel] phase 12 in {time.perf_counter() - t0} s", flush=True)
@@ -3212,6 +3415,36 @@ def main(argv=None) -> int:
         "library_is": "torch.take of the residues with one PAD_INDEX byte in front, over "
                       "an int64 index built before the clock (8 B a stream byte)",
         "card": smi,
+    }, {
+        "name": "tb_fill",
+        "wrapper": "ops/traceback_cuda.run (topk_alignments on a CUDA device)",
+        "route": "cuda",
+        "source": "seqalign_tpu_torch/csrc/tb_fill.cu",
+        "replaces": "none: host code, native/traceback.cc sw_tb_ends and sw_tb_fill "
+                    "(seqalign_tpu/ops/traceback.py _score_ends, _direct_traceback)",
+        # Phase 11's --align run of the 2000-residue query, the counter
+        # zeroed just before it.
+        "launches": align[len(long_query)]["tb_launches"],
+        "launches_lq144": align[len(query)]["tb_launches"],
+        "max_abs_err": tb_fill["max_abs_err"],
+        "ms": tb_fill["fill"]["ms"],
+        "plain_ms": tb_fill["fill"]["plain_ms"],
+        "bound_ms": tb_fill["fill"]["bound_ms"],
+        "bound_by": tb_fill["fill"]["bound_by"],
+        "bound_ms_one_sm": tb_fill["fill"]["bound_ms_one_sm"],
+        "library_ms": None,
+        "ms_is": "the state-writing instance on the lq=5,478 self-hit, torch.profiler in "
+                 "the kernel timer's process; ends is the ends-only instance",
+        "plain_is": "native sw_tb_fill (sw_tb_ends) on one host thread, the same pass",
+        "bound_is": "bound_ms at the whole card's int32 rate; bound_ms_one_sm at one "
+                    "SM's, the design's (a CTA a pair)",
+        "instance": tb_fill["fill"]["instance"],
+        "registers": tb_fill["fill"]["registers"],
+        "ends": tb_fill["ends"],
+        "timer": tb_fill["timer"],
+        "search": tb_fill["rounds"],
+        "shape": f"the lq={TB_SELF} self-hit, {tb_fill['self_cells']} cells, BLOSUM62 11/1",
+        "card": smi,
     }] + [{
         "name": name,
         "route": "cuda",
@@ -3232,6 +3465,7 @@ def main(argv=None) -> int:
     kfactor["sw_stream_striped"] = long_path["factor"]
     kfactor["sw_stream_striped_block"] = longpair["runs"][0]["factor"]
     kfactor["stream_pack"] = 1.0
+    kfactor["tb_fill"] = tb_fill["fill"]["factor"]
     for k in kernels:
         k["bound_ms_measured_rates"] = k["bound_ms"] * (
             kfactor[k["name"]] if k["bound_by"] == "operations" else 1.0)

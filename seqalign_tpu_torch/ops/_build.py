@@ -134,6 +134,13 @@ def load() -> ctypes.CDLL:
         lib.isa_probe_launch.argtypes = (
             [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         )
+        lib.tb_fill_launch.restype = ctypes.c_int
+        lib.tb_fill_launch.argtypes = (
+            [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int64] * 5
+            + [ctypes.c_void_p, ctypes.c_int64] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        )
+        lib.tb_fill_sync.restype = ctypes.c_int
+        lib.tb_fill_sync.argtypes = [ctypes.c_void_p]
         lib.sw_stream_error_string.restype = ctypes.c_char_p
         lib.sw_stream_error_string.argtypes = [ctypes.c_int]
         _lib = lib

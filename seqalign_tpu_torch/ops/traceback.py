@@ -12,11 +12,16 @@ asserted by tests. Output is the pair of gapped strings plus a CIGAR.
 The fill runs in the native traceback library (``native/traceback.cc``,
 built at first use by ``seqalign_tpu_torch.native``), or in NumPy on a host
 with no C++ compiler or for a table outside int8. Pairs above
-``_DIRECT_CELLS`` are localized first. For the top-k hits
-(:func:`topk_alignments`), their alignment ends come from one call of the
-plain-torch ``sw_wavefront_ends`` on the search's device where the table's
-'*' row and column score at most 0; under BLOSUM62 and PAM250, which score
-'*' against '*' +1, they come from the host's forward pass over each pair
+``_DIRECT_CELLS`` are localized first: a forward ends pass, a windowed
+reverse one, then the fill of the alignment's rectangle. A pair's route is
+written once, as a generator of the passes it needs (``_direct_steps``,
+``_localized_steps``): :func:`sw_traceback` runs each pass on the host as
+it comes; :func:`topk_alignments` on a CUDA device drives all k hits
+together and runs each pass of every hit in one launch of
+``csrc/tb_fill.cu`` (``ops.traceback_cuda``). On another device its ends
+come from one call of the plain-torch ``sw_wavefront_ends`` where the
+table's '*' row and column score at most 0; under BLOSUM62 and PAM250,
+which score '*' against '*' +1, from the host's forward pass over each pair
 (``_score_ends``: the native ``sw_tb_ends``, one thread).
 
 Spans (``seqalign_tpu_torch.trace``, recorded only under a profiler):
@@ -24,12 +29,14 @@ Spans (``seqalign_tpu_torch.trace``, recorded only under a profiler):
 asked, at most the records); inside it ``select``, the top-k choice
 (``records``); ``ends``, each localization of ends (``cells_host``: a host
 pass's rows x columns, the forward pass or the windowed reverse one;
-``cells_device``: the engine's query residues x the records' residues, no
-padding); ``fill``, each traceback-state fill (``cells_host``: its rows x
-columns: a direct pair, a localized pair's rectangle, or a rectangle past
-``MAX_CELLS`` that ``_myers_miller`` aligns, whose passes step about twice
-its cells); and ``walk``, the walk back to the gapped strings and the
-CIGAR.
+``cells_device``: a launch's pairs' rows x columns, or the wavefront
+engine's query residues x the records' residues, no padding); ``fill``,
+each traceback-state fill (``cells_host``: its rows x columns: a direct
+pair, a localized pair's rectangle, or a rectangle past ``MAX_CELLS`` that
+``_myers_miller`` aligns, whose passes step about twice its cells;
+``cells_device``: a launch's rows x columns); and ``walk``, the walk back
+to the gapped strings and the CIGAR. A launch, its upload and its
+download lie inside its span, and no torch op does.
 
 Memory: O(Lq * Lb) bytes (one uint8 state per cell per matrix). For
 pathological pairs beyond ``MAX_CELLS`` the caller should band or chunk; the
@@ -44,6 +51,8 @@ from dataclasses import dataclass
 import numpy as np
 
 from .. import native, trace
+from . import traceback_cuda as tbc
+from .traceback_cuda import Pass
 
 MAX_CELLS = 1 << 30  # 1G cells * 3 bytes ~ 3 GB hard cap
 
@@ -258,9 +267,60 @@ def _score_ends(q, d, table, go, ge):
         return best, pos
 
 
+def _fill_states(q, d, table, go, ge):
+    """Traceback states ``(lb + 1, lq + 1)`` (row ``j``, column ``i``), the
+    best score and its (j, i) cell: the native fill, or NumPy's."""
+    lq, lb = len(q), len(d)
+    with trace.span("fill", cells_host=lq * lb):
+        lib = _native_for(table)
+        if lib is not None:
+            states = _states_buffer((lb + 1) * (lq + 1)).reshape(lb + 1, lq + 1)
+            q8 = np.ascontiguousarray(q, dtype=np.int8)
+            d8 = np.ascontiguousarray(d, dtype=np.int8)
+            t8 = np.ascontiguousarray(table, dtype=np.int8)
+            bj = ctypes.c_int64()
+            bi = ctypes.c_int64()
+            best = int(
+                lib.sw_tb_fill(
+                    q8.ctypes.data, lq, d8.ctypes.data, lb, t8.ctypes.data,
+                    go, ge, states.ctypes.data,
+                    ctypes.byref(bj), ctypes.byref(bi),
+                )
+            )
+            if best == np.iinfo(np.int64).min:
+                raise MemoryError("native traceback fill allocation failed")
+            return states, best, (int(bj.value), int(bi.value))
+        _, tb_h, tb_e, tb_f, best, best_pos = _fill_matrices(q, d, table, go, ge)
+        # Pack to the native layout so one walkback serves both paths.
+        return tb_h | (tb_e << 2) | (tb_f << 4), best, best_pos
+
+
+def _host_pass(p: Pass, table, go, ge):
+    """Run the pass ``p`` on the host: ``(best, (j, i))`` of the ends, or
+    ``(states, best, (j, i))`` of the fill."""
+    t = np.ascontiguousarray(table.T) if p.flip else table
+    if p.states:
+        return _fill_states(np.asarray(p.q, dtype=np.int64),
+                            np.asarray(p.d, dtype=np.int64), t, go, ge)
+    return _score_ends(p.q, p.d, t, go, ge)
+
+
 # Above this many cells, localize the alignment first (two linear-space
 # score passes) and fill traceback states only for its bounding rectangle.
 _DIRECT_CELLS = 4 << 20
+
+
+def _run_on_host(steps, table, gap_open, gap_extend):
+    """Drive the traceback ``steps`` of one pair (a generator of the
+    ``Pass``es it needs), each pass on the host; its Alignment."""
+    go = int(gap_open) + int(gap_extend)
+    ge = int(gap_extend)
+    try:
+        p = next(steps)
+        while True:
+            p = steps.send(_host_pass(p, table, go, ge))
+    except StopIteration as stop:
+        return stop.value
 
 
 def sw_traceback(
@@ -289,10 +349,6 @@ def sw_traceback(
     O(extent^2) for the rectangle, instead of O(Lq*Lb). This removes the
     former 3 GB full-matrix cliff for any realistic pair.
     """
-    from ..models.alphabet import decode
-
-    go = int(gap_open) + int(gap_extend)
-    ge = int(gap_extend)
     lq, lb = len(query_idx), len(db_idx)
     if (lq + 1) * (lb + 1) > _DIRECT_CELLS and min(lq, lb) > 0:
         return _localized_traceback(
@@ -305,7 +361,36 @@ def sw_traceback(
     )
 
 
-def _direct_traceback(
+def _traceback_steps(query_idx, db_idx, table, gap_open, gap_extend, query_str=None):
+    """:func:`sw_traceback`'s route as steps, for :func:`topk_alignments`
+    on the card."""
+    lq, lb = len(query_idx), len(db_idx)
+    if (lq + 1) * (lb + 1) > _DIRECT_CELLS and min(lq, lb) > 0:
+        return _localized_steps(query_idx, db_idx, table, gap_open, gap_extend,
+                                query_str=query_str)
+    return _direct_steps(query_idx, db_idx, table, gap_open, gap_extend,
+                         query_str=query_str)
+
+
+def _direct_traceback(query_idx, db_idx, table, gap_open, gap_extend,
+                      query_str=None, db_str=None) -> Alignment:
+    """Full-matrix fill + walkback (see sw_traceback for semantics)."""
+    return _run_on_host(
+        _direct_steps(query_idx, db_idx, table, gap_open, gap_extend,
+                      query_str=query_str, db_str=db_str),
+        table, gap_open, gap_extend)
+
+
+def _localized_traceback(query_idx, db_idx, table, gap_open, gap_extend,
+                         query_str=None, db_str=None, end=None) -> Alignment:
+    """Linear-space recompute for huge pairs (see sw_traceback docstring)."""
+    return _run_on_host(
+        _localized_steps(query_idx, db_idx, table, gap_open, gap_extend,
+                         query_str=query_str, db_str=db_str, end=end),
+        table, gap_open, gap_extend)
+
+
+def _direct_steps(
     query_idx: np.ndarray,
     db_idx: np.ndarray,
     table: np.ndarray,
@@ -313,12 +398,11 @@ def _direct_traceback(
     gap_extend: int,
     query_str: str | None = None,
     db_str: str | None = None,
-) -> Alignment:
-    """Full-matrix fill + walkback (see sw_traceback for semantics)."""
+):
+    """The full-matrix fill's steps: one fill ``Pass``, whose states are
+    sent back, then the walk; returns the Alignment."""
     from ..models.alphabet import decode
 
-    go = int(gap_open) + int(gap_extend)
-    ge = int(gap_extend)
     lq, lb = len(query_idx), len(db_idx)
     if (lq + 1) * (lb + 1) > MAX_CELLS:
         raise MemoryError(
@@ -334,10 +418,7 @@ def _direct_traceback(
     if lb > lq:
         # Transposed fill: the row loop must run over the SHORTER sequence
         # (here the query) so the vectorized width is the longer one.
-        flipped = _direct_traceback(
-            db_idx, query_idx, np.ascontiguousarray(table.T),
-            gap_open, gap_extend, query_str=db_str, db_str=query_str,
-        )
+        flipped = _walk(*(yield Pass(True, d, q, True)), db_str, query_str)
         return Alignment(
             score=flipped.score,
             query_start=flipped.db_start,
@@ -348,35 +429,13 @@ def _direct_traceback(
             db_aligned=flipped.query_aligned,
             cigar=flipped.cigar.translate(str.maketrans("ID", "DI")),
         )
+    return _walk(*(yield Pass(True, q, d, False)), query_str, db_str)
 
-    with trace.span("fill", cells_host=lq * lb):
-        lib = _native_for(table)
-        if lib is not None:
-            states = _states_buffer((lb + 1) * (lq + 1)).reshape(lb + 1, lq + 1)
-            q8 = np.ascontiguousarray(q, dtype=np.int8)
-            d8 = np.ascontiguousarray(d, dtype=np.int8)
-            t8 = np.ascontiguousarray(table, dtype=np.int8)
-            bj = ctypes.c_int64()
-            bi = ctypes.c_int64()
-            best = int(
-                lib.sw_tb_fill(
-                    q8.ctypes.data, lq, d8.ctypes.data, lb, t8.ctypes.data,
-                    go, ge, states.ctypes.data,
-                    ctypes.byref(bj), ctypes.byref(bi),
-                )
-            )
-            if best == np.iinfo(np.int64).min:
-                raise MemoryError("native traceback fill allocation failed")
-            best_pos = (int(bj.value), int(bi.value))
-        else:
-            _, tb_h, tb_e, tb_f, best, best_pos = _fill_matrices(
-                q, d, table, go, ge
-            )
-            # Pack to the native layout so one walkback serves both paths.
-            states = tb_h | (tb_e << 2) | (tb_f << 4)
 
+def _walk(states, best, best_pos, query_str, db_str) -> Alignment:
+    """Walk back from the best H cell ``best_pos`` = (j, i) over ``states``
+    (row j, column i) to the gapped strings and the CIGAR."""
     with trace.span("walk"):
-        # Walk back from the best H cell.
         j, i = best_pos
         mat = 1  # start in H
         qa, da, ops = [], [], []
@@ -435,7 +494,7 @@ def _direct_traceback(
         )
 
 
-def _localized_traceback(
+def _localized_steps(
     query_idx: np.ndarray,
     db_idx: np.ndarray,
     table: np.ndarray,
@@ -444,8 +503,8 @@ def _localized_traceback(
     query_str: str | None = None,
     db_str: str | None = None,
     end: tuple[int, int] | None = None,
-) -> Alignment:
-    """Linear-space recompute for huge pairs (see sw_traceback docstring).
+):
+    """Linear-space recompute for huge pairs, as steps (see sw_traceback).
 
     1. Forward score-only pass -> best score + END cell (rolling rows) —
        skipped when the caller supplies ``end`` (e.g. from
@@ -458,22 +517,21 @@ def _localized_traceback(
        optimum must equal the global best (checked; on mismatch the pair
        falls back to the direct full-matrix fill when it fits MAX_CELLS).
     """
-    go = int(gap_open) + int(gap_extend)
     ge = int(gap_extend)
     q = np.asarray(query_idx)
     d = np.asarray(db_idx)
     lq, lb = len(q), len(d)
 
-    def _inconsistent(what: str) -> Alignment:
+    def _inconsistent(what: str):
         # Localization produced contradictory scores (e.g. a stale
         # caller-supplied end cell). Recover with the always-correct direct
         # fill when it fits; otherwise fail loudly — a bare assert would be
         # stripped under python -O and return a silently wrong alignment.
         if (lq + 1) * (lb + 1) <= MAX_CELLS:
-            return _direct_traceback(
+            return (yield from _direct_steps(
                 q, d, table, gap_open, gap_extend,
                 query_str=query_str, db_str=db_str,
-            )
+            ))
         raise RuntimeError(
             f"localized traceback self-check failed ({what}) and the "
             f"{lq+1}x{lb+1} pair exceeds MAX_CELLS for the direct fallback"
@@ -484,10 +542,9 @@ def _localized_traceback(
         best = None  # established by the reverse pass below
     elif lq >= lb:
         # Forward pass, vector width on the longer dimension.
-        best, (ej, ei) = _score_ends(q, d, table, go, ge)
+        best, (ej, ei) = yield Pass(False, q, d, False)
     else:
-        tt = np.ascontiguousarray(table.T)
-        best, (ei, ej) = _score_ends(d, q, tt, go, ge)
+        best, (ei, ej) = yield Pass(False, d, q, True)
     if best == 0 or ej == 0 or ei == 0:
         return Alignment(
             score=0, query_start=0, query_end=0, db_start=0, db_end=0,
@@ -502,19 +559,19 @@ def _localized_traceback(
     qr = np.ascontiguousarray(q[ei - wq : ei][::-1])
     dr = np.ascontiguousarray(d[ej - wd : ej][::-1])
     if wq >= wd:
-        r_best, (rj, ri) = _score_ends(qr, dr, table, go, ge)
+        r_best, (rj, ri) = yield Pass(False, qr, dr, False)
     else:
-        tt = np.ascontiguousarray(table.T)
-        r_best, (ri, rj) = _score_ends(dr, qr, tt, go, ge)
+        r_best, (ri, rj) = yield Pass(False, dr, qr, True)
     if best is None:  # caller-supplied end: the reverse pass sets the score
         best = r_best
     if r_best != best:
-        return _inconsistent(f"reverse-pass score {r_best} != forward {best}")
+        return (yield from _inconsistent(
+            f"reverse-pass score {r_best} != forward {best}"))
     i0, j0 = ei - ri, ej - rj
 
     rq, rd = q[i0:ei], d[j0:ej]
     if (len(rq) + 1) * (len(rd) + 1) <= MAX_CELLS:
-        sub = _direct_traceback(
+        sub = yield from _direct_steps(
             rq, rd, table, gap_open, gap_extend,
             query_str=query_str[i0:ei] if query_str is not None else None,
             db_str=db_str[j0:ej] if db_str is not None else None,
@@ -526,6 +583,7 @@ def _localized_traceback(
         # optimal local alignment between its own end cells is an optimal
         # *anchored global* alignment of the substrings (the zero floor
         # can only raise H, so no anchored path exceeds it).
+        go = int(gap_open) + ge
         with trace.span("fill", cells_host=len(rq) * len(rd)):
             ops = _myers_miller(rq, rd, table, go, ge)
         sub = _alignment_from_ops(
@@ -535,7 +593,8 @@ def _localized_traceback(
             go, ge, table,
         )
     if sub.score != best:
-        return _inconsistent(f"rectangle score {sub.score} != best {best}")
+        return (yield from _inconsistent(
+            f"rectangle score {sub.score} != best {best}"))
     return Alignment(
         score=sub.score,
         query_start=i0 + sub.query_start,
@@ -842,6 +901,49 @@ def _batched_engine_ends(query_idx, db, recs, table, gap_open, gap_extend,
     return {int(r): (int(bj[kth]), int(bi[kth])) for kth, r in enumerate(recs)}
 
 
+def _run_on_card(steps: list, table, gap_open, gap_extend, device) -> list:
+    """Drive several pairs' traceback ``steps`` together: every pending
+    ends pass in one launch of ``csrc/tb_fill.cu`` (the ends first, so
+    that the fills wait for them and go together), then every pending
+    fill; a pass the kernel cannot take exactly (``traceback_cuda.fits``)
+    runs on the host. Each launch, its upload and its download lie inside
+    one ``ends`` or ``fill`` span, counted as ``cells_device``. Returns the
+    Alignments in the order of ``steps``."""
+    go = int(gap_open) + int(gap_extend)
+    ge = int(gap_extend)
+    done = [None] * len(steps)
+    waiting = {}
+
+    def advance(k, result):
+        try:
+            waiting[k] = steps[k].send(result)
+        except StopIteration as stop:
+            done[k] = stop.value
+
+    for k in range(len(steps)):
+        advance(k, None)
+    while waiting:
+        states = all(p.states for p in waiting.values())
+        card = []
+        for k in sorted(k for k, p in waiting.items() if p.states == states):
+            p = waiting.pop(k)
+            if tbc.fits(p, table, go, ge):
+                card.append((k, p))
+            else:
+                advance(k, _host_pass(p, table, go, ge))
+        keys = iter(k for k, _ in card)
+        for batch in tbc.batches([p for _, p in card], states):
+            launch = tbc.plan(batch, table, states)
+            prepared = tbc.prepare(launch, device)
+            cells = sum(len(p.q) * len(p.d) for p in batch)
+            with trace.span("fill" if states else "ends", cells_device=cells):
+                found = tbc.run(launch, prepared, go, ge)
+            del prepared
+            for result in found:  # walks the states before the next launch
+                advance(next(keys), result)
+    return done
+
+
 def topk_alignments(
     query_idx: np.ndarray,
     db,
@@ -859,16 +961,26 @@ def topk_alignments(
     ``db`` is an EncodedDatabase (or anything with ``record(i)``); returns
     [(record_id, Alignment)] sorted by descending score (stable).
 
-    ``engine_ends``: None (auto) localizes the ends of the pairs beyond the
-    direct-fill threshold in one call of the wavefront ends engine on
-    ``device`` (default ``device.resolve_device()``, the search's);
-    False forces host-only localization.
+    ``device`` defaults to ``device.resolve_device()``, the search's. On a
+    CUDA device the hits' dynamic-programming passes run on the card
+    (:func:`_run_on_card`), each pass of every hit in one launch; the walks
+    stay on the host. On another device, ``engine_ends`` None (auto)
+    localizes the ends of the pairs beyond the direct-fill threshold in one
+    call of the wavefront ends engine on ``device``. ``engine_ends=False``
+    keeps every pass on the host, on any device.
     """
     n = len(scores)
     with trace.span("align", hits=min(k, n)):
         with trace.span("select", records=n):
             order = np.argsort(-np.asarray(scores), kind="stable")[:k]
         recs = [int(r) for r in order]
+        card = _card(device) if engine_ends is not False else None
+        if card is not None:
+            found = _run_on_card(
+                [_traceback_steps(query_idx, db.record(rec), table, gap_open,
+                                  gap_extend, query_str=query_str) for rec in recs],
+                table, gap_open, gap_extend, card)
+            return list(zip(recs, found))
         ends: dict[int, tuple[int, int]] = {}
         if engine_ends is not False:
             lq = len(query_idx)
@@ -897,3 +1009,18 @@ def topk_alignments(
             )
             out.append((rec, aln))
         return out
+
+
+def _card(device):
+    """``device`` (None: the search's default, where a card is present) if
+    it is a CUDA device, else None."""
+    import torch
+
+    if device is None:
+        if not torch.cuda.is_available():
+            return None
+        from ..device import resolve_device
+
+        device = resolve_device()
+    device = torch.device(device)
+    return device if device.type == "cuda" else None

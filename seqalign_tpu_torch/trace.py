@@ -16,8 +16,8 @@ These spans have counters:
   (``plan_hit_pct``);
 - the alignment step after a search (``ops.traceback.topk_alignments``):
   ``seqalign.align``, ``hits``; ``seqalign.select``, ``records``;
-  ``seqalign.ends``, ``cells_host`` or ``cells_device``; ``seqalign.fill``,
-  ``cells_host`` (``align_host_cell_pct`` reads the last two).
+  ``seqalign.ends`` and ``seqalign.fill``, ``cells_host`` or
+  ``cells_device`` (``align_host_cell_pct`` reads them).
 
 Counters come from data the host holds (shapes, plans); no span reads a
 device value or waits for the device.

@@ -2,19 +2,22 @@
 ``torch.profiler``), on a database of a few hundred records under BLOSUM62
 11/1: one ``seqalign.align`` root a call with the top-k choice, the ends,
 the fills and the walks inside it, and the cells each counts, worked out
-from the pairs' shapes and the alignments' spans.
+from the pairs' shapes and the alignments' spans. On a CUDA device the
+passes run on the card and count ``cells_device``: that route is run here
+with the kernel replaced by the native host functions.
 
 The file imports neither JAX nor the JAX package.
 """
 
 import numpy as np
 import pytest
-
 from seqalign_tpu_torch import pipeline, trace
 from seqalign_tpu_torch.host import ScoringModel, encode, load_builtin
 from seqalign_tpu_torch.ops import traceback as tb
+from swbench.metrics import align_host_cell_pct
 
 from test_torch_trace import inside, traced
+from test_torch_traceback_plan import on_card  # noqa: F401 (a fixture)
 
 AMINO_ACIDS = "ACDEFGHIKLMNPQRSTVWY"
 K = 12
@@ -178,3 +181,47 @@ def test_myers_miller_counts_its_rectangle_once(scoring, monkeypatch):
     rects = [(a.query_end - a.query_start) * (a.db_end - a.db_start) for _, a in found]
     assert min(rects) > 1 << 12
     assert [r["counts"]["cells_host"] for r in records if r["name"] == "seqalign.fill"] == rects
+
+
+def test_card_route_counts_its_passes_as_device_cells(scoring, monkeypatch, on_card):
+    """One ``ends`` of every long pair's forward pass, one of their reverse
+    passes, one ``fill`` of every hit's states, each counted as
+    ``cells_device`` (rows x columns, as the host counts them); the walks
+    inside the root as before; ``align_host_cell_pct`` reads 0."""
+    monkeypatch.setattr(tb, "_DIRECT_CELLS", DIRECT_CELLS)
+    query, db = case()
+    scores, _ = pipeline.search_database(query, db, scoring, device="cpu")
+    run = lambda: tb.topk_alignments(query, db, scores, K, scoring.table, scoring.gap_open,
+                                     scoring.gap_extend)
+    found, spans, records, _, _ = traced(run)
+    want = tb.topk_alignments(query, db, scores, K, scoring.table, scoring.gap_open,
+                              scoring.gap_extend, engine_ends=False)
+    assert found == want
+    lq = len(query)
+    long = [(r, a) for r, a in found if (len(db.record(r)) + 1) * (lq + 1) > DIRECT_CELLS]
+    assert 0 < len(long) < K
+    fills = [(a.query_end - a.query_start) * (a.db_end - a.db_start)
+             if (len(db.record(r)) + 1) * (lq + 1) > DIRECT_CELLS else lq * len(db.record(r))
+             for r, a in found]
+    assert [(r["name"], r["counts"]) for r in records] == [
+        ("seqalign.align", {"hits": K}), ("seqalign.select", {"records": db.n}),
+        ("seqalign.ends", {"cells_device": lq * sum(len(db.record(r)) for r, _ in long)}),
+        ("seqalign.ends", {"cells_device": sum(reverse_window(a, scoring.table,
+                                                              scoring.gap_extend)
+                                               for _, a in long)}),
+        ("seqalign.fill", {"cells_device": sum(fills)})]
+    assert [len(launch) for launch in on_card] == [len(long), len(long), K]
+    root = [ev for ev in spans if ev[0] == "seqalign.align"]
+    assert len(root) == 1
+    assert {ev[0] for ev in spans if ev is not root[0] and inside(ev, root[0])} == STEPS
+    assert sum(ev[0] == "seqalign.walk" for ev in spans) == K
+    assert align_host_cell_pct.read(None) == 0
+
+
+def test_host_route_reads_every_cell_on_the_host(scoring, monkeypatch):
+    """On a CPU device the step stays on the host: ``align_host_cell_pct``
+    reads 100."""
+    monkeypatch.setattr(tb, "_DIRECT_CELLS", DIRECT_CELLS)
+    query, db = case()
+    traced(align(query, db, scoring.table, scoring))
+    assert align_host_cell_pct.read(None) == 100
