@@ -631,7 +631,7 @@ def stream_case(name, lq, n, lo, hi, nw, win, seed, encoded=None, order=None,
     from seqalign_tpu_torch.ops.swa_cuda import STREAM_JB as jb
     from seqalign_tpu_torch.ops.swa_torch import make_profile
     from seqalign_tpu_torch.pipeline import STREAM_GRAIN as grain
-    from seqalign_tpu_torch.pipeline import _db_from_encoded, multi_profile
+    from seqalign_tpu_torch.pipeline import PLANS, _db_from_encoded, multi_profile
 
     sc = scoring(name)
     rng = np.random.default_rng(seed)
@@ -646,7 +646,7 @@ def stream_case(name, lq, n, lo, hi, nw, win, seed, encoded=None, order=None,
                    for _ in range(n)]
     db = _db_from_encoded(encoded)
     if order is None:
-        order = np.argsort(-db.lengths, kind="stable")
+        order = PLANS.find(db, True).order
     pack = pack_streams(db, order, nw, win=win, jb=jb, grain=grain)
     go, ge = sc.gap_open_total, sc.gap_extend
     if striped:
@@ -1251,7 +1251,7 @@ def pack_cases(torch, chk: Checker):
     from seqalign_tpu_torch.convert import database_to_torch, stream_pack_to_torch
     from seqalign_tpu_torch.host import encode, pack_streams, plan_streams
     from seqalign_tpu_torch.ops.pack_cuda import pack_streams_device, pack_streams_reference
-    from seqalign_tpu_torch.pipeline import STREAM_GRAIN, STREAM_JB, _db_from_encoded
+    from seqalign_tpu_torch.pipeline import PLANS, STREAM_GRAIN, STREAM_JB, _db_from_encoded
 
     for k, (label, n, lo, hi, nw, win, zeros, stars, extra) in enumerate(PACK_CASES):
         rng = np.random.default_rng(400 + k)
@@ -1267,7 +1267,7 @@ def pack_cases(torch, chk: Checker):
                 recs[r] = recs[r].copy()
                 recs[r][rng.integers(1, len(recs[r]) - 1)] = 31
         db = _db_from_encoded(recs)
-        order = np.argsort(-db.lengths, kind="stable")
+        order = PLANS.find(db, True).order
         kw = dict(win=win, jb=STREAM_JB, grain=STREAM_GRAIN)
         if extra is not None:
             kw["target_len"] = plan_streams(db.lengths, order, nw, **kw).L + extra
@@ -1288,7 +1288,7 @@ def pack_cases(torch, chk: Checker):
     slots, free = pipeline.MAX_STREAM_SLOTS, pipeline.device_free_bytes
     pipeline.MAX_STREAM_SLOTS = 1
     try:
-        chunks = len(pipeline.chunk_bounds(db, np.argsort(-db.lengths, kind="stable")))
+        chunks = len(pipeline.chunk_bounds(db, pipeline.PLANS.find(db, True).order))
         whole, _ = pipeline.search_database(query, db, sc, device="cuda")
         pipeline.device_free_bytes = lambda device: 0
         per_chunk, _ = pipeline.search_database(query, db, sc, device="cuda")
@@ -1317,7 +1317,7 @@ def phase_main_path(torch, chk: Checker, smi: str, query, db, loops, usage):
     pack_cases(torch, chk)
     sc = scoring("PAM250")
     residues = int(db.offsets[-1])
-    order = np.argsort(-db.lengths, kind="stable")
+    order = pipeline.PLANS.find(db, True).order
     chunks = len(pipeline.chunk_bounds(db, order))
 
     reset_counts(swa_cuda)
@@ -1623,11 +1623,10 @@ def phase_multi_path(torch, chk: Checker, smi: str, db, k1_pack, nq, lq,
     print(f"{tag} all {nq} x {db.n} scores == K1 per query", flush=True)
 
     # The launches as the pipeline makes them, on card tensors made once.
-    order = np.argsort(-db.lengths, kind="stable")
     blocks = pipeline.query_blocks(
         pipeline.multi_profile(sc.table, queries), go, db.n, torch.device("cuda"))
     chunks = [(chunk, *packed) for chunk, packed in
-              pipeline.stream_chunks(db, order, None, torch.device("cuda"))]
+              pipeline.stream_chunks(db, None, torch.device("cuda"))]
     jb = swa_cuda.STREAM_JB
 
     def k3_all():
@@ -1784,9 +1783,9 @@ def phase_striped_path(torch, chk: Checker, smi: str, db, loops, usage, factor,
     print(f"{tag} device memory: peak {peak} B above the {base} B held before "
           "the search (streams, fs, boundaries, bests; K2 allocates no "
           "rolling-row scratch)", flush=True)
-    order = np.argsort(-db.lengths, kind="stable")
+    order = pipeline.PLANS.find(db, True).order
     chunks = [(c, *packed) for c, packed in
-              pipeline.stream_chunks(db, order, None, dev, pipeline.striped_chunk_residues())]
+              pipeline.stream_chunks(db, None, dev, pipeline.striped_chunk_residues())]
     stripes = profile_stripes(make_profile(sc.table, query), go, swa_cuda.STRIPE_ROWS, "cuda")
     passes = len(stripes) * len(chunks)
     if (counts["sw_stream_striped_pass"] != 2 * passes
@@ -2044,7 +2043,7 @@ def phase_fixed_path(torch, chk: Checker, smi: str, query, db, loops, usage, fac
     residues = int(db.offsets[-1])
     profile = make_profile(sc.table, query)
     prof = profile_to_torch(profile, go, "cuda")
-    order = np.argsort(-db.lengths, kind="stable")
+    order = pipeline.PLANS.find(db, True).order
     engine = pipeline.get_engine("windows")
     launches = {}
     for lanes in FIXED_LANES:
@@ -2779,7 +2778,7 @@ def phase_parallel(torch, smi: str, db, query, k1_scores, k1_kernel_s, multi8, f
     profile = make_profile(sc.table, query)
     cuda0 = torch.device("cuda", 0)
     win = pipeline.WINDOW_LANES
-    order = np.argsort(-db.lengths, kind="stable")
+    order = pipeline.PLANS.find(db, True).order
     result = {"sw_stream": {}, "sw_stream_multi": {}, "sw_windows": {}}
 
     # (a) multi_device_search: K1 once per entry, every score phase 4's.

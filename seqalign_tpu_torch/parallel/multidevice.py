@@ -29,7 +29,7 @@ from ..host import EncodedDatabase
 from ..ops import swa_cuda
 from ..ops.swa_cuda import STREAM_JB, TEAM_MAX_SLOTS, sw_stream, sw_stream_multi
 from ..pipeline import (
-    WINDOW_LANES, DevicePacker, _sync, chunk_device_bytes, plan_chunk, query_blocks,
+    PLANS, WINDOW_LANES, DevicePacker, _sync, chunk_device_bytes, plan_chunk, query_blocks,
     resident_lanes, scatter_slots,
 )
 
@@ -109,8 +109,7 @@ def multi_device_search(
     if engine_fn is None:
         engine_fn = functools.partial(sw_stream_multi if multi else sw_stream, rows=rows)
 
-    order = np.argsort(-db.lengths, kind="stable")
-    chunks = deal_chunks(order, db.lengths, len(devices), win=win)
+    chunks = deal_chunks(PLANS.find(db, True).order, db.lengths, len(devices), win=win)
     plans = []
     for dev, chunk in zip(devices, chunks):
         if not len(chunk):

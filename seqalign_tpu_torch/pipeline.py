@@ -571,20 +571,23 @@ class DevicePacker:
 
 
 def stream_chunks(
-    db: EncodedDatabase, order: np.ndarray, lanes: int | None,
-    device: torch.device, max_residues: int | None = None,
+    db: EncodedDatabase, lanes: int | None, device: torch.device,
+    max_residues: int | None = None,
 ) -> Iterable[tuple[np.ndarray, tuple[torch.Tensor, torch.Tensor, int]]]:
-    """``(records, (streams, fs, nslots))`` of each chunk a search launches
-    on (:func:`chunk_bounds`, :func:`plan_chunk`), packed on ``device`` by
+    """``(records, (streams, fs, nslots))`` of each chunk a search of
+    ``db``'s records in length order launches on, its order, bounds and plans
+    taken from :data:`PLANS` as :func:`_stream_search` takes them (after a
+    search of the same records nothing is planned), packed on ``device`` by
     one :class:`DevicePacker`."""
     max_lanes = resident_lanes(device)
-    plans = [(order[a:b], plan_chunk(db.lengths, order[a:b], lanes, max_lanes))
-             for a, b in chunk_bounds(db, order, max_residues)]
+    planned = PLANS.find(db, True)
+    cut = PLANS.cut(planned, db, lanes, max_lanes, max_residues)
+    plans = PLANS.plans(planned, cut, cut.bounds, lanes, max_lanes)
     striped = max_residues is not None
     packer = DevicePacker(db, device, max(
-        (chunk_device_bytes(p, striped=striped) for _, p in plans), default=0))
-    for chunk, plan in plans:
-        yield chunk, (*packer(plan), len(plan.slot_lb))
+        (chunk_device_bytes(p, striped=striped) for p in plans), default=0))
+    for (start, stop), plan in zip(cut.bounds, plans):
+        yield planned.order[start:stop], (*packer(plan), len(plan.slot_lb))
 
 
 def striped_chunk_residues() -> int:

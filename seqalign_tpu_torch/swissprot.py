@@ -141,11 +141,11 @@ def longpair_case(db: EncodedDatabase):
     records)`` lane batch)."""
     from .host import pack_batch
     from .ops.swa_torch import make_profile
-    from .pipeline import _db_from_encoded
+    from .pipeline import PLANS, _db_from_encoded
 
     sc = pam250()
     query = random_query(LONGPAIR_LQ, LONGPAIR_LQ)
-    ids = np.argsort(-db.lengths, kind="stable")[:LONGPAIR_RECORDS]
+    ids = PLANS.find(db, True).order[:LONGPAIR_RECORDS]
     sub = _db_from_encoded([db.seq[db.offsets[i]:db.offsets[i + 1]] for i in ids])
     batch = pack_batch(sub, np.arange(sub.n), sub.n, int(sub.lengths.max()))
     return query, make_profile(sc.table, query), sc, sub, batch
@@ -346,7 +346,7 @@ def ingest_breakdown(db: EncodedDatabase, fasta: Path, say) -> dict:
     if parsed.names != plain.names:
         raise SystemExit("swissprot: native and Python parses name the records differently")
     del plain
-    order = np.argsort(-db.lengths, kind="stable")
+    order = pipeline.PLANS.find(db, True).order
     win = pipeline.WINDOW_LANES
     nw = pipeline.choose_windows(db.lengths[order], win, None,
                                  pipeline.resident_lanes(pipeline.resolve_device()))
@@ -434,7 +434,7 @@ def stream_k1_ms(db, profs) -> dict[int, float]:
 
     dev = torch.device("cuda")
     sc = pam250()
-    order = np.argsort(-db.lengths, kind="stable")
+    order = pipeline.PLANS.find(db, True).order
     win = pipeline.WINDOW_LANES
     nw = pipeline.choose_windows(db.lengths[order], win, None, pipeline.resident_lanes(dev))
     pack = pack_streams(db, order, nw, win=win, jb=STREAM_JB, grain=pipeline.STREAM_GRAIN)
@@ -461,7 +461,7 @@ def fixed_breakdown(db, profs, k1_ms, say, teams: bool = False) -> list[dict]:
     sc = pam250()
     go, ge = sc.gap_open_total, sc.gap_extend
     residues = int(db.offsets[-1])
-    order = np.argsort(-db.lengths, kind="stable")
+    order = pipeline.PLANS.find(db, True).order
     out = []
     for lanes in FIXED_LANES:
         t0 = time.perf_counter()
@@ -534,15 +534,15 @@ def multi_breakdown(db, nq: int, lq: int, say) -> dict:
     pipeline.search_database_multi(queries, db, sc, device=dev)  # builds the kernel
     steps = {}
     t0 = time.perf_counter()
-    order = np.argsort(-db.lengths, kind="stable")
     blocks = pipeline.query_blocks(
         pipeline.multi_profile(sc.table, queries), go, db.n, dev)
-    steps["sort_and_profiles"] = time.perf_counter() - t0
-    # Plan, copy of the database and pack kernel, chunk by chunk, as the
-    # pipeline runs them before its timer.
+    steps["profiles"] = time.perf_counter() - t0
+    # Order and plans (the memo's, made by the search above), copy of the
+    # database and pack kernel, chunk by chunk, as the pipeline runs them
+    # before its timer.
     chunks, steps["plan_copy_pack"] = _seconds(
         lambda: [(chunk, *packed) for chunk, packed in
-                 pipeline.stream_chunks(db, order, None, dev)])
+                 pipeline.stream_chunks(db, None, dev)])
 
     def k3_all():
         return [sw_stream_multi(b, s, f, go, ge, nslots=ns, rows=lq, **kw)
@@ -688,7 +688,7 @@ def main(argv=None) -> int:
     # the host packer's steps they replaced.
     pipeline.search_database(query, db, sc, device=dev)  # builds the kernel
     t0 = time.perf_counter()
-    order = np.argsort(-db.lengths, kind="stable")
+    order = pipeline.PLANS.find(db, True).order
     steps["sort"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     plan = pipeline.plan_chunk(db.lengths, order, None, pipeline.resident_lanes(dev))

@@ -167,7 +167,7 @@ def _fixed_worker(root: str, reps: int) -> dict:
     go, ge = sc.gap_open_total, sc.gap_extend
     dev = torch.device("cuda", 0)
     prof = profile_to_torch(make_profile(sc.table, query), go, dev)
-    order = np.argsort(-db.lengths, kind="stable")
+    order = pipeline.PLANS.find(db, True).order
     out = {"root": root, "card": card(), "cells": {}}
     for lanes in FIXED_LANES:
         wins = [batch_windows(b, swa_cuda.FIXED_WINDOW_LANES, swa_cuda.STREAM_JB, dev)

@@ -3,13 +3,21 @@
 Every input is made from a seed with numpy and handed to both packages.
 """
 
+import os
+
 import numpy as np
+import torch
 
 from seqalign_tpu.models import (
     PAD_INDEX, ScoringModel, encode, load_builtin, sw_default_scoring,
 )
 
 from conftest import random_protein
+
+if "PYTEST_XDIST_WORKER_COUNT" in os.environ:
+    # Each xdist worker's torch would take every core (6 workers x 8 threads on 8 cores).
+    torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                              // int(os.environ["PYTEST_XDIST_WORKER_COUNT"])))
 
 SCORINGS = [
     "BLOSUM45", "BLOSUM62", "PAM250", "match_mismatch", "random", "go_eq_ge",

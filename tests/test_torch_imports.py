@@ -103,3 +103,16 @@ def test_ops_layer_does_not_import_the_pipeline(path):
                 ".pipeline"), f"{path.name}:{node.lineno} imports the pipeline"
         elif isinstance(node, ast.Import):
             assert not [a.name for a in node.names if a.name.endswith("pipeline")]
+
+
+def test_an_xdist_worker_takes_its_share_of_the_cores():
+    """Under xdist each worker's torch runs its share of the cores' intra-op
+    threads (``_torch_cases``), not every core."""
+    workers = os.environ.get("PYTEST_XDIST_WORKER_COUNT")
+    if workers is None:
+        pytest.skip("not an xdist worker")
+    import torch
+
+    import _torch_cases  # noqa: F401  sets the share at import
+
+    assert torch.get_num_threads() == max(1, (os.cpu_count() or 1) // int(workers))

@@ -224,13 +224,15 @@ def test_device_scatter_equals_host_scatter(name, queries):
 
 def test_stream_chunks_equal_the_host_packer(monkeypatch):
     """Every chunk ``stream_chunks`` packs on the device equals the host
-    packer's streams for that chunk's plan."""
+    packer's streams for that chunk's plan, the chunks in the stable length
+    order."""
     monkeypatch.setattr(pipeline, "MAX_STREAM_SLOTS", 2)
     rng = np.random.default_rng(5)
     db = pipeline._db_from_encoded(random_records(rng, 1400, 1, 40))
-    order = np.argsort(-db.lengths, kind="stable")
-    chunks = list(pipeline.stream_chunks(db, order, None, torch.device("cpu")))
+    chunks = list(pipeline.stream_chunks(db, None, torch.device("cpu")))
     assert len(chunks) == 3
+    np.testing.assert_array_equal(np.concatenate([c for c, _ in chunks]),
+                                  np.argsort(-db.lengths, kind="stable"))
     for chunk, (streams, fs, nslots) in chunks:
         plan = pipeline.plan_chunk(db.lengths, chunk, None, None)
         want = stream_pack_to_torch(

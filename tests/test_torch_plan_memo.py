@@ -163,6 +163,34 @@ def test_the_packed_streams_are_equal_on_a_hit_and_a_miss(copy, scoring, memo, m
     assert hashes == miss and memo.planned == len(miss)
 
 
+def test_stream_chunks_take_the_search_s_plans(scoring, memo, monkeypatch):
+    """After a search of a database, ``stream_chunks`` over its records
+    plans nothing, yields the search's chunks in its order and packs the
+    streams the search packed, which a fresh memo packs too."""
+    several_chunks(monkeypatch)
+    hashes = streams_hash(monkeypatch)
+    rng = np.random.default_rng(127)
+    db = database(rng, 900)
+    pipeline.search_database(protein(rng, 20), db, scoring, device="cpu")
+    (entry,) = memo.entries
+    (cut,) = entry.cuts.values()
+    searched, planned = list(hashes), memo.planned
+    assert len(searched) == planned == len(cut.bounds) > 1
+    hashes.clear()
+    chunks = [c for c, _ in pipeline.stream_chunks(db, None, torch.device("cpu"))]
+    assert memo.planned == planned and memo.entries == [entry]
+    assert len(chunks) == len(cut.bounds)
+    for (start, stop), chunk in zip(cut.bounds, chunks):
+        np.testing.assert_array_equal(chunk, entry.order[start:stop])
+    assert hashes == searched
+    hashes.clear()
+    monkeypatch.setattr(pipeline, "PLANS", pipeline.PlanMemo())
+    fresh = [c for c, _ in pipeline.stream_chunks(db, None, torch.device("cpu"))]
+    assert memo.planned == 2 * planned and hashes == searched
+    for a, b in zip(chunks, fresh, strict=True):
+        np.testing.assert_array_equal(a, b)
+
+
 @pytest.mark.parametrize("sort", [True, False])
 def test_the_order_is_the_stable_length_sort(sort, scoring, memo):
     """The memo's order is the stable descending argsort of the lengths (or

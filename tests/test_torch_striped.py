@@ -283,8 +283,7 @@ def test_long_query_chunks_by_boundary_budget(shrunk, monkeypatch):
     q = sc.query_indices(random_protein(rng, 20))
     db = _db(rng, 1500)
     chunks = list(pipeline.stream_chunks(
-        db, np.argsort(-db.lengths, kind="stable"), None, torch.device("cpu"),
-        pipeline.striped_chunk_residues()))
+        db, None, torch.device("cpu"), pipeline.striped_chunk_residues()))
     assert len(chunks) > 2
     assert all(len(c) % pipeline.WINDOW_LANES == 0 for c, _ in chunks[:-1])
     assert sum(len(c) for c, _ in chunks) == db.n
